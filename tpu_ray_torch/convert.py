@@ -1,0 +1,65 @@
+"""Carry a scene across packages as a dict of numpy arrays.
+
+For a ray tracer the scene arrays are the weights: to hold the port
+against the JAX package, both must render the very same arrays.  A JAX
+``SceneData`` flattens to a dict keyed ``"<group>.<field>"`` for its
+tensors (``"prims.center"``, ``"texs.perlin_salt"``, ``"background"``,
+...) plus its static fields by name (``"n_prims"``, ``"t_min"``, ...);
+:func:`scene_from_jax_arrays` turns such a dict into the port's
+:class:`~tpu_ray_torch.models.scene_data.SceneData`, and
+:func:`scene_to_arrays` is its inverse.  Neither imports JAX: the caller
+that holds a JAX scene builds the dict.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models.scene_data import (
+    STATIC_FIELDS,
+    LightArrays,
+    MaterialArrays,
+    PrimArrays,
+    SceneData,
+    TextureArrays,
+)
+
+_GROUPS = {"prims": PrimArrays, "mats": MaterialArrays,
+           "texs": TextureArrays, "lights": LightArrays}
+_TOP = ("background", "prim_payload", "mat_payload")
+
+
+def scene_to_arrays(scene: SceneData) -> dict:
+    """The port scene as a dict of numpy arrays and static values."""
+    out = {}
+    for g in _GROUPS:
+        sub = getattr(scene, g)
+        for f in dataclasses.fields(sub):
+            out[f"{g}.{f.name}"] = getattr(sub, f.name).cpu().numpy()
+    for k in _TOP:
+        out[k] = getattr(scene, k).cpu().numpy()
+    for k in STATIC_FIELDS:
+        out[k] = getattr(scene, k)
+    return out
+
+
+def scene_from_jax_arrays(d: dict, device="cpu") -> SceneData:
+    """Build the port's ``SceneData`` from a dict of numpy arrays (the JAX
+    ``SceneData`` leaves keyed as in the module note) plus static fields.
+    Arrays keep their dtypes (uint32 stays uint32)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    groups = {
+        g: cls(**{f.name: t(d[f"{g}.{f.name}"])
+                  for f in dataclasses.fields(cls)})
+        for g, cls in _GROUPS.items()
+    }
+    statics = {}
+    for k in STATIC_FIELDS:
+        v = d[k]
+        statics[k] = float(v) if k == "t_min" else (
+            bool(v) if isinstance(v, (bool, np.bool_)) else int(v))
+    return SceneData(**groups, **{k: t(d[k]) for k in _TOP}, **statics)

@@ -1,0 +1,91 @@
+"""Batched 3-vector math on ``(..., 3)`` tensors.
+
+Port of ``tpu_ray/core/vec.py``: every quantity is a trailing-axis-3 tensor
+so a whole wavefront of rays is one value.  ``take_rows`` is a plain
+indexed load here (the JAX package's one-hot contraction was a TPU gather
+workaround).
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "dot",
+    "cross",
+    "length",
+    "squared_length",
+    "normalize",
+    "where3",
+    "reflect",
+    "refract",
+    "onb_from_w",
+    "onb_local",
+    "take_rows",
+]
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inner product over the trailing axis, summed x + y + z in order."""
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack(
+        [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def squared_length(a: torch.Tensor) -> torch.Tensor:
+    return dot(a, a)
+
+
+def length(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(squared_length(a))
+
+
+def normalize(a: torch.Tensor) -> torch.Tensor:
+    """Unit vector; zero vectors map to zero instead of NaN."""
+    n2 = squared_length(a)
+    inv = torch.where(n2 > 0.0, 1.0 / torch.sqrt(torch.clamp(n2, min=1e-30)),
+                      torch.zeros_like(n2))
+    return a * inv[..., None]
+
+
+def where3(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` with a rank-(n-1) mask broadcast over the vector axis."""
+    return torch.where(mask[..., None], a, b)
+
+
+def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    return v - 2.0 * dot(v, n)[..., None] * n
+
+
+def refract(uv: torch.Tensor, n: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
+    """Snell refraction of a *unit* direction."""
+    cos_theta = dot(-uv, n)
+    r_par = ratio[..., None] * (uv + cos_theta[..., None] * n)
+    k = torch.clamp(1.0 - squared_length(r_par), min=0.0)
+    return r_par + (-torch.sqrt(k))[..., None] * n
+
+
+def onb_from_w(n: torch.Tensor):
+    """Orthonormal basis (u, v, w) whose w-axis is ``unit(n)``."""
+    w = normalize(n)
+    pick = (torch.abs(w[..., 0]) > 0.9)[..., None]
+    e_y = torch.tensor([0.0, 1.0, 0.0], dtype=w.dtype, device=w.device)
+    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=w.dtype, device=w.device)
+    a = torch.where(pick, e_y, e_x)
+    v = normalize(cross(w, a))
+    return cross(w, v), v, w
+
+
+def onb_local(uvw, x: torch.Tensor) -> torch.Tensor:
+    u, v, w = uvw
+    return x[..., 0:1] * u + x[..., 1:2] * v + x[..., 2:3] * w
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (rows of a small table per lane)."""
+    return table[idx.to(torch.int64)]

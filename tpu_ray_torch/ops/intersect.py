@@ -1,0 +1,132 @@
+"""Closest hit of a wavefront against the whole scene.
+
+Port of ``tpu_ray/ops/intersect.py::intersect_ti``: solids go through the
+closest-hit sweep (:mod:`tpu_ray_torch.ops.sweep` - the CUDA kernel on the
+card), constant media stay plain PyTorch in the free-flight math of
+``_chunk_t``, and the two are min-combined with a strict '<' in the order
+solids, then media.  The JAX package also keeps media outside its kernels.
+
+Constant media draw their free-flight distance from one uniform per
+(ray, medium), keyed by (intersect key words, lane id) - the
+``lane_uniforms`` stream - so a lane's draws do not depend on its position.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..models.scene_data import PRIM_MEDIUM_SPHERE, SceneData
+from .sweep import _ranges, sweep, sweep_table
+
+INF = float("inf")
+MED_EPS = 1e-4
+
+
+def pack_rays(ro: torch.Tensor, rd: torch.Tensor, rt: torch.Tensor):
+    """(R, 3), (R, 3), (R,) rays as the sweep's (7, R) row layout."""
+    return torch.cat([ro.T, rd.T, rt[None]], dim=0).contiguous()
+
+
+def media_rows(scene: SceneData) -> list:
+    """Host copy of the media rows' parameters (python floats of the
+    float32 values), read once per render."""
+    p = scene.prims
+    sl = slice(scene.n_solid, scene.n_prims)
+    host = {k: getattr(p, k)[sl].cpu().numpy()
+            for k in ("kind", "center", "radius", "box_min", "box_max",
+                      "xf_rot", "xf_off", "neg_inv_density", "medium_slot")}
+    rows = []
+    for j in range(scene.n_prims - scene.n_solid):
+        r = host["radius"][j]
+        rows.append(dict(
+            kind=int(host["kind"][j]), center=host["center"][j].tolist(),
+            r2=float(r * r), box_min=host["box_min"][j].tolist(),
+            box_max=host["box_max"][j].tolist(),
+            rot=host["xf_rot"][j].tolist(), off=host["xf_off"][j].tolist(),
+            nid=float(host["neg_inv_density"][j]),
+            slot=int(host["medium_slot"][j])))
+    return rows
+
+
+def _media_t(scene: SceneData, rays: torch.Tensor, kd, lane_ids, media):
+    """Free-flight hit distance (R,) of each media row, with ``_chunk_t``'s
+    media math (each medium against t_max = +inf)."""
+    ox, oy, oz, dx, dy, dz = (rays[i] for i in range(6))
+    t_min = float(np.float32(scene.t_min))
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a
+    dlen = torch.sqrt(a)
+    u_med = rng.lane_uniforms(kd, lane_ids, scene.n_media)
+    out = []
+    for m in media:
+        if m["kind"] == PRIM_MEDIUM_SPHERE:
+            c = m["center"]
+            ocx, ocy, ocz = ox - c[0], oy - c[1], oz - c[2]
+            b = ocx * dx + ocy * dy + ocz * dz
+            cq = ocx * ocx + ocy * ocy + ocz * ocz - m["r2"]
+            disc = b * b - a * cq
+            sd = torch.sqrt(torch.clamp(disc, min=0.0))
+            te = (-b - sd) * inv_a
+            tx = (-b + sd) * inv_a
+            exists = disc > 0.0
+        else:
+            if scene.any_transform:
+                rot, off = m["rot"], m["off"]
+                w = (ox - off[0], oy - off[1], oz - off[2])
+                d = (dx, dy, dz)
+                # object-frame ray: x_o = R^T (x_w - off)
+                ro_o = [rot[0][q] * w[0] + rot[1][q] * w[1] + rot[2][q] * w[2]
+                        for q in range(3)]
+                rd_o = [rot[0][q] * d[0] + rot[1][q] * d[1] + rot[2][q] * d[2]
+                        for q in range(3)]
+            else:
+                ro_o, rd_o = [ox, oy, oz], [dx, dy, dz]
+            tn, tf = [], []
+            for q in range(3):
+                inv = 1.0 / rd_o[q]
+                ta = (m["box_min"][q] - ro_o[q]) * inv
+                tb = (m["box_max"][q] - ro_o[q]) * inv
+                tn.append(torch.minimum(ta, tb))
+                tf.append(torch.maximum(ta, tb))
+            te = torch.maximum(torch.maximum(tn[0], tn[1]), tn[2])
+            tx = torch.minimum(torch.minimum(tf[0], tf[1]), tf[2])
+            exists = tx > te
+        exists = exists & (tx > te + MED_EPS)
+        rec1 = torch.clamp(te, min=t_min)
+        dist_inside = (tx - rec1) * dlen
+        hit_dist = m["nid"] * torch.log(torch.clamp(u_med[:, m["slot"]],
+                                                    min=1e-12))
+        ok = exists & (rec1 < tx) & (hit_dist <= dist_inside)
+        out.append(torch.where(ok, rec1 + hit_dist / dlen, INF))
+    return out
+
+
+def intersect_ti(scene: SceneData, rays: torch.Tensor, kd, lane_ids,
+                 geo: torch.Tensor | None = None, media: list | None = None):
+    """(best_t, best_i) of each ray's closest hit; ``best_t`` is +inf where
+    nothing is hit.
+
+    ``rays``: (7, R) float32 rows (origin, direction, time); ``kd``: the
+    intersect key's two words (feed the media free-flight draws);
+    ``lane_ids``: (R,) slot ids keying those draws; ``geo`` / ``media``:
+    the sweep's prim table and :func:`media_rows` (built from the scene
+    when omitted; a render builds them once).
+    """
+    R = rays.shape[1]
+    if scene.n_solid > 0:
+        if geo is None:
+            geo = sweep_table(scene)
+        best_t, best_i = sweep(rays, geo, _ranges(scene), scene.t_min)
+    else:
+        best_t = torch.full((R,), INF, dtype=torch.float32,
+                            device=rays.device)
+        best_i = torch.zeros((R,), dtype=torch.int32, device=rays.device)
+    if scene.has_media:
+        if media is None:
+            media = media_rows(scene)
+        for j, t in enumerate(_media_t(scene, rays, kd, lane_ids, media)):
+            closer = t < best_t
+            best_t = torch.where(closer, t, best_t)
+            best_i = torch.where(closer, scene.n_solid + j, best_i)
+    return best_t, best_i

@@ -1,0 +1,82 @@
+"""Command-line renderer: ``python -m tpu_ray_torch``.
+
+The flags of the JAX CLI that this port covers (``--scene``, ``--width``,
+``--height``, ``--spp``, ``--max-depth``, ``--seed``, ``--out``,
+``--list-scenes``, ``--rr-depth``) with the same defaults, plus
+``--device``: the card by default, ``cpu`` for the plain PyTorch versions.
+The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or as
+a P3 PPM to stdout; progress and "Done." go to stderr.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tpu-ray-torch",
+        description="wavefront path tracer (RTIOW trilogy scenes), "
+                    "PyTorch + CUDA")
+    p.add_argument("--scene", default="cornell",
+                   help="scene name (see --list-scenes)")
+    p.add_argument("--list-scenes", action="store_true")
+    p.add_argument("--width", type=int, default=500)
+    p.add_argument("--height", type=int, default=500)
+    p.add_argument("--spp", type=int, default=1000, help="samples per pixel")
+    p.add_argument("--max-depth", type=int, default=50)
+    p.add_argument("--seed", type=int, default=1024)
+    p.add_argument("--out", default="-",
+                   help="output path: .png/.ppm tone-mapped, .pfm/.hdr "
+                        "linear radiance; '-' = PPM on stdout")
+    p.add_argument("--rr-depth", type=int, default=0, metavar="N",
+                   help="Russian-roulette path termination after N bounces "
+                        "(0 = off)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda runs the CUDA kernels; cpu their plain "
+                        "PyTorch versions")
+    p.add_argument("--time", action="store_true",
+                   help="print the render wall time to stderr")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from ..core import film
+    from ..models.scenes import SCENES
+    from ..renderer import render
+
+    if args.list_scenes:
+        for name, spec in SCENES.items():
+            print(f"{name:20s} {spec.description}")
+        return 0
+    if args.scene not in SCENES:
+        print(f"unknown scene {args.scene!r}; try --list-scenes",
+              file=sys.stderr)
+        return 2
+    if args.spp < 1 or args.width < 1 or args.height < 1 or args.max_depth < 0:
+        print("--spp/--width/--height must be >= 1 and --max-depth >= 0",
+              file=sys.stderr)
+        return 2
+
+    from .assets import load_earth_image
+
+    spec = SCENES[args.scene]
+    scene = spec.build(seed=args.seed, earth=load_earth_image())
+    camera = spec.camera(args.width, args.height)
+    t_start = time.perf_counter()
+    img = render(scene, camera, args.width, args.height, args.spp,
+                 max_depth=args.max_depth, seed=args.seed,
+                 rr_depth=args.rr_depth, device=args.device, progress=True)
+    elapsed = time.perf_counter() - t_start
+    film.write_image(img, None if args.out == "-" else args.out)
+    if args.time:
+        print(f"render wall time: {elapsed:.3f}s", file=sys.stderr)
+    print("Done.", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

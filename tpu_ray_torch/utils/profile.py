@@ -1,0 +1,90 @@
+"""Where a render's time goes on the card.
+
+    python -m tpu_ray_torch.utils.profile --scene cornell --width 500 \\
+        --height 500 --spp 64 --max-depth 50
+
+Builds the kernels, renders once to warm up, then renders again under
+``torch.profiler`` (CPU + CUDA activities) and prints the wall time, the
+device busy time summed over kernels, the device's idle share
+(1 - busy / wall), each kernel's total time, launches and mean time, and
+the wrappers' launch counts (kernel names cut to 80 characters).  The
+last line is the same as one JSON object.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="python -m tpu_ray_torch.utils.profile")
+    p.add_argument("--scene", default="cornell")
+    p.add_argument("--width", type=int, default=500)
+    p.add_argument("--height", type=int, default=500)
+    p.add_argument("--spp", type=int, default=64)
+    p.add_argument("--max-depth", type=int, default=50)
+    p.add_argument("--seed", type=int, default=1024)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 1
+
+    from ..models.scenes import SCENES
+    from ..ops import build, shade, sweep
+    from ..renderer import render
+
+    build.build_all()
+    spec = SCENES[args.scene]
+    scene = spec.build(seed=args.seed, earth=None)
+    cam = spec.camera(args.width, args.height)
+    kw = dict(max_depth=args.max_depth, seed=args.seed)
+    render(scene, cam, args.width, args.height, args.spp, **kw)   # warm-up
+    sweep.sweep.launches = shade.pool_step.launches = 0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        render(scene, cam, args.width, args.height, args.spp, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e):
+            us, n = kernels.get(e.key[:80], (0.0, 0))
+            kernels[e.key[:80]] = (us + _device_us(e), n + e.count)
+    busy = sum(us for us, _ in kernels.values()) / 1e6
+    out = dict(scene=args.scene, width=args.width, height=args.height,
+               spp=args.spp, max_depth=args.max_depth,
+               device=torch.cuda.get_device_name(0), wall_s=wall,
+               device_busy_s=busy,
+               idle_share=(1.0 - busy / wall) if busy else None,
+               launches={"sweep": sweep.sweep.launches,
+                         "pool_step": shade.pool_step.launches},
+               kernels={k: dict(total_ms=us / 1e3, count=n,
+                                mean_us=us / max(n, 1))
+                        for k, (us, n) in sorted(
+                            kernels.items(), key=lambda kv: -kv[1][0])})
+    print(f"{args.scene} {args.width}x{args.height} {args.spp} spp: wall "
+          f"{wall:.4f} s (profiled), device busy {busy:.4f} s")
+    for k, v in out["kernels"].items():
+        print(f"  {v['total_ms']:10.3f} ms {v['count']:6d} x "
+              f"{v['mean_us']:9.2f} us  {k}")
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
