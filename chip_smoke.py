@@ -1,19 +1,36 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives ``tpu_ray_torch``'s main path (the pool renderer through the
-closest-hit sweep and fused pool-step CUDA kernels) at full width, and
-fails unless every phase passes:
+Drives ``tpu_ray_torch``'s three paths (the pool renderer, the work-queue
+renderer and the plain wavefront) through its four CUDA kernels at full
+width, and fails unless every phase passes:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit;
-2. build both kernels from ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
+2. build the three sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build seconds and register use;
 3. each kernel against its plain PyTorch version at main-path shapes
-   (1M-lane pools), with kernel and plain times from CUDA events;
-4. the six non-image golden configs rendered on the card, held to the
-   cross-engine criterion against ``tests/goldens/<name>.npy``;
-5. full width: cornell 500x500 depth 50 at 64 spp (a 1M-lane pool) and
-   book1-final 600x400 depth 50 at 16 spp, with launch counts read from
-   the kernels' wrappers (reset just before, read just after);
+   (1M-lane pools), with kernel and plain times from CUDA events: the
+   dense sweep and the pool step as before, the step also on an image
+   scene with a seeded image and at the shape the queue gives it (a 1M-lane
+   queue state of next-week-final and of the image scene a few iterations
+   in: ``n_samples = 0``, zero ``xy``, hashed path ids as slot ids), where
+   the skip share of the sorted sweep is read again on those later rays;
+   ``hit_scatter`` on cornell and
+   two-perlin-spheres; the sorted, compacted-list sweep on next-week-final,
+   book1-final and the 400-box grid against its plain version and against
+   the dense sweep kernel (bit-equal t, no hit or index mismatch), with the
+   share of (tile, block) pairs skipped and the times of the sort and of
+   the tile lists beside the kernel's own;
+4. the eight non-strict golden configs rendered on the card (the image
+   scenes with the cyan stand-in they were made with), held to the
+   cross-engine criterion against ``tests/goldens/<name>.npy``, and an
+   image scene with a seeded image rendered on the card against the same
+   render on the CPU;
+5. full width, launch counts set to 0 before each path and read after it:
+   pool - cornell 500x500 depth 50 at 64 spp (a 1M-lane pool) and
+   book1-final 600x400 at 16 spp; queue - next-week-final (1409 prims)
+   400x400, 100 spp, depth 50, unsorted and with the sorted sweep (the two
+   images bit-equal); wave - cornell 500x500, 64 spp, depth 50; and a small
+   queue render on the card against the same render on the CPU;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -37,14 +54,16 @@ if not torch.cuda.is_available():
 
 from tpu_ray_torch.core import rng  # noqa: E402
 from tpu_ray_torch.core.film import to_rgb8  # noqa: E402
-from tpu_ray_torch.integrator import SceneKernels, init_pool_state  # noqa: E402
+from tpu_ray_torch.integrator import (SceneKernels, _queue_init,  # noqa: E402
+                                      _to_i32_bits, init_pool_state,
+                                      queue_body)
 from tpu_ray_torch.models import objects as ob  # noqa: E402
 from tpu_ray_torch.models.compile import build_scene  # noqa: E402
 from tpu_ray_torch.models.scenes import SCENES  # noqa: E402
-from tpu_ray_torch.ops import build, shade, sweep  # noqa: E402
+from tpu_ray_torch.ops import build, hit_scatter, shade, sweep  # noqa: E402
 from tpu_ray_torch.ops.intersect import intersect_ti  # noqa: E402
-from tpu_ray_torch.renderer import (pixel_grid, plan_pool, render,  # noqa: E402
-                                    slot_ids)
+from tpu_ray_torch.renderer import (pick_samples_per_wave, pixel_grid,  # noqa: E402
+                                    render, slot_ids)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, fp32 outside tensor cores
@@ -58,6 +77,8 @@ GOLDENS = {   # tests/test_golden.py CONFIGS: (spp, depth, width, height)
     "cornell-smoke": (16, 8, 24, 16),
     "simple-light": (16, 8, 24, 16),
     "two-perlin-spheres": (4, 4, 24, 16),
+    "earth": (4, 4, 24, 16),
+    "random-moving": (4, 4, 24, 16),
 }
 DEV = torch.device("cuda")
 
@@ -93,19 +114,29 @@ def box_grid():
     return build_scene(boxes, background=(0.7, 0.8, 0.9), t_min=1e-2)
 
 
-def pool_after(name: str, width: int, height: int, spp: int, iters: int):
+def seeded_image():
+    """A 32 x 64 texel image from a numpy seed, for the image scenes (the
+    earth map itself is not in the repository)."""
+    return np.random.default_rng(3).integers(0, 256, (32, 64, 3), np.uint8)
+
+
+def scene_and_camera(name: str, width: int, height: int, earth=None):
+    if name == "box-grid":
+        return (box_grid().to(DEV),
+                SCENES["next-week-final"].camera(width, height))
+    spec = SCENES[name]
+    return (spec.build(seed=SEED, earth=earth).to(DEV),
+            spec.camera(width, height))
+
+
+def pool_after(name: str, width: int, height: int, spp: int, iters: int,
+               earth=None):
     """A full-width pool of ``name`` advanced ``iters`` iterations through
     the kernels; returns what the next iteration's two kernels take."""
-    if name == "box-grid":
-        scene = box_grid().to(DEV)
-        cam = SCENES["next-week-final"].camera(width, height)
-    else:
-        spec = SCENES[name]
-        scene = spec.build(seed=SEED, earth=None).to(DEV)
-        cam = spec.camera(width, height)
-    k_pool, s_wave, _ = plan_pool(scene, width, height, spp)
+    scene, cam = scene_and_camera(name, width, height, earth)
+    k_pool = pick_samples_per_wave(width, height, spp, 1 << 20)
     cfg = shade.StepConfig.create(scene, cam, width, height, 50,
-                                  n_samples=s_wave, cam_salt=SEED)
+                                  n_samples=spp // k_pool, cam_salt=SEED)
     kern = SceneKernels.create(scene)
     st = init_pool_state(pixel_grid(width, height, k_pool, DEV),
                          slot_ids(width, height, k_pool, DEV))
@@ -182,16 +213,70 @@ STEP_ROWS = {"origin": slice(0, 3), "direction": slice(3, 6),
              "accum": slice(10, 13)}
 
 
-def check_step(name, width, height, spp, iters):
+def queue_after(name: str, width: int, height: int, iters: int, earth=None):
+    """A 1M-lane work queue of ``name`` advanced ``iters`` iterations as
+    ``trace_queue`` drives it; returns what the next iteration's kernels
+    take: the step configuration with ``n_samples = 0``, zero ``xy``, the
+    hashed path ids as slot ids, and lanes at mixed bounces."""
+    scene, cam = scene_and_camera(name, width, height, earth)
+    R, chunk_spp = 1 << 20, 8
+    total = width * height * chunk_spp
+    cfg = shade.StepConfig.create(scene, cam, width, height, 50, n_samples=0)
+    kern = SceneKernels.create(scene, False)
+    key = rng.fold_in(rng.prng_key(SEED), 0x5EED)
+    ki, ks = rng.fold_in(key, 0), rng.fold_in(key, 1)
+    st = _queue_init(R, total, DEV)
+    for _ in range(iters):
+        st = queue_body(st, scene, cfg, kern, ki, ks, SEED, 0, total, width,
+                        height)
+    sid = _to_i32_bits(rng.path_ids(st.work, st.istate[0]))
+    xy = torch.zeros((2, R), dtype=torch.float32, device=DEV)
+    return scene, cfg, kern, st, ki, ks, xy, sid
+
+
+def check_step(name, width, height, spp, iters, earth=None):
     """Pool-step kernel vs pool_step_plain on a full-width pool state."""
-    scene, cfg, kern, st, ki, ks = pool_after(name, width, height, spp, iters)
+    scene, cfg, kern, st, ki, ks = pool_after(name, width, height, spp, iters,
+                                              earth)
     bt, bi = intersect_ti(scene, st.fstate[:7], ki, st.slot, kern.geo,
                           kern.media)
-    args = (cfg, st.xy, st.slot, st.fstate, st.istate, bt, bi, ks)
+    what = f"{name}{' with a seeded image' if earth is not None else ''}"
+    return compare_step(f"{what} iters={iters}", cfg, st.xy, st.slot,
+                        st.fstate, st.istate, bt, bi, ks)
+
+
+def check_step_queue(name, width, height, iters, earth=None):
+    """Pool-step kernel vs pool_step_plain at the shape the queue gives it,
+    and the share of (tile, block) pairs the sorted sweep would skip on
+    this later iteration's rays."""
+    scene, cfg, kern, st, ki, ks, xy, sid = queue_after(name, width, height,
+                                                        iters, earth)
+    if cfg.n_samples != 0 or int(st.istate[0].max()) < 2 \
+            or int(st.istate[2].sum()) < (1 << 19):
+        raise AssertionError(f"{name}: not a mid-render queue state")
+    rays = st.fstate[:7].contiguous()
+    bt, bi = kern.intersect(scene, rays, ki, sid)
+    what = f"{name}{' with a seeded image' if earth is not None else ''}"
+    out = compare_step(f"{what} queue iters={iters}", cfg, xy, sid, st.fstate,
+                       st.istate, bt, bi, ks)
+    blocks = sweep.sweep_blocks(scene)
+    perm = torch.sort(sweep.sort_key(blocks, rays), stable=True).indices
+    cnt, _ = sweep.tile_lists(rays[:, perm].contiguous(), blocks.blo,
+                              blocks.bhi, scene.t_min)
+    out["skip_share"] = 1.0 - float(cnt.sum()) / (cnt.numel()
+                                                  * blocks.n_blocks)
+    log(f"step {what} queue iters={iters}: bounces 0..."
+        f"{int(st.istate[0].max())}, skipped (tile, block) pairs of the "
+        f"sorted sweep on these rays {out['skip_share']:.4f}")
+    return out
+
+
+def compare_step(what, cfg, xy, slot, fstate, istate, bt, bi, ks):
+    args = (cfg, xy, slot, fstate, istate, bt, bi, ks)
     fk, ik = shade.pool_step(*args)
     fp, ip = shade.pool_step_plain(*args)
     torch.cuda.synchronize()
-    R = st.slot.shape[0]
+    R = slot.shape[0]
     disc_bad = (ik != ip).any(dim=0)
     n_disc = int(disc_bad.sum())
     ok = ~disc_bad
@@ -203,22 +288,151 @@ def check_step(name, width, height, spp, iters):
         diff = (a - b).abs()
         n_float += int((diff > atol + rtol * b.abs()).any(dim=0).sum())
         worst = max(worst, float(diff.max()))
-    log(f"step {name} iters={iters} R={R}: active "
-        f"{int(st.istate[2].sum())}, discrete mismatches {n_disc}, float "
+    log(f"step {what} R={R}: active "
+        f"{int(istate[2].sum())}, discrete mismatches {n_disc}, float "
         f"lanes out of tol {n_float}, max abs err {worst:.3e}")
     if n_disc > 1e-4 * R or n_float > 1e-4 * R:
-        raise AssertionError(f"pool-step kernel disagrees with plain on {name}")
+        raise AssertionError(f"pool-step kernel disagrees with plain on {what}")
     ms = cuda_ms(lambda: shade.pool_step(*args), 20)
     plain_ms = cuda_ms(lambda: shade.pool_step_plain(*args), 3)
     nbytes = R * shade.BYTES_PER_LANE + cfg.tab.numel() * 4
     ops = R * shade.OPS_PER_LANE
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
-    log(f"step {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+    log(f"step {what}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=worst)
+
+
+def check_hit_scatter(name, width, height, spp, iters):
+    """hit_scatter kernel vs hit_scatter_plain on a full-width pool's rays
+    and sweep results."""
+    scene, cfg, kern, st, ki, ks = pool_after(name, width, height, spp, iters)
+    rays = st.fstate[:7].contiguous()
+    bt, bi = kern.intersect(scene, rays, ki, st.slot)
+    args = (cfg, rays, bt, bi, ks, st.slot)
+    rk, sk = hit_scatter.hit_scatter(*args)
+    rp, sp = hit_scatter.hit_scatter_plain(*args)
+    torch.cuda.synchronize()
+    R = rays.shape[1]
+    same = ((rk.hit == rp.hit) & (rk.front == rp.front) & (rk.mat == rp.mat)
+            & (sk.scattered == sp.scattered))
+    n_disc = int((~same).sum())
+    cont = same & rp.hit & sp.scattered
+    worst, n_float = 0.0, 0
+    for a, b, mask, (rtol, atol) in (
+            (rk.point, rp.point, same, STEP_TOL["origin"]),
+            (rk.normal, rp.normal, same, STEP_TOL["throughput"]),
+            (sk.emitted, sp.emitted, same, STEP_TOL["accum"]),
+            (sk.direction, sp.direction, cont, STEP_TOL["direction"]),
+            (sk.weight, sp.weight, cont, STEP_TOL["throughput"])):
+        diff = (a - b).abs()[:, mask]
+        n_float += int((diff > atol + rtol * b[:, mask].abs()).any(dim=0).sum())
+        worst = max(worst, float(diff.max()))
+    log(f"hit_scatter {name} iters={iters} R={R}: hits {int(rp.hit.sum())}, "
+        f"scattered {int(cont.sum())}, discrete mismatches {n_disc}, float "
+        f"lanes out of tol {n_float}, max abs err {worst:.3e}")
+    if n_disc > 1e-4 * R or n_float > 1e-4 * R or int(cont.sum()) < R // 10:
+        raise AssertionError(f"hit_scatter kernel disagrees with plain on "
+                             f"{name}")
+    ms = cuda_ms(lambda: hit_scatter.hit_scatter(*args), 20)
+    plain_ms = cuda_ms(lambda: hit_scatter.hit_scatter_plain(*args), 3)
+    nbytes = R * hit_scatter.BYTES_PER_LANE + cfg.tab.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = R * hit_scatter.OPS_PER_LANE / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    log(f"hit_scatter {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=worst)
+
+
+def check_sweep_compact(name, width, height, spp, iters):
+    """The sorted, compacted-list sweep on one full-width pool's rays: the
+    kernel against the dense sweep kernel (bit-equal) and against its plain
+    version, with the sort's and the lists' times beside the kernel's."""
+    scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
+    rays = st.fstate[:7].contiguous()
+    ranges = sweep._ranges(scene)
+    blocks = sweep.sweep_blocks(scene)
+    t_min = scene.t_min
+    R = rays.shape[1]
+
+    def sort_rays():
+        perm = torch.sort(sweep.sort_key(blocks, rays), stable=True).indices
+        return perm, rays[:, perm].contiguous()
+
+    perm, srays = sort_rays()
+    lists = lambda: sweep.tile_lists(srays, blocks.blo, blocks.bhi, t_min)
+    cnt, lst = lists()
+    skip = 1.0 - float(cnt.sum()) / (cnt.numel() * blocks.n_blocks)
+    dt, di = sweep.sweep(rays, kern.geo, ranges, t_min)
+    ct, ci = sweep.sweep_compact(srays, kern.geo, blocks, cnt, lst, t_min,
+                                 perm)
+    pt, pi = sweep.sweep_compact_plain(srays, kern.geo, blocks, cnt, lst,
+                                       t_min, perm)
+    torch.cuda.synchronize()
+    hit = torch.isfinite(dt)
+    t_bits = int((ct.view(torch.int32) != dt.view(torch.int32)).sum())
+    bad_i = int(((ci != di) & hit).sum())
+    hit_p = torch.isfinite(pt)
+    both = hit & hit_p
+    err = (ct[both] - pt[both]).abs()
+    max_abs = float(err.max()) if int(both.sum()) else 0.0
+    bad_t = int((err > 1e-5 + 2e-5 * pt[both].abs()).sum())
+    idx_diff = both & (ci != pi)
+    ties = int((idx_diff & (ct == pt)).sum())
+    log(f"sweep_compact {name} iters={iters} R={R}: {blocks.n_blocks} "
+        f"blocks, skipped (tile, block) pairs {skip:.4f}, hits "
+        f"{int(hit.sum())}; vs dense kernel: t bit mismatches {t_bits}, idx "
+        f"mismatches on hits {bad_i}; vs plain: hit mismatches "
+        f"{int((hit != hit_p).sum())}, t out of tol {bad_t}, max abs err "
+        f"{max_abs:.3e}, idx mismatches {int(idx_diff.sum()) - ties} "
+        f"(+{ties} exact ties)")
+    if t_bits or bad_i:
+        raise AssertionError(f"compacted sweep differs from the dense sweep "
+                             f"on {name}")
+    if int((hit != hit_p).sum()) > 1e-5 * R or bad_t > 1e-5 * R \
+            or int(idx_diff.sum()) - ties > 1e-5 * R:
+        raise AssertionError(f"compacted sweep kernel disagrees with plain "
+                             f"on {name}")
+    ms = cuda_ms(lambda: sweep.sweep_compact(srays, kern.geo, blocks, cnt,
+                                             lst, t_min, perm), 20)
+    dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min), 20)
+    plain_ms = cuda_ms(lambda: sweep.sweep_compact_plain(
+        srays, kern.geo, blocks, cnt, lst, t_min, perm), 2)
+    sort_ms = cuda_ms(sort_rays, 10)
+    lists_ms = cuda_ms(lists, 10)
+    whole_ms = cuda_ms(lambda: sweep.sweep_sorted(rays, kern.geo, blocks,
+                                                  t_min), 10)
+    nbytes = R * (7 * 4 + 8) + kern.geo.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sweep_flops(scene, R) / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    log(f"sweep_compact {name}: kernel {ms:.4f} ms (un-permute in its "
+        f"stores), dense kernel {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"sort (key, sort, gather) {sort_ms:.4f} ms, tile lists "
+        f"{lists_ms:.4f} ms, whole sorted sweep {whole_ms:.4f} ms, dense "
+        f"bound {bound_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=max_abs, dense_ms=dense_ms, sort_ms=sort_ms,
+                lists_ms=lists_ms, whole_sorted_ms=whole_ms, skip_share=skip)
+
+
+def cross_engine(a, b, what):
+    """At most 2% of pixels diverge, the rest within rtol 2e-4 / atol 1e-4."""
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    close = (err < 1e-4).all(axis=-1)
+    share = 1.0 - close.mean()
+    bad = np.abs(a - b)[close] > 1e-4 + 2e-4 * np.abs(a)[close]
+    log(f"{what}: divergent pixels {share:.4%}, close pixels out of tol "
+        f"{int(bad.sum())}")
+    if share > 0.02 or bad.any():
+        raise AssertionError(f"{what} fails the cross-engine criterion")
 
 
 def check_golden(name):
@@ -226,29 +440,58 @@ def check_golden(name):
     spec = SCENES[name]
     img = render(spec.build(seed=SEED, earth=None), spec.camera(w, h), w, h,
                  spp=spp, max_depth=depth, seed=SEED)
-    golden = np.load(os.path.join(GOLDEN_DIR, f"{name}.npy"))
-    err = np.abs(img - golden) / (1.0 + np.abs(golden))
-    close = (err < 1e-4).all(axis=-1)
-    share = 1.0 - close.mean()
-    bad = np.abs(img - golden)[close] > 1e-4 + 2e-4 * np.abs(golden)[close]
-    log(f"golden {name}: divergent pixels {share:.4%}, close pixels out of "
-        f"tol {int(bad.sum())}")
-    if share > 0.02 or bad.any():
-        raise AssertionError(f"golden {name} fails the cross-engine criterion")
+    cross_engine(np.load(os.path.join(GOLDEN_DIR, f"{name}.npy")), img,
+                 f"golden {name}")
 
 
-def full_width(name, width, height, spp):
+def check_card_vs_cpu(what, scene, cam, w, h, **kw):
+    """The same render on the card and on the CPU."""
+    a = render(scene, cam, w, h, device="cpu", **kw)
+    b = render(scene, cam, w, h, **kw)
+    cross_engine(a, b, f"{what} card vs cpu")
+
+
+COUNTERS = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
+            "pool_step": shade.pool_step,
+            "hit_scatter": hit_scatter.hit_scatter}
+PLAIN = {"sweep": sweep.sweep_plain,
+         "sweep_compact": sweep.sweep_compact_plain,
+         "pool_step": shade.pool_step_plain,
+         "hit_scatter": hit_scatter.hit_scatter_plain}
+
+
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    for fn in PLAIN.values():
+        fn.calls = 0
+
+
+def read_counts(path, expect):
+    """The launch counts of one path: every kernel in ``expect`` ran, no
+    plain version did."""
+    got = {k: fn.launches for k, fn in COUNTERS.items()}
+    plain = {k: fn.calls for k, fn in PLAIN.items()}
+    log(f"  {path} launches {got}; plain-version calls {plain}")
+    if any(got[k] <= 0 for k in expect) or max(plain.values()) != 0:
+        raise AssertionError(f"the {path} path did not run through its "
+                             "kernels")
+    return got
+
+
+def full_width(name, width, height, spp, **kw):
     spec = SCENES[name]
     scene = spec.build(seed=SEED, earth=None)
     cam = spec.camera(width, height)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = render(scene, cam, width, height, spp, max_depth=50, seed=SEED)
+    img = render(scene, cam, width, height, spp, max_depth=50, seed=SEED,
+                 **kw)
     wall = time.perf_counter() - t0
     if img.shape != (height, width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{name}: bad image {img.shape}")
     bright = float(to_rgb8(img).mean())
-    log(f"render {name} {width}x{height} {spp} spp depth 50: wall "
+    log(f"render {name} {width}x{height} {spp} spp depth 50 {kw}: wall "
         f"{wall:.3f} s, {width * height * spp / wall:.4g} samples/s, mean "
         f"8-bit {bright:.2f}")
     return img, wall, bright
@@ -278,45 +521,95 @@ def main() -> int:
     sw_book1 = check_sweep("book1-final", 600, 400, 16, 1)
     check_sweep("cornell-smoke", 500, 500, 64, 2)
     sw_box = check_sweep("box-grid", 1000, 1000, 1, 1)
+    sw_nw = check_sweep("next-week-final", 1000, 1000, 1, 1)
     st = check_step("cornell", 500, 500, 64, 3)
     check_step("cornell-smoke", 500, 500, 64, 3)
     check_step("two-spheres", 500, 500, 64, 3)
     check_step("two-perlin-spheres", 500, 500, 64, 2)
+    st_nw = check_step("next-week-final", 1000, 1000, 1, 2)
+    check_step("earth", 500, 500, 64, 2, earth=seeded_image())
+    st_queue = check_step_queue("next-week-final", 1000, 1000, 6)
+    check_step_queue("earth", 1000, 1000, 4, earth=seeded_image())
+    hsc = check_hit_scatter("cornell", 500, 500, 64, 3)
+    hsc_perlin = check_hit_scatter("two-perlin-spheres", 500, 500, 64, 2)
+    sc_nw = check_sweep_compact("next-week-final", 1000, 1000, 1, 1)
+    sc_book1 = check_sweep_compact("book1-final", 600, 400, 16, 1)
+    sc_box = check_sweep_compact("box-grid", 1000, 1000, 1, 1)
 
-    log("phase 4: goldens on the card")
+    log("phase 4: goldens on the card, image scene card vs cpu")
     for name in GOLDENS:
         check_golden(name)
+    check_card_vs_cpu("earth with a seeded image",
+                      SCENES["earth"].build(seed=SEED, earth=seeded_image()),
+                      SCENES["earth"].camera(48, 32), 48, 32, spp=8,
+                      max_depth=8, seed=SEED)
 
     log("phase 5: full-width renders through the kernels")
-    sweep.sweep.launches = 0
-    shade.pool_step.launches = 0
-    sweep.sweep_plain.calls = 0
-    shade.pool_step_plain.calls = 0
+    reset_counts()
     _, _, bright = full_width("cornell", 500, 500, 64)
-    log(f"  cornell launches: sweep {sweep.sweep.launches}, pool_step "
-        f"{shade.pool_step.launches}")
     full_width("book1-final", 600, 400, 16)
-    launches = {"sweep": sweep.sweep.launches,
-                "pool_step": shade.pool_step.launches}
-    plain = {"sweep": sweep.sweep_plain.calls,
-             "pool_step": shade.pool_step_plain.calls}
-    log(f"launches {launches}; plain-version calls {plain}")
-    if min(launches.values()) <= 0 or max(plain.values()) != 0:
-        raise AssertionError("the main path did not run through the kernels")
+    n_pool = read_counts("pool", ("sweep", "pool_step"))
     if not 48.0 <= bright <= 80.0:
         raise AssertionError(f"cornell mean brightness {bright:.2f} is far "
                              "from the reference's 64/255")
+    reset_counts()
+    img_q, wall_q, _ = full_width("next-week-final", 400, 400, 100,
+                                  mode="queue", sort=False)
+    n_queue = read_counts("queue", ("sweep", "pool_step"))
+    reset_counts()
+    img_s, wall_s, _ = full_width("next-week-final", 400, 400, 100,
+                                  mode="queue", sort=True)
+    n_sorted = read_counts("sorted queue", ("sweep_compact", "pool_step"))
+    log(f"  queue walls: unsorted {wall_q:.3f} s, sorted {wall_s:.3f} s; "
+        f"images bit-equal {np.array_equal(img_q, img_s)}")
+    if not np.array_equal(img_q, img_s):
+        raise AssertionError("sorted and unsorted queue renders differ")
+    reset_counts()
+    _, _, bright_w = full_width("cornell", 500, 500, 64, mode="wave")
+    n_wave = read_counts("wave", ("sweep", "hit_scatter"))
+    if not 48.0 <= bright_w <= 80.0:
+        raise AssertionError(f"cornell wave-mode mean brightness "
+                             f"{bright_w:.2f} is far from 64/255")
+    nw = SCENES["next-week-final"]
+    check_card_vs_cpu("next-week-final 48x48 queue",
+                      nw.build(seed=SEED, earth=None), nw.camera(48, 48), 48,
+                      48, spp=8, max_depth=8, seed=SEED, mode="queue")
+    paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
+             "wave": n_wave}
+    launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
+    by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
+               for k in COUNTERS}
 
     kernels = [
         dict(name="sweep", route="cuda", source="tpu_ray_torch/csrc/sweep.cu",
              replaces="tpu_ray/ops/intersect_pallas.py:59 (_sphere_kernel), "
                       ":309 (_box_kernel), :256 (_quad_kernel)",
-             launches=launches["sweep"], library_ms=None, **sw),
+             launches=launches["sweep"], launches_by_path=by_path["sweep"],
+             library_ms=None, **sw),
         dict(name="pool_step", route="cuda",
              source="tpu_ray_torch/csrc/pool_step.cu",
              replaces="tpu_ray/ops/shade_pallas.py:401 (_step_kernel)",
-             launches=launches["pool_step"], library_ms=None, **st),
+             launches=launches["pool_step"],
+             launches_by_path=by_path["pool_step"], library_ms=None, **st),
+        dict(name="hit_scatter", route="cuda",
+             source="tpu_ray_torch/csrc/pool_step.cu",
+             replaces="tpu_ray/ops/shade_pallas.py:370 (_shade_kernel)",
+             launches=launches["hit_scatter"],
+             launches_by_path=by_path["hit_scatter"], library_ms=None, **hsc),
+        dict(name="sweep_compact", route="cuda",
+             source="tpu_ray_torch/csrc/sweep_compact.cu",
+             replaces="tpu_ray/ops/intersect_pallas.py:505 (_compact_kernel)",
+             launches=launches["sweep_compact"],
+             launches_by_path=by_path["sweep_compact"], library_ms=None,
+             **sc_nw),
     ]
+    log(f"next-week-final sweep (1 bounce): {json.dumps(sw_nw)}")
+    log(f"next-week-final pool step (2 bounces): {json.dumps(st_nw)}")
+    log(f"next-week-final pool step, queue state (6 iterations): "
+        f"{json.dumps(st_queue)}")
+    log(f"two-perlin-spheres hit_scatter: {json.dumps(hsc_perlin)}")
+    log(f"book1-final sweep_compact: {json.dumps(sc_book1)}")
+    log(f"box-grid sweep_compact: {json.dumps(sc_box)}")
     log(f"book1-final sweep (1 bounce): {json.dumps(sw_book1)}")
     log(f"box-grid sweep (1 bounce): {json.dumps(sw_box)}")
     log(json.dumps({"kernels": kernels}))

@@ -19,10 +19,11 @@ from tpu_ray_torch.integrator import SceneKernels, init_pool_state
 from tpu_ray_torch.models import objects as ob
 from tpu_ray_torch.models.compile import build_scene
 from tpu_ray_torch.models.scenes import SCENES
+from tpu_ray_torch.ops import hit_scatter as hs
 from tpu_ray_torch.ops import shade
 from tpu_ray_torch.ops import sweep as sw
 from tpu_ray_torch.ops.intersect import intersect_ti, pack_rays
-from tpu_ray_torch.renderer import pixel_grid, slot_ids
+from tpu_ray_torch.renderer import pixel_grid, render, slot_ids
 
 pytestmark = pytest.mark.cuda
 
@@ -77,12 +78,20 @@ def test_sweep_kernel_matches_plain(card):
     torch.testing.assert_close(t[hit], tp[hit], rtol=2e-5, atol=0)
 
 
+def _build(name, card):
+    """A library scene on the card; "earth-image" carries a seeded image."""
+    if name == "earth-image":
+        img = np.random.default_rng(3).integers(0, 256, (32, 64, 3), np.uint8)
+        return SCENES["earth"], SCENES["earth"].build(earth=img).to(card)
+    return SCENES[name], SCENES[name].build(seed=1024, earth=None).to(card)
+
+
 @pytest.mark.parametrize("name", ["cornell", "cornell-smoke",
-                                  "two-perlin-spheres", "simple-light"])
+                                  "two-perlin-spheres", "simple-light",
+                                  "earth-image"])
 def test_pool_step_kernel_matches_plain(card, name):
     W, H, K = 64, 32, 4
-    spec = SCENES[name]
-    ps = spec.build(seed=1024, earth=None).to(card)
+    spec, ps = _build(name, card)
     cfg = shade.StepConfig.create(ps, spec.camera(W, H), W, H, 8,
                                   rr_depth=2, n_samples=3, cam_salt=7)
     st = init_pool_state(pixel_grid(W, H, K, card), slot_ids(W, H, K, card))
@@ -104,3 +113,99 @@ def test_pool_step_kernel_matches_plain(card, name):
         torch.testing.assert_close(fk[:, same], fp[:, same], rtol=2e-4,
                                    atol=1e-3)
         st.fstate, st.istate = fk, ik
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell-smoke",
+                                  "two-perlin-spheres", "random-moving",
+                                  "earth-image"])
+def test_hit_scatter_kernel_matches_plain(card, name):
+    """Camera rays, then two rounds of continuation rays."""
+    W, H = 96, 64
+    spec, ps = _build(name, card)
+    cam = spec.camera(W, H).to(card)
+    cfg = shade.StepConfig.create(ps, cam, W, H, 8)
+    kern = SceneKernels.create(ps)
+    R = W * H
+    u = torch.from_numpy(np.random.default_rng(2).random((R, 5))
+                         .astype(np.float32)).to(card)
+    rays = pack_rays(*cam.rays_from_uniforms(u[:, 0], u[:, 1], u[:, 2:5]))
+    ids = slot_ids(W, H, 1, card)
+    for rnd in range(3):
+        bt, bi = kern.intersect(ps, rays, (rnd, 1), ids)
+        rk, sk = hs.hit_scatter(cfg, rays, bt, bi, (rnd, 2), ids)
+        rp, sp = hs.hit_scatter_plain(cfg, rays, bt, bi, (rnd, 2), ids)
+        same = (rk.hit == rp.hit) & (rk.front == rp.front) \
+            & (rk.mat == rp.mat) & (sk.scattered == sp.scattered)
+        assert int((~same).sum()) <= 1e-3 * R
+        tol = dict(rtol=2e-4, atol=1e-3)
+        torch.testing.assert_close(rk.point[:, same], rp.point[:, same], **tol)
+        torch.testing.assert_close(rk.normal[:, same], rp.normal[:, same],
+                                   **tol)
+        torch.testing.assert_close(rk.u[same], rp.u[same], **tol)
+        torch.testing.assert_close(rk.v[same], rp.v[same], **tol)
+        torch.testing.assert_close(sk.emitted[:, same], sp.emitted[:, same],
+                                   **tol)
+        cont = same & rp.hit & sp.scattered
+        assert rnd > 0 or int(cont.sum()) > 100
+        # a few lanes land on the other side of a texel edge or of the MIS
+        # coin's rounding: they may differ freely
+        wd = ((sk.weight - sp.weight).abs() > 1e-3 + 2e-4 * sp.weight.abs()) \
+            .any(dim=0) | ((sk.direction - sp.direction).abs() > 1e-3).any(dim=0)
+        assert int((wd & cont).sum()) <= 1e-3 * R
+        rays = rays.clone()
+        rays[0:3] = torch.where(cont, rp.point, rays[0:3])
+        rays[3:6] = torch.where(cont, sp.direction, rays[3:6])
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1000])
+def test_sweep_compact_kernel_bit_equal_to_dense(card, n):
+    """All four kinds, coherent and scattered rays, a ragged last tile."""
+    ps = _mixed_scene().to(card)
+    r = np.random.default_rng(n)
+    ro = r.uniform(-40, 40, (n, 3)).astype(np.float32)
+    rd = r.normal(size=(n, 3)).astype(np.float32)
+    ro[: n // 2] = np.float32([-40, 14, 13]) + r.normal(size=(n // 2, 3))
+    rd[: n // 2] = np.float32([1, 0, 0]) + 0.02 * r.normal(size=(n // 2, 3))
+    rays = pack_rays(*(torch.from_numpy(a).to(card) for a in (
+        ro, rd, r.random(n).astype(np.float32))))
+    geo, ranges, blocks = sw.sweep_table(ps), sw._ranges(ps), \
+        sw.sweep_blocks(ps)
+    dt, di = sw.sweep(rays, geo, ranges, ps.t_min)
+    perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
+    srays = rays[:, perm].contiguous()
+    cnt, lst = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)
+    if n > 1000:     # whole tiles of coherent rays skip blocks
+        assert int(cnt.sum()) < cnt.numel() * blocks.n_blocks
+    launches = sw.sweep_compact.launches
+    ct, ci = sw.sweep_compact(srays, geo, blocks, cnt, lst, ps.t_min, perm)
+    assert sw.sweep_compact.launches == launches + 1
+    pt, pi = sw.sweep_compact_plain(srays, geo, blocks, cnt, lst, ps.t_min,
+                                    perm)
+    hit = torch.isfinite(dt)
+    assert int(hit.sum()) > n // 8
+    assert torch.equal(ct, dt) and torch.equal(ci[hit], di[hit])
+    assert torch.equal(torch.isfinite(pt), hit) and torch.equal(pi[hit],
+                                                                di[hit])
+    torch.testing.assert_close(pt[hit], dt[hit], rtol=2e-5, atol=0)
+    st, si = sw.sweep_sorted(rays, geo, blocks, ps.t_min)
+    assert torch.equal(st, dt) and torch.equal(si[hit], di[hit])
+
+
+@pytest.mark.parametrize("mode,name", [("queue", "next-week-final"),
+                                       ("queue", "cornell-smoke"),
+                                       ("wave", "cornell")])
+def test_render_on_the_card_matches_the_cpu(card, mode, name):
+    """Cross-engine criterion: at most 2% of pixels diverge, the rest agree
+    within rtol 2e-4 / atol 1e-4."""
+    spec = SCENES[name]
+    args = (spec.build(seed=1024, earth=None), spec.camera(32, 24), 32, 24)
+    kw = dict(spp=4, max_depth=6, seed=5, mode=mode)
+    a = render(*args, device="cpu", **kw)
+    b = render(*args, device=card, **kw)
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    close = (err < 1e-4).all(axis=-1)
+    assert 1.0 - close.mean() <= 0.02
+    np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+    if mode == "queue":
+        c = render(*args, device=card, sort=True, **kw)
+        np.testing.assert_array_equal(b, c)

@@ -93,25 +93,48 @@ def test_render_without_device_needs_a_card():
         render(spec.build(), spec.camera(8, 6), 8, 6, spp=1, max_depth=2)
 
 
+# what the second slice of the port brought into scope renders now
+NOW_RENDERED = ("next-week-final", "image", "queue")
+
+
 @pytest.mark.parametrize("what", ["next-week-final", "image", "strict",
                                   "sobol", "bvh", "mesh", "queue",
-                                  "adaptive", "checkpoint", "progressive"])
+                                  "adaptive", "checkpoint", "progressive",
+                                  "checker-fancy", "image-on-emissive"])
 def test_out_of_slice_inputs_raise(what):
+    """Inputs outside the port raise NotImplementedError; the three that the
+    queue slice took in (a scene over 512 prims, image textures, queue
+    mode) render a finite image instead."""
+    from tpu_ray_torch.models import objects as ob
+    from tpu_ray_torch.models.compile import build_scene
+
     spec = SCENES["cornell"]
     scene, cam, kw = spec.build(), spec.camera(8, 6), {}
+    img = np.random.default_rng(0).integers(0, 256, (8, 16, 3), np.uint8)
     if what == "next-week-final":
         scene = SCENES[what].build(earth=None)
     elif what == "image":
-        img = np.random.default_rng(0).integers(0, 256, (8, 16, 3), np.uint8)
         scene = SCENES["earth"].build(earth=img)
     elif what == "strict":
         scene = scene.replace(strict=True)
     elif what == "sobol":
         cam = cam.replace(sampler="sobol")
+    elif what == "checker-fancy":
+        tex = ob.Checker(ob.ImageTexture(img),
+                         ob.SolidColor((0.9, 0.9, 0.9)))
+        scene = build_scene([ob.Sphere((0, 0, 0), 1.0, ob.Lambertian(tex))])
+        assert scene.checker_fancy
+    elif what == "image-on-emissive":
+        scene = build_scene([ob.Sphere((0, 0, 0), 1.0, ob.DiffuseLight(
+            ob.ImageTexture(img)))])
     else:
         kw = {"bvh": dict(bvh=True), "mesh": dict(mesh=object()),
               "queue": dict(mode="queue"), "adaptive": dict(adaptive=0.01),
               "checkpoint": dict(checkpoint_path="x.npz"),
               "progressive": dict(on_partial=print)}[what]
+    if what in NOW_RENDERED:
+        out = render(scene, cam, 8, 6, spp=1, max_depth=2, device="cpu", **kw)
+        assert out.shape == (6, 8, 3) and np.isfinite(out).all() and out.any()
+        return
     with pytest.raises(NotImplementedError):
         render(scene, cam, 8, 6, spp=1, max_depth=2, device="cpu", **kw)

@@ -48,7 +48,10 @@ def scene_to_arrays(scene: SceneData) -> dict:
 def scene_from_jax_arrays(d: dict, device="cpu") -> SceneData:
     """Build the port's ``SceneData`` from a dict of numpy arrays (the JAX
     ``SceneData`` leaves keyed as in the module note) plus static fields.
-    Arrays keep their dtypes (uint32 stays uint32)."""
+    Arrays keep their dtypes (uint32 stays uint32), so the packed image
+    atlas ``texs.img_atlas`` and its ``texs.img_size`` cross over as they
+    are, and a scene whose payload depends on where JAX built it
+    (next-week-final) renders the very arrays JAX would."""
     def t(a):
         return torch.from_numpy(np.array(a, order="C")).to(device)
 

@@ -68,6 +68,12 @@ class Camera:
     def replace(self, **kw) -> "Camera":
         return dataclasses.replace(self, **kw)
 
+    def to(self, device) -> "Camera":
+        """The camera with its tensors on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self) if f.name != "sampler"})
+
     def vec(self) -> np.ndarray:
         """The 21 camera words of the pool-step kernel: origin, lower_left,
         horizontal, vertical, u, v, (lens_radius, time0, time1)."""

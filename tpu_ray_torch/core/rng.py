@@ -74,6 +74,13 @@ def key_data(key: np.ndarray) -> np.ndarray:
     return np.asarray(key, np.uint32)
 
 
+def split(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.split(key, n)`` (partitionable threefry, JAX's default):
+    key i is the cipher of the 64-bit counter i, so it equals
+    ``fold_in(key, i)``.  Returns (n, 2) uint32."""
+    return fold_in(key, np.arange(n, dtype=np.uint32))
+
+
 def pool_key_tables(k_loop: np.ndarray, n_iters: int):
     """Per-iteration key words of the pool loop: (isect, scatter), each
     (n_iters, 2) uint32 = key_data(fold_in(fold_in(k_loop, it), 0 / 1))."""
@@ -97,6 +104,33 @@ def fmix(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 13)
     x = _mul32(x, C2)
     return x ^ (x >> 16)
+
+
+def _rotl_t(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def uniform(key: np.ndarray, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32, bit-equal: element i
+    (row-major) takes the 20-round threefry2x32 of the 64-bit counter i
+    under ``key``, xors the two output words and keeps the top 23 bits as
+    the mantissa.  Runs on ``device`` in int64 holding uint32 words."""
+    n = int(np.prod(shape))
+    if n >= 1 << 32:
+        raise ValueError("uniform: more than 2^32 draws under one key")
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = torch.full((n,), ks[0], dtype=torch.int64, device=device)
+    x1 = (torch.arange(n, dtype=torch.int64, device=device) + ks[1]) & M32
+    rots = ((13, 15, 26, 6), (17, 29, 16, 24))
+    for i in range(5):
+        for r in rots[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl_t(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    bits = x0 ^ x1
+    return ((bits >> 9).to(torch.float32) * (1.0 / (1 << 23))).reshape(shape)
 
 
 def as_u32(x) -> torch.Tensor:

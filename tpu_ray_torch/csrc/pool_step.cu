@@ -1,13 +1,23 @@
-// Fused pool step: one whole path-tracing pool iteration, one thread per lane.
+// Fused pool step and the shade-only kernel, one thread per lane.
 //
-// Replaces the TPU kernel tpu_ray/ops/shade_pallas.py::_step_kernel (with its
-// _shade_core), launched by pool_step_pallas.  Per lane: rebuild the hit
-// record from the sweep's (best_t, best_i), evaluate constant / checker /
-// hash-Perlin textures, scatter for the five materials with 50/50 light /
-// cosine MIS, optional Russian roulette, accumulate the estimate, decide
-// path death and regenerate the camera sample.  The plain PyTorch twin is
-// tpu_ray_torch/ops/shade.py::pool_step_plain; the two follow the same
-// operations in the same order.
+// pool_step_kernel replaces the TPU kernel tpu_ray/ops/shade_pallas.py::
+// _step_kernel (with its _shade_core), launched by pool_step_pallas.  Per
+// lane: rebuild the hit record from the sweep's (best_t, best_i), evaluate
+// constant / checker / hash-Perlin / image textures, scatter for the five
+// materials with 50/50 light / cosine MIS, optional Russian roulette,
+// accumulate the estimate, decide path death and regenerate the camera
+// sample.  The plain PyTorch twin is tpu_ray_torch/ops/shade.py::
+// pool_step_plain; the two follow the same operations in the same order.
+//
+// hit_scatter_kernel replaces tpu_ray/ops/shade_pallas.py::_shade_kernel
+// (launched by hit_scatter_pallas): the same shade core alone, writing the
+// hit record and the scatter result for every lane.  Its plain twin is
+// tpu_ray_torch/ops/hit_scatter.py::hit_scatter_plain.  Both kernels call
+// the one __device__ shade_core below.
+//
+// Image textures are fetched inside the core (one packed-texel load per
+// image lane): the TPU kernel deferred that albedo to its wrapper because
+// Mosaic cannot gather from a texel table, which a GPU thread simply does.
 //
 // Design.  The Pallas kernel's blockwise (8, 128) gather of the prim table
 // was a Mosaic workaround; here each lane reads its winner row of the
@@ -21,12 +31,17 @@
 // without fast math and with --fmad=false so rounding follows the plain
 // version op for op (sinf/cosf/logf may differ by an ulp).
 //
-// Bound.  Memory: per lane it reads 84 B (xy 8, slot 4, float state 52, int
+// Bound (pool step).  Memory: per lane it reads 84 B (xy 8, slot 4, float state 52, int
 // state 12, best_t 4, best_i 4) and writes 64 B (float state 52, int state
 // 12): ~148 B, so ~46 us per 1M-lane iteration at 3.35 TB/s.  The table rows
 // (<= 512 x 160 B) stay in L1/L2.  Lanes diverge on material and on
 // Perlin textures (7 octaves x 8 corners of hashing); a faster version can sort
 // lanes by material or split the Perlin lanes out.
+//
+// Bound (hit_scatter).  Memory: 40 B in (7 ray rows, best_t, best_i, lane
+// id) and 75 B out (17 float rows, 3 flag bytes, the material index): 115 B
+// per lane, ~34 us per 1M lanes at 3.35 TB/s; the arithmetic is the pool
+// step's shade part.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,12 +53,12 @@
 enum { PRIM_SPHERE = 0, PRIM_BOX = 1, PRIM_QUAD = 2, PRIM_MEDIUM_SPHERE = 3 };
 enum { MAT_LAMBERTIAN = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2,
        MAT_DIFFUSE_LIGHT = 3, MAT_ISOTROPIC = 4 };
-enum { TEX_CHECKER = 1, TEX_PERLIN = 2 };
+enum { TEX_CHECKER = 1, TEX_PERLIN = 2, TEX_IMAGE = 3 };
 enum {
   HAS_MOVING = 1 << 0, HAS_QUADS = 1 << 1, HAS_SOLID_BOX = 1 << 2,
   HAS_MEDIA = 1 << 3, HAS_CHECKER = 1 << 4, HAS_PERLIN = 1 << 5,
   HAS_EMISSIVE = 1 << 6, HAS_LAMBERTIAN = 1 << 7, HAS_METAL = 1 << 8,
-  HAS_DIELECTRIC = 1 << 9, HAS_ISOTROPIC = 1 << 10
+  HAS_DIELECTRIC = 1 << 9, HAS_ISOTROPIC = 1 << 10, HAS_IMAGE = 1 << 11
 };
 
 // layout mirrored by tpu_ray_torch/ops/shade.py::_params (32-bit words)
@@ -53,14 +68,19 @@ struct StepParams {
   float inv_w, inv_h, t_min;
   uint32_t kd0, kd1, sample0, cam_salt;
   int n_samples, max_depth, rr_depth, n_lights, flags, init;
+  int img_h, img_w;    // padded atlas rows and columns per image
 };
-static_assert(sizeof(StepParams) == 4 * (24 + 13),
+static_assert(sizeof(StepParams) == 4 * (24 + 15),
               "StepParams layout");
 
 #define TWO_PI 6.28318548202514648f      // float32(2 pi)
 #define INV_PI 0.31830987334251404f      // float32(1 / pi)
 #define RR_PMIN 0.05000000074505806f     // float32(0.05)
 #define RR_COL 14
+#define PI_F 3.14159274101257324f        // float32(pi)
+#define HALF_PI_F 1.57079637050628662f   // float32(pi / 2)
+#define IMG_EPS 9.99999974737875164e-05f // float32(1e-4)
+#define INV_255 0.00392156885936856270f  // float32(1 / 255)
 
 struct V3 { float x, y, z; };
 
@@ -188,20 +208,239 @@ __device__ float marble(uint32_t salt, float scale, float px, float py,
   return 0.5f * (1.0f + sinf(pz + 10.0f * fabsf(acc)));
 }
 
+// scene tables shared by both kernels
+struct Tables {
+  const float* __restrict__ tab;          // (N, 40) prim + material rows
+  const uint32_t* __restrict__ salt;      // (N) Perlin salt per prim
+  const float* __restrict__ lights;       // (L, 25)
+  const uint32_t* __restrict__ atlas;     // (I, img_h, img_w) packed RGB
+  const int* __restrict__ img_size;       // (I, 2) width, height
+};
+
+struct Shade {
+  V3 p, n, dir, w, emitted;
+  float u, v;
+  int mat;
+  bool front, scattered;
+  uint32_t base;
+};
+
+// Hit record + textures + scatter of one lane whose sweep result is
+// (ts, idx), ts already made finite (ops/shade.py::_shade).
+__device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
+                            float tm, float ts, int idx, uint32_t slot) {
+  const int fl = P.flags;
+  Shade s;
+  const V3 p = {o.x + ts * d.x, o.y + ts * d.y, o.z + ts * d.z};
+  s.p = p;
+  s.emitted = {0.0f, 0.0f, 0.0f};
+  s.dir = d;
+  s.w = {0.0f, 0.0f, 0.0f};
+  s.u = 0.0f;
+  s.v = 0.0f;
+  const float* row = T.tab + (long long)idx * PRIM_COLS;
+  const int kind = (int)row[0];
+  s.mat = (int)row[1];
+  const float t_min = P.t_min;
+
+  // ---- hit record (ops/intersect.py::_hit_record) ----
+  V3 n;
+  if (kind == PRIM_QUAD && (fl & HAS_QUADS)) {
+    n = {row[5], row[6], row[7]};
+    if (fl & HAS_IMAGE) {
+      const V3 q = {p.x - row[2], p.y - row[3], p.z - row[4]};
+      s.u = q.x * row[10] + q.y * row[11] + q.z * row[12];
+      s.v = q.x * row[13] + q.y * row[14] + q.z * row[15];
+    }
+  } else if (kind == PRIM_BOX && (fl & HAS_SOLID_BOX)) {
+    const float ix = 1.0f / d.x, iy = 1.0f / d.y, iz = 1.0f / d.z;
+    const float tax = (row[2] - o.x) * ix, tbx = (row[5] - o.x) * ix;
+    const float tay = (row[3] - o.y) * iy, tby = (row[6] - o.y) * iy;
+    const float taz = (row[4] - o.z) * iz, tbz = (row[7] - o.z) * iz;
+    const float n0 = jmin(tax, tbx), n1 = jmin(tay, tby), n2 = jmin(taz, tbz);
+    const float f0 = jmax(tax, tbx), f1 = jmax(tay, tby), f2 = jmax(taz, tbz);
+    const float tn_b = jmax(jmax(n0, n1), n2);
+    int ax_n = n1 > n0 ? 1 : 0;
+    ax_n = n2 > jmax(n0, n1) ? 2 : ax_n;
+    int ax_f = f1 < f0 ? 1 : 0;
+    ax_f = f2 < jmin(f0, f1) ? 2 : ax_f;
+    const int axis = tn_b > t_min ? ax_n : ax_f;
+    n = {axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
+         axis == 2 ? 1.0f : 0.0f};
+    if (fl & HAS_IMAGE) {
+      // face uv: z-face -> (x, y), y-face -> (x, z), x-face -> (y, z)
+      const float fx = (p.x - row[2]) / jmax(row[5] - row[2], 1e-30f);
+      const float fy = (p.y - row[3]) / jmax(row[6] - row[3], 1e-30f);
+      const float fz = (p.z - row[4]) / jmax(row[7] - row[4], 1e-30f);
+      s.u = axis == 0 ? fy : fx;
+      s.v = axis == 2 ? fy : fz;
+    }
+  } else {
+    float cx = row[2], cy = row[3], cz = row[4];
+    if (fl & HAS_MOVING) {
+      const float dt = tm - row[8];
+      cx = cx + row[5] * dt;
+      cy = cy + row[6] * dt;
+      cz = cz + row[7] * dt;
+    }
+    const float rr = jmax(row[9], 1e-12f);
+    n = {(p.x - cx) / rr, (p.y - cy) / rr, (p.z - cz) / rr};
+    if (fl & HAS_IMAGE) {
+      // spherical uv of the outward normal
+      const float phi = atan2f(n.z, n.x);
+      const float theta = asinf(jmin(jmax(n.y, -1.0f), 1.0f));
+      s.u = 1.0f - (phi + PI_F) / TWO_PI;
+      s.v = (theta + HALF_PI_F) / PI_F;
+    }
+  }
+  bool front = dot3(d, n) < 0.0f;
+  if (!front) n = {-n.x, -n.y, -n.z};
+  if ((fl & HAS_MEDIA) && kind >= PRIM_MEDIUM_SPHERE) {
+    n = {1.0f, 0.0f, 0.0f};
+    front = true;
+    s.u = 0.0f;
+    s.v = 0.0f;
+  }
+  s.n = n;
+  s.front = front;
+
+  // ---- textures (textures.texture_value_packed) ----
+  const int mkind = (int)row[16];
+  const uint32_t base = fmix(slot + P.kd0) ^ P.kd1;
+  s.base = base;
+  V3 att = {row[20], row[21], row[22]};
+  const int tex_kind = (int)row[19];
+  if ((fl & HAS_CHECKER) && tex_kind == TEX_CHECKER) {
+    const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) *
+                        sinf(10.0f * p.z);
+    att = sines < 0.0f ? V3{row[23], row[24], row[25]}
+                       : V3{row[26], row[27], row[28]};
+  }
+  if ((fl & HAS_PERLIN) && tex_kind == TEX_PERLIN) {
+    const float m = marble(T.salt[idx], row[29], p.x, p.y, p.z);
+    att = {m, m, m};
+  }
+  if ((fl & HAS_IMAGE) && tex_kind == TEX_IMAGE) {
+    // textures.image_value_from: clamp, v-flip, one packed-texel load
+    const int iid = (int)row[39];
+    const float nx = (float)T.img_size[2 * iid];
+    const float ny = (float)T.img_size[2 * iid + 1];
+    const int ti = (int)floorf(jmin(jmax(s.u * nx, 0.0f), nx - IMG_EPS));
+    const int tj = (int)floorf(
+        jmin(jmax((1.0f - s.v) * ny - IMG_EPS, 0.0f), ny - IMG_EPS));
+    const uint32_t tex =
+        T.atlas[((long long)iid * P.img_h + tj) * P.img_w + ti];
+    att = {(float)(tex & 0xFFu) * INV_255, (float)((tex >> 8) & 0xFFu) * INV_255,
+           (float)((tex >> 16) & 0xFFu) * INV_255};
+  }
+  const V3 unit_d = normalize3(d);
+  if ((fl & HAS_EMISSIVE) && mkind == MAT_DIFFUSE_LIGHT && !front)
+    s.emitted = att;
+
+  // ---- scatter: the lane's own material branch ----
+  V3 dir = d, w = {0.0f, 0.0f, 0.0f};
+  const float* lights = T.lights;
+  if (mkind == MAT_LAMBERTIAN && (fl & HAS_LAMBERTIAN)) {
+    const V3 cos_dir = onb_apply(n, cosine_direction_from(
+        hash_col(base, 6), hash_col(base, 7)));
+    const int L = P.n_lights;
+    if (L > 0) {
+      const int pick = min((int)(hash_col(base, 1) * (float)L), L - 1);
+      const float* lr = lights + pick * 25;
+      V3 light_dir;
+      if (lr[13] > 0.5f) {
+        const float u2 = hash_col(base, 2), u3 = hash_col(base, 3);
+        light_dir = {lr[0] + u2 * lr[3] + u3 * lr[6] - p.x,
+                     lr[1] + u2 * lr[4] + u3 * lr[7] - p.y,
+                     lr[2] + u2 * lr[5] + u3 * lr[8] - p.z};
+      } else {
+        const V3 dc = {lr[9] - p.x, lr[10] - p.y, lr[11] - p.z};
+        const float d2 = dot3(dc, dc);
+        light_dir = onb_apply(dc, to_sphere_from(
+            hash_col(base, 4), hash_col(base, 5), lr[12], jmax(d2, 1e-12f)));
+      }
+      dir = normalize3(hash_col(base, 0) < 0.5f ? light_dir : cos_dir);
+      const float cos_pdf = jmax(dot3(dir, n), 0.0f) * INV_PI;
+      float pdf_sum = 0.0f;
+      for (int li = 0; li < L; ++li) {
+        const float* q = lights + li * 25;
+        float pdf;
+        if (q[13] > 0.5f) {
+          const V3 nl = {q[14], q[15], q[16]};
+          const float dn = dot3(dir, nl);
+          const float tq = (q[17] - (p.x * nl.x + p.y * nl.y + p.z * nl.z)) / dn;
+          const float xx = p.x + tq * dir.x - q[0];
+          const float xy_ = p.y + tq * dir.y - q[1];
+          const float xz = p.z + tq * dir.z - q[2];
+          const float uq = xx * q[18] + xy_ * q[19] + xz * q[20];
+          const float vq = xx * q[21] + xy_ * q[22] + xz * q[23];
+          const bool hq = (tq > t_min) && (uq >= 0.0f) && (uq <= 1.0f) &&
+                          (vq >= 0.0f) && (vq <= 1.0f);
+          pdf = hq ? tq * tq / jmax(fabsf(dn) * q[24], 1e-12f) : 0.0f;
+        } else {
+          const float ocx = p.x - q[9], ocy = p.y - q[10], ocz = p.z - q[11];
+          const float bq = ocx * dir.x + ocy * dir.y + ocz * dir.z;
+          const float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
+          const float r2 = q[12] * q[12];
+          const float disc = bq * bq - (oc2 - r2);
+          const float sd = sqrtf(jmax(disc, 0.0f));
+          const bool hs = (disc > 0.0f) &&
+                          ((-bq - sd > t_min) || (-bq + sd > t_min));
+          const float ctm = sqrtf(jmax(1.0f - r2 / jmax(oc2, 1e-12f), 0.0f));
+          const float solid = TWO_PI * (1.0f - ctm);
+          pdf = hs ? 1.0f / jmax(solid, 1e-12f) : 0.0f;
+        }
+        pdf_sum = pdf_sum + pdf;
+      }
+      const float pdf_val = 0.5f * (pdf_sum / (float)L + cos_pdf);
+      const float w_mis = pdf_val > 0.0f ? cos_pdf / jmax(pdf_val, 1e-12f)
+                                         : 0.0f;
+      w = {att.x * w_mis, att.y * w_mis, att.z * w_mis};
+    } else {
+      dir = normalize3(cos_dir);
+      w = att;
+    }
+  } else if (mkind == MAT_METAL && (fl & HAS_METAL)) {
+    const float fuzz = row[17];
+    const V3 refl = reflect3(unit_d, n);
+    const V3 fv = unit_vector_from(hash_col(base, 8), hash_col(base, 9));
+    dir = {refl.x + fuzz * fv.x, refl.y + fuzz * fv.y, refl.z + fuzz * fv.z};
+    w = att;
+  } else if (mkind == MAT_DIELECTRIC && (fl & HAS_DIELECTRIC)) {
+    const float ri = row[18];
+    const float ratio = front ? 1.0f / ri : ri;
+    const float ct = jmin(dot3({-unit_d.x, -unit_d.y, -unit_d.z}, n), 1.0f);
+    const float st = sqrtf(jmax(1.0f - ct * ct, 0.0f));
+    const float q = (1.0f - ratio) / (1.0f + ratio);
+    const float r0 = q * q;
+    const float x = 1.0f - ct;
+    const float x2 = x * x;
+    const float refl_prob = r0 + (1.0f - r0) * (x * (x2 * x2));
+    const bool do_reflect = (ratio * st > 1.0f) ||
+                            (hash_col(base, 10) < refl_prob);
+    dir = do_reflect ? reflect3(unit_d, n) : refract3(unit_d, n, ratio);
+    w = {1.0f, 1.0f, 1.0f};
+  } else if (mkind == MAT_ISOTROPIC && (fl & HAS_ISOTROPIC)) {
+    dir = unit_vector_from(hash_col(base, 11), hash_col(base, 12));
+    w = att;
+  }
+  s.dir = dir;
+  s.w = w;
+  s.scattered = !((fl & HAS_EMISSIVE) && mkind == MAT_DIFFUSE_LIGHT);
+  return s;
+}
+
 __global__ void __launch_bounds__(THREADS)
-pool_step_kernel(const StepParams P, const float* __restrict__ xy,
+pool_step_kernel(const StepParams P, const Tables T,
+                 const float* __restrict__ xy,
                  const uint32_t* __restrict__ slot_ids,
                  const float* __restrict__ fin, const int* __restrict__ iin,
                  const float* __restrict__ best_t,
                  const int* __restrict__ best_i,
-                 const float* __restrict__ tab,
-                 const uint32_t* __restrict__ salt_tab,
-                 const float* __restrict__ lights,
                  float* __restrict__ fout, int* __restrict__ iout,
                  long long R) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  const int fl = P.flags;
   const float xs = xy[i], ys = xy[R + i];
   const uint32_t slot = slot_ids[i];
   V3 o = {fin[i], fin[R + i], fin[2 * R + i]};
@@ -223,161 +462,18 @@ pool_step_kernel(const StepParams P, const float* __restrict__ xy,
   if (act) {
     const float t = best_t[i];
     const bool hit = isfinite(t);
-    const float ts = hit ? t : 1.0f;
-    const V3 p = {o.x + ts * d.x, o.y + ts * d.y, o.z + ts * d.z};
     bool miss = !hit, emit = false, cont = false;
-    V3 emitted = {0.0f, 0.0f, 0.0f}, dir = d, w = {0.0f, 0.0f, 0.0f};
+    V3 p = o, emitted = {0.0f, 0.0f, 0.0f}, dir = d, w = {0.0f, 0.0f, 0.0f};
     uint32_t base = 0;
     if (hit) {
-      const int idx = best_i[i];
-      const float* row = tab + (long long)idx * PRIM_COLS;
-      const int kind = (int)row[0];
-      const float t_min = P.t_min;
-
-      // ---- hit record (ops/intersect.py::_hit_record) ----
-      V3 n;
-      if (kind == PRIM_QUAD && (fl & HAS_QUADS)) {
-        n = {row[5], row[6], row[7]};
-      } else if (kind == PRIM_BOX && (fl & HAS_SOLID_BOX)) {
-        const float ix = 1.0f / d.x, iy = 1.0f / d.y, iz = 1.0f / d.z;
-        const float tax = (row[2] - o.x) * ix, tbx = (row[5] - o.x) * ix;
-        const float tay = (row[3] - o.y) * iy, tby = (row[6] - o.y) * iy;
-        const float taz = (row[4] - o.z) * iz, tbz = (row[7] - o.z) * iz;
-        const float n0 = jmin(tax, tbx), n1 = jmin(tay, tby), n2 = jmin(taz, tbz);
-        const float f0 = jmax(tax, tbx), f1 = jmax(tay, tby), f2 = jmax(taz, tbz);
-        const float tn_b = jmax(jmax(n0, n1), n2);
-        int ax_n = n1 > n0 ? 1 : 0;
-        ax_n = n2 > jmax(n0, n1) ? 2 : ax_n;
-        int ax_f = f1 < f0 ? 1 : 0;
-        ax_f = f2 < jmin(f0, f1) ? 2 : ax_f;
-        const int axis = tn_b > t_min ? ax_n : ax_f;
-        n = {axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
-             axis == 2 ? 1.0f : 0.0f};
-      } else {
-        float cx = row[2], cy = row[3], cz = row[4];
-        if (fl & HAS_MOVING) {
-          const float dt = tm - row[8];
-          cx = cx + row[5] * dt;
-          cy = cy + row[6] * dt;
-          cz = cz + row[7] * dt;
-        }
-        const float rr = jmax(row[9], 1e-12f);
-        n = {(p.x - cx) / rr, (p.y - cy) / rr, (p.z - cz) / rr};
-      }
-      bool front = dot3(d, n) < 0.0f;
-      if (!front) n = {-n.x, -n.y, -n.z};
-      if ((fl & HAS_MEDIA) && kind >= PRIM_MEDIUM_SPHERE) {
-        n = {1.0f, 0.0f, 0.0f};
-        front = true;
-      }
-
-      // ---- textures (textures.texture_value_packed) ----
-      const int mkind = (int)row[16];
-      base = fmix(slot + P.kd0) ^ P.kd1;
-      V3 att = {row[20], row[21], row[22]};
-      const int tex_kind = (int)row[19];
-      if ((fl & HAS_CHECKER) && tex_kind == TEX_CHECKER) {
-        const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) *
-                            sinf(10.0f * p.z);
-        att = sines < 0.0f ? V3{row[23], row[24], row[25]}
-                           : V3{row[26], row[27], row[28]};
-      }
-      if ((fl & HAS_PERLIN) && tex_kind == TEX_PERLIN) {
-        const float m = marble(salt_tab[idx], row[29], p.x, p.y, p.z);
-        att = {m, m, m};
-      }
-      const V3 unit_d = normalize3(d);
-      if ((fl & HAS_EMISSIVE) && mkind == MAT_DIFFUSE_LIGHT && !front)
-        emitted = att;
-
-      // ---- scatter: the lane's own material branch ----
-      if (mkind == MAT_LAMBERTIAN && (fl & HAS_LAMBERTIAN)) {
-        const V3 cos_dir = onb_apply(n, cosine_direction_from(
-            hash_col(base, 6), hash_col(base, 7)));
-        const int L = P.n_lights;
-        if (L > 0) {
-          const int pick = min((int)(hash_col(base, 1) * (float)L), L - 1);
-          const float* lr = lights + pick * 25;
-          V3 light_dir;
-          if (lr[13] > 0.5f) {
-            const float u2 = hash_col(base, 2), u3 = hash_col(base, 3);
-            light_dir = {lr[0] + u2 * lr[3] + u3 * lr[6] - p.x,
-                         lr[1] + u2 * lr[4] + u3 * lr[7] - p.y,
-                         lr[2] + u2 * lr[5] + u3 * lr[8] - p.z};
-          } else {
-            const V3 dc = {lr[9] - p.x, lr[10] - p.y, lr[11] - p.z};
-            const float d2 = dot3(dc, dc);
-            light_dir = onb_apply(dc, to_sphere_from(
-                hash_col(base, 4), hash_col(base, 5), lr[12], jmax(d2, 1e-12f)));
-          }
-          dir = normalize3(hash_col(base, 0) < 0.5f ? light_dir : cos_dir);
-          const float cos_pdf = jmax(dot3(dir, n), 0.0f) * INV_PI;
-          float pdf_sum = 0.0f;
-          for (int li = 0; li < L; ++li) {
-            const float* q = lights + li * 25;
-            float pdf;
-            if (q[13] > 0.5f) {
-              const V3 nl = {q[14], q[15], q[16]};
-              const float dn = dot3(dir, nl);
-              const float tq = (q[17] - (p.x * nl.x + p.y * nl.y + p.z * nl.z)) / dn;
-              const float xx = p.x + tq * dir.x - q[0];
-              const float xy_ = p.y + tq * dir.y - q[1];
-              const float xz = p.z + tq * dir.z - q[2];
-              const float uq = xx * q[18] + xy_ * q[19] + xz * q[20];
-              const float vq = xx * q[21] + xy_ * q[22] + xz * q[23];
-              const bool hq = (tq > t_min) && (uq >= 0.0f) && (uq <= 1.0f) &&
-                              (vq >= 0.0f) && (vq <= 1.0f);
-              pdf = hq ? tq * tq / jmax(fabsf(dn) * q[24], 1e-12f) : 0.0f;
-            } else {
-              const float ocx = p.x - q[9], ocy = p.y - q[10], ocz = p.z - q[11];
-              const float bq = ocx * dir.x + ocy * dir.y + ocz * dir.z;
-              const float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
-              const float r2 = q[12] * q[12];
-              const float disc = bq * bq - (oc2 - r2);
-              const float sd = sqrtf(jmax(disc, 0.0f));
-              const bool hs = (disc > 0.0f) &&
-                              ((-bq - sd > t_min) || (-bq + sd > t_min));
-              const float ctm = sqrtf(jmax(1.0f - r2 / jmax(oc2, 1e-12f), 0.0f));
-              const float solid = TWO_PI * (1.0f - ctm);
-              pdf = hs ? 1.0f / jmax(solid, 1e-12f) : 0.0f;
-            }
-            pdf_sum = pdf_sum + pdf;
-          }
-          const float pdf_val = 0.5f * (pdf_sum / (float)L + cos_pdf);
-          const float w_mis = pdf_val > 0.0f ? cos_pdf / jmax(pdf_val, 1e-12f)
-                                             : 0.0f;
-          w = {att.x * w_mis, att.y * w_mis, att.z * w_mis};
-        } else {
-          dir = normalize3(cos_dir);
-          w = att;
-        }
-      } else if (mkind == MAT_METAL && (fl & HAS_METAL)) {
-        const float fuzz = row[17];
-        const V3 refl = reflect3(unit_d, n);
-        const V3 fv = unit_vector_from(hash_col(base, 8), hash_col(base, 9));
-        dir = {refl.x + fuzz * fv.x, refl.y + fuzz * fv.y, refl.z + fuzz * fv.z};
-        w = att;
-      } else if (mkind == MAT_DIELECTRIC && (fl & HAS_DIELECTRIC)) {
-        const float ri = row[18];
-        const float ratio = front ? 1.0f / ri : ri;
-        const float ct = jmin(dot3({-unit_d.x, -unit_d.y, -unit_d.z}, n), 1.0f);
-        const float st = sqrtf(jmax(1.0f - ct * ct, 0.0f));
-        const float q = (1.0f - ratio) / (1.0f + ratio);
-        const float r0 = q * q;
-        const float x = 1.0f - ct;
-        const float x2 = x * x;
-        const float refl_prob = r0 + (1.0f - r0) * (x * (x2 * x2));
-        const bool do_reflect = (ratio * st > 1.0f) ||
-                                (hash_col(base, 10) < refl_prob);
-        dir = do_reflect ? reflect3(unit_d, n) : refract3(unit_d, n, ratio);
-        w = {1.0f, 1.0f, 1.0f};
-      } else if (mkind == MAT_ISOTROPIC && (fl & HAS_ISOTROPIC)) {
-        dir = unit_vector_from(hash_col(base, 11), hash_col(base, 12));
-        w = att;
-      }
-      const bool scattered = !((fl & HAS_EMISSIVE) && mkind == MAT_DIFFUSE_LIGHT);
-      emit = !scattered;
-      cont = scattered;
+      const Shade s = shade_core(P, T, o, d, tm, t, best_i[i], slot);
+      p = s.p;
+      emitted = s.emitted;
+      dir = s.dir;
+      w = s.w;
+      base = s.base;
+      emit = !s.scattered;
+      cont = s.scattered;
     }
 
     // ---- pool update (integrator.trace_pool body) ----
@@ -441,21 +537,81 @@ pool_step_kernel(const StepParams P, const float* __restrict__ xy,
   iout[i] = bounce; iout[R + i] = sample; iout[2 * R + i] = active;
 }
 
+// hit record + scatter result of every lane: fout rows point xyz, normal
+// xyz, u, v, direction xyz, weight xyz, emitted xyz; flags rows hit, front,
+// scattered (one byte each, 0 or 1: torch.bool storage); mat the material
+// index.  Direction and weight mean something only
+// where the lane hit and scattered (an emissive lane keeps its incoming
+// direction and weight 0).
+__global__ void __launch_bounds__(THREADS)
+hit_scatter_kernel(const StepParams P, const Tables T,
+                   const float* __restrict__ rays,
+                   const float* __restrict__ best_t,
+                   const int* __restrict__ best_i,
+                   const uint32_t* __restrict__ lane_ids,
+                   float* __restrict__ fout,
+                   unsigned char* __restrict__ flags, int* __restrict__ mat,
+                   long long R) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const V3 o = {rays[i], rays[R + i], rays[2 * R + i]};
+  const V3 d = {rays[3 * R + i], rays[4 * R + i], rays[5 * R + i]};
+  const float t = best_t[i];
+  const bool hit = isfinite(t);
+  const Shade s = shade_core(P, T, o, d, rays[6 * R + i], hit ? t : 1.0f,
+                             best_i[i], lane_ids[i]);
+  fout[i] = s.p.x; fout[R + i] = s.p.y; fout[2 * R + i] = s.p.z;
+  fout[3 * R + i] = s.n.x; fout[4 * R + i] = s.n.y; fout[5 * R + i] = s.n.z;
+  fout[6 * R + i] = s.u; fout[7 * R + i] = s.v;
+  fout[8 * R + i] = s.dir.x; fout[9 * R + i] = s.dir.y; fout[10 * R + i] = s.dir.z;
+  fout[11 * R + i] = s.w.x; fout[12 * R + i] = s.w.y; fout[13 * R + i] = s.w.z;
+  fout[14 * R + i] = s.emitted.x; fout[15 * R + i] = s.emitted.y;
+  fout[16 * R + i] = s.emitted.z;
+  flags[i] = hit ? 1 : 0; flags[R + i] = s.front ? 1 : 0;
+  flags[2 * R + i] = s.scattered ? 1 : 0;
+  mat[i] = s.mat;
+}
+
 // xy (2, R) f32, slot (R) u32, fin (13, R) f32, iin (3, R) i32, best_t (R)
 // f32, best_i (R) i32, tab (N, 40) f32, salt (N) u32, lights (L, 25) f32,
-// params: host pointer to the StepParams words; fout/iout like fin/iin.  Returns the launch's
+// atlas (I, img_h, img_w) u32, img_size (I, 2) i32, params: host pointer to
+// the StepParams words; fout/iout like fin/iin.  Returns the launch's
 // cudaError_t (0 = launched).
 extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
                             const float* fin, const int* iin,
                             const float* best_t, const int* best_i,
                             const float* tab, const uint32_t* salt,
-                            const float* lights, const void* params, float* fout, int* iout,
-                            long long R, void* stream) {
+                            const float* lights, const uint32_t* atlas,
+                            const int* img_size, const void* params,
+                            float* fout, int* iout, long long R,
+                            void* stream) {
   if (R <= 0) return 0;
   StepParams P;
   memcpy(&P, params, sizeof(StepParams));
+  const Tables T = {tab, salt, lights, atlas, img_size};
   const long long blocks = (R + THREADS - 1) / THREADS;
   pool_step_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      P, xy, slot, fin, iin, best_t, best_i, tab, salt, lights, fout, iout, R);
+      P, T, xy, slot, fin, iin, best_t, best_i, fout, iout, R);
+  return (int)cudaGetLastError();
+}
+
+// rays (7, R) f32 rows origin, direction, time; best_t (R) f32, best_i (R)
+// i32, lane_ids (R) u32; tables and params as tr_pool_step (only the key
+// words, t_min, n_lights, flags and the atlas dims are read); fout (17, R)
+// f32, flags (3, R) bytes, mat (R) i32.  Returns the launch's cudaError_t.
+extern "C" int tr_hit_scatter(const float* rays, const float* best_t,
+                              const int* best_i, const uint32_t* lane_ids,
+                              const float* tab, const uint32_t* salt,
+                              const float* lights, const uint32_t* atlas,
+                              const int* img_size, const void* params,
+                              float* fout, unsigned char* flags, int* mat,
+                              long long R, void* stream) {
+  if (R <= 0) return 0;
+  StepParams P;
+  memcpy(&P, params, sizeof(StepParams));
+  const Tables T = {tab, salt, lights, atlas, img_size};
+  const long long blocks = (R + THREADS - 1) / THREADS;
+  hit_scatter_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      P, T, rays, best_t, best_i, lane_ids, fout, flags, mat, R);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,8 @@
 // cross-block strict-'<' rule.  No prim padding exists, so the TPU kernels'
 // padding hazards (r^2 = 0 spheres, degenerate boxes, n = 0 quads) do not
 // arise; NaN still fails every comparison, which needs IEEE arithmetic
-// (built without fast math, with --fmad=false).
+// (built without fast math, with --fmad=false).  The per-pair math lives in
+// sweep_pairs.cuh, shared with the compacted-list sweep.
 //
 // Bound.  Operations: about 21 flops per (ray, static sphere) pair, 27 per
 // moving sphere, 24 per box and 31 per quad.  book1-final (485 spheres) at
@@ -29,17 +30,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define CHUNK 256
-#define ROW 16
-#define THREADS 256
+#include "sweep_pairs.cuh"
 
-__device__ __forceinline__ float jmin(float a, float b) {
-  // NaN-propagating min, as jnp.minimum / torch.minimum
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
+#define CHUNK 256
+#define THREADS 256
 
 __global__ void __launch_bounds__(THREADS)
 sweep_kernel(const float* __restrict__ rays, long long R,
@@ -50,13 +44,8 @@ sweep_kernel(const float* __restrict__ rays, long long R,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < R;
   const long long k = live ? i : 0;
-  const float ox = rays[k], oy = rays[R + k], oz = rays[2 * R + k];
-  const float dx = rays[3 * R + k], dy = rays[4 * R + k], dz = rays[5 * R + k];
-  const float rt = rays[6 * R + k];
+  const Ray r = load_ray(rays, R, k);
   const float INF = __int_as_float(0x7f800000);
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float inv_a = 1.0f / a;
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   float bt = INF;
   int bi = 0;
 
@@ -72,56 +61,17 @@ sweep_kernel(const float* __restrict__ rays, long long R,
 
     // spheres: static prefix, then the moving range (center lerp by ray time)
     for (int j = 0; j < e_s; ++j) {
-      const float* g = sg + j * ROW;
-      float cx = g[0], cy = g[1], cz = g[2];
-      if (j >= e_ss) {
-        const float dt = rt - g[6];
-        cx = cx + g[3] * dt;
-        cy = cy + g[4] * dt;
-        cz = cz + g[5] * dt;
-      }
-      const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-      const float b = ocx * dx + ocy * dy + ocz * dz;
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - g[7];
-      const float disc = b * b - a * c;
-      float t = INF;
-      if (disc > 0.0f) {
-        const float sd = sqrtf(disc);
-        const float t1 = (-b - sd) * inv_a;
-        const float t2 = (-b + sd) * inv_a;
-        if (t1 > t_min && t1 < INF) t = t1;
-        else if (t2 > t_min && t2 < INF) t = t2;
-      }
+      const float t = hit_sphere(sg + j * ROW, r, j >= e_ss, t_min);
       if (t < bt) { bt = t; bi = base + j; }
     }
-    // solid axis-aligned boxes: slab test
+    // solid axis-aligned boxes
     for (int j = e_s; j < e_sb; ++j) {
-      const float* g = sg + j * ROW;
-      const float tax = (g[0] - ox) * ix, tbx = (g[3] - ox) * ix;
-      const float tay = (g[1] - oy) * iy, tby = (g[4] - oy) * iy;
-      const float taz = (g[2] - oz) * iz, tbz = (g[5] - oz) * iz;
-      const float tn = jmax(jmax(jmin(tax, tbx), jmin(tay, tby)), jmin(taz, tbz));
-      const float tf = jmin(jmin(jmax(tax, tbx), jmax(tay, tby)), jmax(taz, tbz));
-      float t = INF;
-      if (tf > tn) {
-        if (tn > t_min && tn < INF) t = tn;
-        else if (tf > t_min && tf < INF) t = tf;
-      }
+      const float t = hit_box(sg + j * ROW, r, t_min);
       if (t < bt) { bt = t; bi = base + j; }
     }
-    // quads: plane + (u, v) parallelogram test
+    // quads
     for (int j = e_sb; j < cnt; ++j) {
-      const float* g = sg + j * ROW;
-      const float dn = dx * g[3] + dy * g[4] + dz * g[5];
-      const float tq = (g[6] - (ox * g[3] + oy * g[4] + oz * g[5])) / dn;
-      const float xx = ox + tq * dx - g[0];
-      const float xy = oy + tq * dy - g[1];
-      const float xz = oz + tq * dz - g[2];
-      const float uq = xx * g[7] + xy * g[8] + xz * g[9];
-      const float vq = xx * g[10] + xy * g[11] + xz * g[12];
-      const bool ok = (tq > t_min) && (tq < INF) && (uq >= 0.0f) &&
-                      (uq <= 1.0f) && (vq >= 0.0f) && (vq <= 1.0f);
-      const float t = ok ? tq : INF;
+      const float t = hit_quad(sg + j * ROW, r, t_min);
       if (t < bt) { bt = t; bi = base + j; }
     }
   }

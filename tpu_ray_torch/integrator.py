@@ -1,4 +1,7 @@
-"""Ray-pool path tracing with immediate path regeneration.
+"""The three integrators: the ray pool, the plain wavefront and the work
+queue.
+
+**Ray pool** (immediate path regeneration).
 
 Port of the fused pool path of ``tpu_ray/integrator.py`` (``_PoolState``,
 ``_init_pool_state``, ``_pool_levels``, the fused body of
@@ -20,6 +23,25 @@ The host drives the loop:
   estimate does not change - only where the radiance is summed;
 * compaction gathers the most-active lanes with a stable argsort of
   ``~active`` at each ladder level, as ``integrator.py:506-529`` does.
+
+**Plain wavefront** (:func:`trace`, port of ``integrator.trace``): one
+path per lane, traced to completion through the closest-hit sweep and the
+unfused hit-record + scatter kernel (:mod:`tpu_ray_torch.ops.hit_scatter`).
+Kept as the semantic reference of the estimator.
+
+**Work queue** (:func:`trace_queue`, port of ``integrator.trace_queue``
+with fused shading): one persistent pool of lanes draws (pixel, sample)
+work items off a global frontier; the moment a path dies its lane takes
+the next item, so the pool stays full until the frontier is spent and the
+render pays one survival tail.  Path draws are keyed by (work item,
+bounce) through ``rng.path_ids`` and camera draws by (pixel, global
+sample), never by lane, iteration or epoch; a dying lane's radiance is
+written (not added) into a per-(sample, pixel) plane that is reduced in a
+fixed order.  So the image is bit-identical for any lane count, epoch
+length, drain ladder and sample chunking.  The JAX package's radiance
+log, position map and lagged counter reads served a TPU's slow scatters
+and a remote worker's round trip; here the plane is written directly and
+the counters are read once per epoch.
 """
 from __future__ import annotations
 
@@ -30,9 +52,11 @@ import torch
 
 from .core import rng
 from .models.scene_data import SceneData
+from .ops.hit_scatter import hit_scatter
 from .ops.intersect import intersect_ti, media_rows
-from .ops.shade import N_FSTATE, N_ISTATE, StepConfig, pool_step
-from .ops.sweep import sweep_table
+from .ops.shade import (N_FSTATE, N_ISTATE, RR_COL, RR_PMIN, StepConfig,
+                        pool_step)
+from .ops.sweep import SweepBlocks, sweep_blocks, sweep_table, use_sort
 
 # compaction ladder (integrator.py COMPACT_* constants, kept identical:
 # the ladder decides nothing about the estimate, but the port keeps the
@@ -84,14 +108,27 @@ def pool_levels(R: int, n_prims: int):
 
 @dataclass
 class SceneKernels:
-    """Per-render tables of the two kernels and the media rows."""
+    """Per-render tables of the sweeps and the media rows.  ``blocks`` is
+    set when the render uses the sorted, compacted-list sweep: this is the
+    one place that decides it."""
 
     geo: torch.Tensor
     media: list
+    blocks: SweepBlocks | None = None
 
     @classmethod
-    def create(cls, scene: SceneData) -> "SceneKernels":
-        return cls(geo=sweep_table(scene), media=media_rows(scene))
+    def create(cls, scene: SceneData, sort: bool | None = None
+               ) -> "SceneKernels":
+        """``sort``: the sorted sweep on or off; ``None`` reads
+        ``TPU_RAY_SORT`` (off unless ``1``)."""
+        sort = use_sort(sort) and scene.n_solid > 0
+        return cls(geo=sweep_table(scene), media=media_rows(scene),
+                   blocks=sweep_blocks(scene) if sort else None)
+
+    def intersect(self, scene: SceneData, rays, kd, lane_ids):
+        """:func:`intersect_ti` with this render's tables."""
+        return intersect_ti(scene, rays, kd, lane_ids, self.geo, self.media,
+                            self.blocks)
 
 
 def _compact(st: PoolState, m: int) -> PoolState:
@@ -141,8 +178,8 @@ def trace_pool_staged(scene: SceneData, cfg: StepConfig, xy, slot, k_loop,
             if k % CHECK_EVERY == 0 and \
                     int(st.istate[2].sum()) <= threshold:
                 break
-            bt, bi = intersect_ti(scene, st.fstate[:7], k_isect[it],
-                                  st.slot, kern.geo, kern.media)
+            bt, bi = kern.intersect(scene, st.fstate[:7], k_isect[it],
+                                    st.slot)
             st.fstate, st.istate = pool_step(cfg, st.xy, st.slot, st.fstate,
                                              st.istate, bt, bi, k_scat[it])
             it += 1
@@ -159,3 +196,216 @@ def trace_pool_staged(scene: SceneData, cfg: StepConfig, xy, slot, k_loop,
         accum.index_add_(1, st.gids, st.fstate[10:13])
         sample[st.gids] = st.istate[1]
     return accum, sample
+
+
+# --- the plain wavefront ----------------------------------------------------
+
+def trace(scene: SceneData, cfg: StepConfig, rays: torch.Tensor, key,
+          lane_ids=None, kern: SceneKernels | None = None) -> torch.Tensor:
+    """Trace a wavefront to completion; returns per-ray radiance (3, R).
+
+    ``rays``: (7, R) origin, direction, shutter time (constant along each
+    path); ``key``: numpy uint32[2], folded per bounce as ``fold_in(key,
+    bounce)`` then ``fold_in(kb, 0)`` (intersect) / ``fold_in(kb, 1)``
+    (scatter); ``lane_ids`` key each lane's draws (default: position).
+    ``cfg`` supplies the scene tables, ``max_depth`` and ``rr_depth``
+    (Russian roulette after that many bounces, 0 = off); its camera and
+    sample fields are not read.  The loop ends at ``max_depth`` or when no
+    lane is alive, which the host reads every ``CHECK_EVERY`` bounces: a
+    bounce with every lane dead changes nothing.
+    """
+    R = rays.shape[1]
+    dev = rays.device
+    if kern is None:
+        kern = SceneKernels.create(scene)
+    if lane_ids is None:
+        lane_ids = torch.arange(R, dtype=torch.int32, device=dev)
+    rays = rays.clone()
+    tp = torch.ones((3, R), dtype=torch.float32, device=dev)
+    rad = torch.zeros((3, R), dtype=torch.float32, device=dev)
+    alive = torch.ones((R,), dtype=torch.bool, device=dev)
+    bg = cfg.lights_t.new_tensor(cfg.background)[:, None]
+    key = np.asarray(key, np.uint32)
+    rr_depth = cfg.rr_depth
+    for bounce in range(cfg.max_depth):
+        if bounce % CHECK_EVERY == 0 and not bool(alive.any()):
+            break
+        kb = rng.fold_in(key, bounce)
+        k_sc = rng.fold_in(kb, 1)
+        bt, bi = kern.intersect(scene, rays, rng.fold_in(kb, 0), lane_ids)
+        rec, sc = hit_scatter(cfg, rays, bt, bi, k_sc, lane_ids)
+        miss = alive & ~rec.hit
+        emit = alive & rec.hit & ~sc.scattered
+        cont = alive & rec.hit & sc.scattered
+        rad = rad + torch.where(miss, tp * bg, 0.0)
+        rad = rad + torch.where(emit, tp * sc.emitted, 0.0)
+        tp_new = torch.where(cont, tp * sc.weight, tp)
+        kill = torch.zeros_like(cont)
+        if rr_depth:
+            p = torch.clamp(tp.max(dim=0).values, min=RR_PMIN, max=1.0)
+            do_rr = cont & (bounce >= rr_depth)
+            kill = do_rr & (rng.lane_uniform_col(k_sc, lane_ids, RR_COL) >= p)
+            tp_new = torch.where(do_rr & ~kill, tp_new / p, tp_new)
+        tp = tp_new
+        alive = cont & ~kill & (tp.max(dim=0).values > 0.0)
+        rays[0:3] = torch.where(cont, rec.point, rays[0:3])
+        rays[3:6] = torch.where(cont, sc.direction, rays[3:6])
+    return rad
+
+
+# --- the work queue ---------------------------------------------------------
+
+@dataclass
+class QueueState:
+    """The queue's lanes (pool-state layout: ``fstate`` rows 10:13 hold the
+    radiance of the lane's current work item) and the film plane."""
+
+    fstate: torch.Tensor    # (13, m) float32
+    istate: torch.Tensor    # (3, m) int32: bounce, 0, active
+    work: torch.Tensor      # (m,) int64 chunk-local work item id
+    frontier: torch.Tensor  # () int64 next unissued work item
+    plane: torch.Tensor     # (3, total + 1) float32; column ``total`` takes
+    #                         the writes of lanes that did not die
+
+
+def _queue_init(R: int, total: int, dev) -> QueueState:
+    f = torch.zeros((N_FSTATE, R), dtype=torch.float32, device=dev)
+    f[3:6] = 1.0
+    f[7:10] = 1.0
+    return QueueState(
+        fstate=f,
+        istate=torch.zeros((N_ISTATE, R), dtype=torch.int32, device=dev),
+        work=torch.full((R,), total, dtype=torch.int64, device=dev),
+        frontier=torch.zeros((), dtype=torch.int64, device=dev),
+        plane=torch.zeros((3, total + 1), dtype=torch.float32, device=dev))
+
+
+def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 with the same low 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
+               kern: SceneKernels, k_isect, k_scat, cam_salt: int,
+               work_base: int, total: int, width: int, height: int
+               ) -> QueueState:
+    """One queue iteration: trace + fused step + flush dead + inject fresh.
+
+    ``cfg`` is a step configuration with ``n_samples = 0`` (the step
+    kernel then never regenerates; the queue injects work itself)."""
+    m = st.work.shape[0]
+    dev = st.work.device
+    sid = _to_i32_bits(rng.path_ids(st.work + work_base, st.istate[0]))
+    bt, bi = kern.intersect(scene, st.fstate[:7], k_isect, sid)
+    zeros2 = torch.zeros((2, m), dtype=torch.float32, device=dev)
+    was_active = st.istate[2] > 0
+    f, i = pool_step(cfg, zeros2, sid, st.fstate, st.istate, bt, bi, k_scat)
+
+    # flush: each work item dies exactly once, so its radiance is written
+    died = was_active & (i[2] == 0)
+    st.plane.index_copy_(1, torch.where(died, st.work, total), f[10:13])
+
+    # inject: free lanes take the next work items off the frontier
+    free = i[2] == 0
+    ranks = torch.cumsum(free.to(torch.int64), dim=0) - 1
+    w_new = st.frontier + torch.where(free, ranks, 0)
+    valid = free & (w_new < total)
+    P = width * height
+    pix = torch.where(valid, w_new % P, 0)
+    gsample = ((work_base // P) + torch.where(valid, w_new // P, 0)) & rng.M32
+    base = rng.hash2_base(pix, gsample ^ (cam_salt & rng.M32))
+    u0, u1, u2, u3, u4 = (rng.hash_col(base, c) for c in range(5))
+    sx = ((pix % width).to(torch.float32) + u0) * cfg.inv_w
+    sy = ((height - 1 - pix // width).to(torch.float32) + u1) * cfg.inv_h
+    cam = [float(c) for c in cfg.cam]
+    r = cam[18] * torch.sqrt(u2)
+    phi = rng.TWO_PI * u3
+    rc, rs = r * torch.cos(phi), r * torch.sin(phi)
+    off = [rc * cam[12 + a] + rs * cam[15 + a] for a in range(3)]
+    t_new = cam[19] + float(np.float32(cam[20]) - np.float32(cam[19])) * u4
+    new = torch.stack(
+        [cam[a] + off[a] for a in range(3)]
+        + [cam[3 + a] + sx * cam[6 + a] + sy * cam[9 + a] - cam[a] - off[a]
+           for a in range(3)] + [t_new])
+    f[0:7] = torch.where(valid, new, f[0:7])
+    f[7:10] = torch.where(valid, 1.0, f[7:10])
+    f[10:13] = torch.where(valid, 0.0, f[10:13])
+    i[0] = torch.where(valid, 0, i[0])
+    i[2] = (~free | valid).to(torch.int32)
+    frontier = torch.clamp(st.frontier + free.sum(), max=total)
+    return QueueState(f, i, torch.where(valid, w_new, st.work), frontier,
+                      st.plane)
+
+
+def queue_compact(st: QueueState, m: int) -> QueueState:
+    """Drain-ladder compaction: gather the ``m`` most-active lanes (a stable
+    argsort keeps the work order)."""
+    order = torch.argsort((st.istate[2] == 0).to(torch.int32),
+                          stable=True)[:m]
+    return QueueState(st.fstate[:, order].contiguous(),
+                      st.istate[:, order].contiguous(), st.work[order],
+                      st.frontier, st.plane)
+
+
+def trace_queue(scene: SceneData, camera, width: int, height: int,
+                chunk_spp: int, chunk_s0: int, key, max_depth: int, R: int,
+                cam_salt: int = 0, epoch_iters: int = 8, drain_levels=(),
+                progress_cb=None, rr_depth: int = 0, worklist=None,
+                n_work=None, wl_block_pix=None,
+                kern: SceneKernels | None = None) -> torch.Tensor:
+    """Render ``width * height * chunk_spp`` camera samples with a work-queue
+    pool of ``R`` lanes; returns the (H*W, 3) radiance sum over the chunk's
+    samples.
+
+    Work item w (chunk-local) is pixel ``w % (W*H)`` (row-major, image row
+    0 at the top) at global sample ``chunk_s0 + w // (W*H)``.  ``key``
+    (numpy uint32[2]) gives the purpose keys ``fold_in(key, 0 / 1)`` that
+    stay constant over the render.  The host reads (frontier, active
+    count) once per epoch of ``epoch_iters`` iterations; iterations past
+    the exit condition change nothing.  ``drain_levels``: pool sizes of the
+    final drain's compaction.  ``kern`` passes a render's prebuilt tables,
+    which also pick the sweep (:meth:`SceneKernels.create`; built from the
+    scene when omitted).  The scene must be on the device to
+    render on.  Adaptive worklists (``worklist``, ``n_work``,
+    ``wl_block_pix``) are not ported."""
+    if worklist is not None or n_work is not None or wl_block_pix is not None:
+        raise NotImplementedError("adaptive-sampling worklists are not "
+                                  "ported yet (a later slice)")
+    P = width * height
+    chunk_spp = int(chunk_spp)
+    total = P * chunk_spp
+    dev = scene.device
+    if max_depth <= 0:
+        return torch.zeros((P, 3), dtype=torch.float32, device=dev)
+    if kern is None:
+        kern = SceneKernels.create(scene)
+    # n_samples = 0: the step kernel never regenerates a camera ray
+    cfg = StepConfig.create(scene, camera, width, height, max_depth,
+                            rr_depth=rr_depth, n_samples=0)
+    key = np.asarray(key, np.uint32)
+    k_isect, k_scat = rng.fold_in(key, 0), rng.fold_in(key, 1)
+    work_base = (int(chunk_s0) & rng.M32) * P
+    st = _queue_init(R, total, dev)
+    epoch_iters = max(1, int(epoch_iters))
+    max_epochs = 21 + (total // max(R, 1) + chunk_spp * cfg.max_depth
+                       + 2 * cfg.max_depth) // epoch_iters * 4
+
+    def run(st: QueueState, threshold: int) -> QueueState:
+        for _ in range(max_epochs):
+            frontier, n_active = torch.stack(
+                [st.frontier, st.istate[2].sum()]).tolist()
+            if progress_cb is not None:
+                progress_cb(frontier, total)
+            if frontier >= total and n_active <= threshold:
+                return st
+            for _ in range(epoch_iters):
+                st = queue_body(st, scene, cfg, kern, k_isect, k_scat,
+                                cam_salt, work_base, total, width, height)
+        raise RuntimeError("trace_queue: epoch cap exceeded")
+
+    st = run(st, drain_levels[0] if drain_levels else 0)
+    for li, m in enumerate(drain_levels):
+        st = queue_compact(st, m)
+        st = run(st, drain_levels[li + 1] if li + 1 < len(drain_levels) else 0)
+    # sample-major reduction in a fixed order, whatever the schedule was
+    return st.plane[:, :total].reshape(3, chunk_spp, P).sum(dim=1).T

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface: it is compiled on its own
 into a shared library and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  Libraries land in ``tpu_ray_torch/_build/`` (or
 ``$TPU_RAY_TORCH_BUILD_DIR``), named by a hash of the source and flags, so
-an edited source is rebuilt and an unchanged one is reused.
+an edited source is rebuilt and an unchanged one is reused (the shared
+``csrc/*.cuh`` headers count into every source's hash).
 
 Flags: ``-O3 -gencode arch=compute_90a,code=sm_90a --fmad=false`` and no
 fast math.  The sweep's ray-range padding is gone, but the kernels still
@@ -26,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-SOURCES = ("sweep", "pool_step")
+SOURCES = ("sweep", "sweep_compact", "pool_step")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -54,8 +55,11 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     return src, os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
@@ -84,6 +88,10 @@ def build_all(names=SOURCES) -> dict:
             out, err = proc.communicate()
             build_log[n] = err
             if proc.returncode != 0:
+                for other in jobs.values():      # leave no compiler running
+                    if other is not None and other[0].poll() is None:
+                        other[0].kill()
+                        other[0].wait()
                 raise RuntimeError(f"nvcc failed on {n}.cu:\n{out}\n{err}")
             os.replace(tmp, so)
             build_seconds[n] = time.perf_counter() - t0

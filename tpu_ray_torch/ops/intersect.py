@@ -17,7 +17,7 @@ import torch
 
 from ..core import rng
 from ..models.scene_data import PRIM_MEDIUM_SPHERE, SceneData
-from .sweep import _ranges, sweep, sweep_table
+from .sweep import SweepBlocks, _ranges, sweep, sweep_sorted, sweep_table
 
 INF = float("inf")
 MED_EPS = 1e-4
@@ -103,7 +103,8 @@ def _media_t(scene: SceneData, rays: torch.Tensor, kd, lane_ids, media):
 
 
 def intersect_ti(scene: SceneData, rays: torch.Tensor, kd, lane_ids,
-                 geo: torch.Tensor | None = None, media: list | None = None):
+                 geo: torch.Tensor | None = None, media: list | None = None,
+                 blocks: SweepBlocks | None = None):
     """(best_t, best_i) of each ray's closest hit; ``best_t`` is +inf where
     nothing is hit.
 
@@ -111,13 +112,20 @@ def intersect_ti(scene: SceneData, rays: torch.Tensor, kd, lane_ids,
     intersect key's two words (feed the media free-flight draws);
     ``lane_ids``: (R,) slot ids keying those draws; ``geo`` / ``media``:
     the sweep's prim table and :func:`media_rows` (built from the scene
-    when omitted; a render builds them once).
+    when omitted; a render builds them once).  With ``blocks``
+    (:func:`~tpu_ray_torch.ops.sweep.sweep_blocks`) the solids go through
+    the sorted, compacted-list sweep over them instead of the dense one
+    (the JAX package's ``sort=True``) - the same ``(best_t, best_i)`` bit
+    for bit.
     """
     R = rays.shape[1]
     if scene.n_solid > 0:
         if geo is None:
             geo = sweep_table(scene)
-        best_t, best_i = sweep(rays, geo, _ranges(scene), scene.t_min)
+        if blocks is not None:
+            best_t, best_i = sweep_sorted(rays, geo, blocks, scene.t_min)
+        else:
+            best_t, best_i = sweep(rays, geo, _ranges(scene), scene.t_min)
     else:
         best_t = torch.full((R,), INF, dtype=torch.float32,
                             device=rays.device)

@@ -3,7 +3,7 @@
 ``csrc/pool_step.cu`` replaces the TPU kernel ``tpu_ray/ops/shade_pallas.py::
 _step_kernel`` (with ``_shade_core``): one whole pool iteration per lane -
 hit-record rebuild from the sweep's (best_t, best_i), constant / checker /
-hash-Perlin textures, scatter for the five materials with 50/50 light /
+hash-Perlin / image textures, scatter for the five materials with 50/50 light /
 cosine MIS, optional Russian roulette, estimator accumulation, path death
 and camera regeneration.  :func:`pool_step` launches it for CUDA tensors;
 :func:`pool_step_plain` is the same step in plain PyTorch (the CPU path and
@@ -49,6 +49,7 @@ from ..models.scene_data import (
     PRIM_MEDIUM_SPHERE,
     PRIM_QUAD,
     TEX_CHECKER,
+    TEX_IMAGE,
     TEX_PERLIN,
     SceneData,
 )
@@ -59,6 +60,9 @@ TWO_PI = float(f32(2.0 * np.pi))
 INV_PI = float(f32(1.0 / np.pi))
 RR_PMIN = float(f32(0.05))
 RR_COL = 14
+PI = float(f32(np.pi))
+HALF_PI = float(f32(np.pi / 2.0))
+IMG_EPS = float(f32(1e-4))      # the reference's epsilon in image clamping
 N_FSTATE, N_ISTATE = 13, 3
 # roofline numerators per lane: bytes read once + written once (xy 8, slot
 # 4, float state 52, int state 12, best_t 4, best_i 4 in; 52 + 12 out), and
@@ -81,7 +85,7 @@ PRIM_COLS = 40
 # scene feature bits of the kernel's ``flags`` argument
 FLAG_BITS = ("has_moving", "has_quads", "has_solid_box", "has_media",
              "has_checker", "has_perlin", "has_emissive", "has_lambertian",
-             "has_metal", "has_dielectric", "has_isotropic")
+             "has_metal", "has_dielectric", "has_isotropic", "has_image")
 
 
 def build_tables(scene: SceneData):
@@ -145,6 +149,8 @@ class StepConfig:
     lights_t: torch.Tensor    # the same on the state's device (kernel)
     n_lights: int
     flags: dict               # FLAG_BITS -> bool
+    atlas: torch.Tensor       # (I, Hmax, Wmax) int32: packed 8-bit RGB texels
+    img_size: torch.Tensor    # (I, 2) int32 (width, height)
     t_min: float
     background: np.ndarray    # (3,) float32
     cam: np.ndarray           # (21,) float32 (Camera.vec)
@@ -168,6 +174,9 @@ class StepConfig:
             lights=lights, lights_t=torch.from_numpy(lights).to(dev),
             n_lights=int(scene.n_lights),
             flags={k: bool(getattr(scene, k)) for k in FLAG_BITS},
+            atlas=torch.from_numpy(np.ascontiguousarray(
+                scene.texs.img_atlas.cpu().numpy()).view(np.int32)).to(dev),
+            img_size=scene.texs.img_size.to(torch.int32).contiguous(),
             t_min=float(f32(scene.t_min)),
             background=scene.background.cpu().numpy().astype(np.float32),
             cam=camera.vec(), inv_w=float(f32(1.0 / width)),
@@ -304,9 +313,28 @@ def _marble(salt, scale, px, py, pz):
     return 0.5 * (1.0 + torch.sin(pz + 10.0 * torch.abs(acc)))
 
 
+def image_value(cfg: StepConfig, iid, u, v):
+    """Image-texture lookup (``textures.image_value_from``): clamp, v-flip,
+    one gather of the packed texel, ``byte * (1/255)`` per channel."""
+    size = cfg.img_size[iid.to(torch.int64)].to(torch.float32)
+    nx, ny = size[:, 0], size[:, 1]
+    i = torch.floor(torch.minimum(torch.clamp(u * nx, min=0.0),
+                                  nx - IMG_EPS)).to(torch.int64)
+    j = torch.floor(torch.minimum(
+        torch.clamp((1.0 - v) * ny - IMG_EPS, min=0.0),
+        ny - IMG_EPS)).to(torch.int64)
+    _, H, W = cfg.atlas.shape
+    w = cfg.atlas.reshape(-1)[(iid.to(torch.int64) * H + j) * W + i]
+    w = w.to(torch.int64) & M32
+    s = float(f32(1.0 / 255.0))
+    return tuple(((w >> sh) & 0xFF).to(torch.float32) * s for sh in (0, 8, 16))
+
+
 def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
     """Record rebuild + textures + scatter for every lane
-    (``shade_pallas._shade_core`` without image textures)."""
+    (``shade_pallas._shade_core``, with the image fetch done in place as
+    ``ops/intersect.py::_hit_record`` + ``textures.image_value_from`` do it,
+    not deferred)."""
     fl = cfg.flags
     t_min = cfg.t_min
     zero = torch.zeros_like(t)
@@ -326,8 +354,22 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
         cz = cz + pull(7) * dt
     rr = torch.clamp(pull(9), min=1e-12)
     n_vec = ((px - cx) / rr, (py - cy) / rr, (pz - cz) / rr)
+    uu = vv = zero
+    if fl["has_image"]:
+        # spherical uv of the outward sphere normal
+        phi = torch.atan2(n_vec[2], n_vec[0])
+        theta = torch.asin(torch.clamp(n_vec[1], min=-1.0, max=1.0))
+        uu = 1.0 - (phi + PI) / TWO_PI
+        vv = (theta + HALF_PI) / PI
     if fl["has_quads"]:
-        n_vec = _where3(kind == PRIM_QUAD, (pull(5), pull(6), pull(7)), n_vec)
+        is_quad = kind == PRIM_QUAD
+        n_vec = _where3(is_quad, (pull(5), pull(6), pull(7)), n_vec)
+        if fl["has_image"]:
+            q = (px - pull(2), py - pull(3), pz - pull(4))
+            uu = torch.where(is_quad, _dot(q, (pull(10), pull(11), pull(12))),
+                             uu)
+            vv = torch.where(is_quad, _dot(q, (pull(13), pull(14), pull(15))),
+                             vv)
     if fl["has_solid_box"]:
         ix, iy, iz = 1.0 / d[0], 1.0 / d[1], 1.0 / d[2]
         tax, tbx = (pull(2) - o[0]) * ix, (pull(5) - o[0]) * ix
@@ -343,15 +385,26 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
         ax_f = torch.where(t3f[1] < t3f[0], 1, 0)
         ax_f = torch.where(t3f[2] < torch.minimum(t3f[0], t3f[1]), 2, ax_f)
         axis = torch.where(tn_b > t_min, ax_n, ax_f)
-        n_vec = _where3(kind == PRIM_BOX,
+        is_box = kind == PRIM_BOX
+        n_vec = _where3(is_box,
                         tuple((axis == a).to(torch.float32) for a in range(3)),
                         n_vec)
+        if fl["has_image"]:
+            # face uv: z-face -> (x, y), y-face -> (x, z), x-face -> (y, z)
+            fx = (px - pull(2)) / torch.clamp(pull(5) - pull(2), min=1e-30)
+            fy = (py - pull(3)) / torch.clamp(pull(6) - pull(3), min=1e-30)
+            fz = (pz - pull(4)) / torch.clamp(pull(7) - pull(4), min=1e-30)
+            uu = torch.where(is_box, torch.where(axis == 0, fy, fx), uu)
+            vv = torch.where(is_box, torch.where(axis == 2, fy, fz), vv)
     front = _dot(d, n_vec) < 0.0
     n_vec = _where3(front, n_vec, (-n_vec[0], -n_vec[1], -n_vec[2]))
     if fl["has_media"]:
         is_med = kind >= PRIM_MEDIUM_SPHERE
         n_vec = _where3(is_med, (torch.ones_like(zero), zero, zero), n_vec)
         front = front | is_med
+        if fl["has_image"]:
+            uu = torch.where(is_med, 0.0, uu)
+            vv = torch.where(is_med, 0.0, vv)
 
     mkind = pull(16).to(torch.int32)
     base = fmix((as_u32(slot) + kd[0]) & M32) ^ kd[1]
@@ -369,6 +422,9 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
         psalt = as_u32(cfg.salt[idx.to(torch.int64)])
         m = _marble(psalt, pull(29), px, py, pz)
         att = _where3(tex_kind == TEX_PERLIN, (m, m, m), att)
+    if fl["has_image"]:
+        att = _where3(tex_kind == TEX_IMAGE,
+                      image_value(cfg, pull(39).to(torch.int32), uu, vv), att)
 
     unit_d = _normalize(d)
     if fl["has_emissive"]:
@@ -473,7 +529,8 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
         weight = _where3(is_mk, w_, weight)
     scattered = (mkind != MAT_DIFFUSE_LIGHT if fl["has_emissive"]
                  else torch.ones_like(hit))
-    return dict(hit=hit, point=(px, py, pz), direction=direction,
+    return dict(hit=hit, point=(px, py, pz), normal=n_vec, front=front,
+                u=uu, v=vv, mat=pull(1).to(torch.int32), direction=direction,
                 weight=weight, emitted=emitted, scattered=scattered,
                 base=base)
 
@@ -576,7 +633,7 @@ def _check(cfg, xy, slot, fstate, istate, best_t, best_i):
 def _params(cfg: StepConfig, kd, init: bool) -> np.ndarray:
     """The kernel's by-value parameter block as 32-bit words (layout of
     ``StepParams`` in csrc/pool_step.cu)."""
-    w = np.zeros(24 + 13, np.uint32)
+    w = np.zeros(24 + 15, np.uint32)
     fv = w.view(np.float32)
     fv[0:21] = cfg.cam
     fv[21:24] = cfg.background
@@ -588,7 +645,14 @@ def _params(cfg: StepConfig, kd, init: bool) -> np.ndarray:
     w[k + 7:k + 13] = np.array([cfg.n_samples, cfg.max_depth, cfg.rr_depth,
                                 cfg.n_lights, flags, int(init)],
                                np.int64) & M32
+    w[k + 13:k + 15] = cfg.atlas.shape[1:]
     return w
+
+
+def table_ptrs(cfg: StepConfig):
+    """Device pointers of the scene tables, in the kernels' argument order."""
+    return (cfg.tab.data_ptr(), cfg.salt.data_ptr(), cfg.lights_t.data_ptr(),
+            cfg.atlas.data_ptr(), cfg.img_size.data_ptr())
 
 
 def pool_step(cfg: StepConfig, xy, slot, fstate, istate, best_t, best_i,
@@ -600,15 +664,15 @@ def pool_step(cfg: StepConfig, xy, slot, fstate, istate, best_t, best_i,
                                kd, init)
     _check(cfg, xy, slot, fstate, istate, best_t, best_i)
     fn = load_fn("pool_step", "tr_pool_step",
-                 [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 14 + [ctypes.c_longlong, ctypes.c_void_p])
     R = fstate.shape[1]
     f_out = torch.empty_like(fstate)
     i_out = torch.empty_like(istate)
     params = _params(cfg, kd, init)
     err = fn(xy.data_ptr(), slot.data_ptr(), fstate.data_ptr(),
              istate.data_ptr(), best_t.data_ptr(), best_i.data_ptr(),
-             cfg.tab.data_ptr(), cfg.salt.data_ptr(), cfg.lights_t.data_ptr(),
-             params.ctypes.data, f_out.data_ptr(), i_out.data_ptr(), R,
+             *table_ptrs(cfg), params.ctypes.data, f_out.data_ptr(),
+             i_out.data_ptr(), R,
              torch.cuda.current_stream(fstate.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pool-step kernel launch failed (cudaError {err})")

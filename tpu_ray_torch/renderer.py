@@ -1,12 +1,20 @@
-"""Rendering: the pool-mode schedule, waves and the film.
+"""Rendering: the schedules of the three modes, waves, chunks and the film.
 
-Port of the pool path of ``tpu_ray/renderer.py``: ``pick_samples_per_wave``,
-``plan_pool``, ``_pixel_grid``, ``_slot_ids``, ``_film_add`` and ``render``
-in pool mode.  ``plan_pool`` and its constants are kept identical to the
-JAX package's even though they were tuned on a TPU: ``k_pool`` decides the
-global slot ids and those key every random stream, so any other plan would
-change the image's noise and the port could no longer be held to the JAX
-renders and goldens.
+Port of ``tpu_ray/renderer.py``: ``resolve_mode``, ``plan_pool`` /
+``plan_queue``, ``_pixel_grid``, ``_slot_ids``, ``_film_add``,
+``make_wave_fn``, ``_render_queue`` and ``render``.
+
+* ``mode="pool"`` (``"auto"`` up to 512 prims): the ray pool.
+  ``plan_pool`` and its constants are kept identical to the JAX package's
+  even though they were tuned on a TPU: ``k_pool`` decides the global slot
+  ids and those key every random stream, so any other plan would change
+  the image's noise and the port could no longer be held to the JAX
+  renders and goldens.
+* ``mode="queue"`` (``"auto"`` above 512 prims): the work queue.  Its
+  lane count, epoch length and drain ladder key no stream, so
+  ``plan_queue`` chooses them for the card.
+* ``mode="wave"``: the plain wavefront, one path per lane per wave, kept
+  as the estimator's semantic reference.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a CUDA device they raise.  Inputs outside this port's scope raise
@@ -23,11 +31,20 @@ import torch
 
 from .core import rng
 from .core.camera import Camera
-from .integrator import SceneKernels, trace_pool_staged
+from .integrator import (COMPACT_FLOOR, COMPACT_MIN, SceneKernels, trace,
+                         trace_pool_staged, trace_queue)
 from .models.scene_data import SceneData
+from .ops.intersect import pack_rays
 from .ops.shade import StepConfig
 
-MAX_POOL_PRIMS = 512     # above this the JAX package renders in queue mode
+QUEUE_MIN_PRIMS = 512    # mode="auto" picks the work queue above this
+# the queue's per-(sample, pixel) film plane is 12 bytes a row; chunks of
+# samples are sized so it stays under this share of the card's 80 GB
+QUEUE_PLANE_BYTES = 8_000_000_000
+# iterations per epoch = per host read of (frontier, active count).  A read
+# costs one small device-to-host copy, so short epochs are cheap, and every
+# iteration past an exit condition is a full-pool iteration wasted
+QUEUE_EPOCH_ITERS = 8
 
 
 def resolve_device(device=None) -> torch.device:
@@ -55,37 +72,78 @@ def pick_samples_per_wave(width: int, height: int, spp: int,
 
 def check_supported(scene: SceneData, camera: Camera) -> None:
     """Raise ``NotImplementedError`` for scenes outside this port."""
-    if scene.n_prims > MAX_POOL_PRIMS:
-        raise NotImplementedError(
-            f"{scene.n_prims} prims: scenes over {MAX_POOL_PRIMS} prims "
-            "render in queue mode, which the next slice of the port adds "
-            "(next-week-final)")
-    if scene.has_image:
-        raise NotImplementedError("image textures are not ported yet (a "
-                                  "later slice adds the atlas fetch)")
     if scene.strict:
         raise NotImplementedError("the strict reference estimator is not "
                                   "ported yet (a later slice)")
     if scene.checker_fancy:
         raise NotImplementedError("checker textures with non-constant "
                                   "children are not ported yet")
+    if scene.image_on_emissive:
+        raise NotImplementedError("an image texture on an emissive material "
+                                  "is outside the fused shading kernels")
     if camera.sampler != "uniform":
         raise NotImplementedError(f"sampler {camera.sampler!r} is not ported "
                                   "yet (a later slice adds core/qmc.py)")
+
+
+def resolve_mode(scene: SceneData, mode: str = "auto") -> str:
+    """``"auto"`` -> the work queue for scenes of more than 512 prims, the
+    pool otherwise.  A pool request for a bigger scene is demoted to the
+    queue and announced on stderr: the pool's plan above 512 prims is a
+    set of lane caps of one TPU worker that key the noise, which this port
+    does not carry."""
+    if mode not in ("auto", "pool", "queue", "wave"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "auto":
+        return "queue" if scene.n_prims > QUEUE_MIN_PRIMS else "pool"
+    if mode == "pool" and scene.n_prims > QUEUE_MIN_PRIMS:
+        print(f"tpu_ray_torch: demoting mode=pool to the work queue: "
+              f"{scene.n_prims} prims (pool mode renders up to "
+              f"{QUEUE_MIN_PRIMS})", file=sys.stderr)
+        return "queue"
+    return mode
 
 
 def plan_pool(scene: SceneData, width: int, height: int, spp: int,
               rays_per_wave: int = 1 << 20, samples_per_wave: int = 64):
     """Pool-mode schedule (k_pool slots/pixel, samples per slot per wave,
     wave count): the JAX package's plan for scenes of <= 512 prims."""
-    if scene.n_prims > MAX_POOL_PRIMS:
-        raise NotImplementedError("queue-mode schedules are not ported yet")
+    if scene.n_prims > QUEUE_MIN_PRIMS:
+        raise ValueError("plan_pool plans scenes of at most 512 prims; "
+                         "bigger scenes render in queue mode (plan_queue)")
     k_pool = pick_samples_per_wave(width, height, spp, rays_per_wave)
     s_total = spp // k_pool
     lanes = width * height * k_pool
     s_budget = max(1, int(2e13 / (lanes * max(scene.n_prims, 1) * 8)))
     s_wave = _largest_divisor_leq(s_total, min(samples_per_wave, s_budget))
     return k_pool, s_wave, s_total // s_wave
+
+
+def plan_queue(scene: SceneData, width: int, height: int, spp: int,
+               rays_per_wave: int = 1 << 20):
+    """Queue-mode schedule: (R lanes, chunk_spp, epoch_iters, drain_levels).
+
+    None of the four keys a random stream (the image is bit-identical for
+    any of them), so they are chosen for the card and not carried over
+    from the TPU's plan: ``R`` is ``rays_per_wave`` (1M lanes fill the
+    card's 132 SMs many times over and keep the per-iteration host cost
+    per lane low) with no lane cap by prim count; ``chunk_spp`` keeps the
+    film plane under ``QUEUE_PLANE_BYTES``; epochs are
+    ``QUEUE_EPOCH_ITERS`` iterations; the drain ladder is the JAX
+    package's shape (R/2, then quarter steps down to 4096 lanes)."""
+    P = width * height
+    R = max(1024, min(rays_per_wave, P * spp))
+    chunk_spp = _largest_divisor_leq(
+        spp, max(1, QUEUE_PLANE_BYTES // (P * 12)))
+    levels = []
+    m = R
+    if R >= COMPACT_MIN and m // 2 >= COMPACT_FLOOR:
+        m //= 2
+        levels.append(m)
+        while m // 4 >= COMPACT_FLOOR:
+            m //= 4
+            levels.append(m)
+    return R, chunk_spp, QUEUE_EPOCH_ITERS, tuple(levels)
 
 
 def pixel_grid(width: int, height: int, k: int, device="cpu"):
@@ -114,21 +172,83 @@ def film_add(accum: torch.Tensor, rad: torch.Tensor, k_pool: int,
     return accum + rad.T.reshape(k_pool, height, width, 3).sum(dim=0)
 
 
+def _render_queue(scene, camera, width, height, spp, max_depth, seed,
+                  rays_per_wave, rr_depth, progress, sort):
+    """Work-queue render: sample chunks sized by the film-plane budget, one
+    key for every chunk (draws are keyed by global work item and bounce)."""
+    P = width * height
+    R, chunk_spp, epoch_iters, drain = plan_queue(scene, width, height, spp,
+                                                  rays_per_wave)
+    kern = SceneKernels.create(scene, sort)
+    k_queue = rng.fold_in(rng.prng_key(seed), 0x5EED)
+    film = torch.zeros((P, 3), dtype=torch.float32, device=scene.device)
+
+    for c in range(spp // chunk_spp):
+        def cb(frontier, total, done=c * P * chunk_spp):
+            pct = 100.0 * (done + frontier) / (P * spp)
+            print(f"\rRendering {pct:5.1f}%", end="", file=sys.stderr)
+
+        film = film + trace_queue(
+            scene, camera, width, height, chunk_spp, c * chunk_spp, k_queue,
+            max_depth, R, cam_salt=seed, epoch_iters=epoch_iters,
+            drain_levels=drain, progress_cb=cb if progress else None,
+            rr_depth=rr_depth, kern=kern)
+    if progress:
+        print("", file=sys.stderr)
+    return film.reshape(height, width, 3).cpu().numpy() / spp
+
+
+def _render_wave(scene, camera, width, height, spp, max_depth, seed,
+                 rays_per_wave, rr_depth, progress, sort):
+    """Plain-wavefront render (``make_wave_fn``): per wave ``k`` samples per
+    pixel, camera samples drawn by lane position from ``jax.random``-equal
+    streams of ``split(fold_in(PRNGKey(seed), wave), 3)``."""
+    dev = scene.device
+    k = pick_samples_per_wave(width, height, spp, rays_per_wave)
+    n_waves = spp // k
+    xy = pixel_grid(width, height, k, dev)
+    kern = SceneKernels.create(scene, sort)
+    cfg = StepConfig.create(scene, camera, width, height, max_depth,
+                            rr_depth=rr_depth)
+    cam = camera.to(dev)
+    base_key = rng.prng_key(seed)
+    accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+    for w in range(n_waves):
+        if progress:
+            print(f"\rRendering wave {w + 1} of {n_waves}", end="",
+                  file=sys.stderr)
+        k_jit, k_cam, k_path = rng.split(rng.fold_in(base_key, w), 3)
+        R = xy.shape[1]
+        jitter = rng.uniform(k_jit, (R, 2), dev)
+        u = xy[0] + jitter[:, 0] / width
+        v = xy[1] + jitter[:, 1] / height
+        ro, rd, rt = cam.rays_from_uniforms(u, v, rng.uniform(k_cam, (R, 3),
+                                                              dev))
+        rad = trace(scene, cfg, pack_rays(ro, rd, rt), k_path, kern=kern)
+        accum = film_add(accum, rad, k, height, width)
+    if progress:
+        print("", file=sys.stderr)
+    return accum.cpu().numpy() / spp
+
+
 def render(scene: SceneData, camera: Camera, width: int, height: int,
            spp: int, max_depth: int = 50, seed: int = 1024,
            rays_per_wave: int = 1 << 20, samples_per_wave: int = 64,
            rr_depth: int = 0, device=None, progress: bool = False,
            mode: str = "auto", bvh=False, mesh=None, adaptive: float = 0.0,
-           checkpoint_path=None, on_partial=None) -> np.ndarray:
+           checkpoint_path=None, on_partial=None,
+           sort: bool | None = None) -> np.ndarray:
     """Render to a linear (H, W, 3) float32 image (mean over spp samples).
 
-    Pool mode only: ``mode`` may be "auto" or "pool".  The remaining
+    ``mode``: "auto" (the work queue above 512 prims, else the pool),
+    "pool", "queue" or "wave".  ``sort`` sends the closest-hit sweep
+    through the sorted, compacted-list kernel (the same image bit for bit;
+    ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  The remaining
     arguments of the JAX ``render`` (BVH traversal, device meshes, adaptive
     sampling, checkpoints, progressive output) are later slices of the port
     and raise ``NotImplementedError`` when asked for.
     """
-    for name, on in (("mode=" + repr(mode), mode not in ("auto", "pool")),
-                     ("bvh", bool(bvh)), ("mesh", mesh is not None),
+    for name, on in (("bvh", bool(bvh)), ("mesh", mesh is not None),
                      ("adaptive sampling", bool(adaptive)),
                      ("checkpointing", checkpoint_path is not None),
                      ("progressive output", on_partial is not None)):
@@ -136,13 +256,20 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
             raise NotImplementedError(f"{name} is not ported yet (a later "
                                       "slice of the port)")
     check_supported(scene, camera)
+    mode = resolve_mode(scene, mode)
     dev = resolve_device(device)
     scene = scene.to(dev)
+    if mode == "queue":
+        return _render_queue(scene, camera, width, height, spp, max_depth,
+                             seed, rays_per_wave, rr_depth, progress, sort)
+    if mode == "wave":
+        return _render_wave(scene, camera, width, height, spp, max_depth,
+                            seed, rays_per_wave, rr_depth, progress, sort)
     k_pool, s_wave, n_waves = plan_pool(scene, width, height, spp,
                                         rays_per_wave, samples_per_wave)
     xy = pixel_grid(width, height, k_pool, dev)
     sids = slot_ids(width, height, k_pool, dev)
-    kern = SceneKernels.create(scene)
+    kern = SceneKernels.create(scene, sort)
     base_key = rng.prng_key(seed)
     accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
     cfg = StepConfig.create(scene, camera, width, height, max_depth,

@@ -2,7 +2,7 @@
 
 The flags of the JAX CLI that this port covers (``--scene``, ``--width``,
 ``--height``, ``--spp``, ``--max-depth``, ``--seed``, ``--out``,
-``--list-scenes``, ``--rr-depth``) with the same defaults, plus
+``--list-scenes``, ``--rr-depth``, ``--mode``) with the same defaults, plus
 ``--device``: the card by default, ``cpu`` for the plain PyTorch versions.
 The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or as
 a P3 PPM to stdout; progress and "Done." go to stderr.
@@ -33,6 +33,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rr-depth", type=int, default=0, metavar="N",
                    help="Russian-roulette path termination after N bounces "
                         "(0 = off)")
+    p.add_argument("--mode", default="auto",
+                   choices=("auto", "pool", "queue", "wave"),
+                   help="integrator: persistent work queue, ray pool with "
+                        "regeneration, or plain one-sample wavefront; auto = "
+                        "queue for scenes over 512 prims, else pool")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain "
                         "PyTorch versions")
@@ -69,7 +74,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     img = render(scene, camera, args.width, args.height, args.spp,
                  max_depth=args.max_depth, seed=args.seed,
-                 rr_depth=args.rr_depth, device=args.device, progress=True)
+                 rr_depth=args.rr_depth, device=args.device, progress=True,
+                 mode=args.mode)
     elapsed = time.perf_counter() - t_start
     film.write_image(img, None if args.out == "-" else args.out)
     if args.time:

@@ -2,13 +2,18 @@
 
     python -m tpu_ray_torch.utils.profile --scene cornell --width 500 \\
         --height 500 --spp 64 --max-depth 50
+    python -m tpu_ray_torch.utils.profile --scene next-week-final \\
+        --width 400 --height 400 --spp 100 --mode queue
+
+(``TPU_RAY_SORT=1`` in the environment profiles the sorted sweep.)
 
 Builds the kernels, renders once to warm up, then renders again under
 ``torch.profiler`` (CPU + CUDA activities) and prints the wall time, the
 device busy time summed over kernels, the device's idle share
 (1 - busy / wall), each kernel's total time, launches and mean time, and
-the wrappers' launch counts (kernel names cut to 80 characters).  The
-last line is the same as one JSON object.  Needs a CUDA device.
+the wrappers' launch counts (kernel names cut to 80 characters; only the
+``--top`` kernels by time are printed, all are summed).  The last line is
+the same as one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -36,22 +41,30 @@ def main(argv=None) -> int:
     p.add_argument("--spp", type=int, default=64)
     p.add_argument("--max-depth", type=int, default=50)
     p.add_argument("--seed", type=int, default=1024)
+    p.add_argument("--mode", default="auto",
+                   choices=("auto", "pool", "queue", "wave"))
+    p.add_argument("--top", type=int, default=12,
+                   help="kernels to print, by device time")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 1
 
     from ..models.scenes import SCENES
-    from ..ops import build, shade, sweep
+    from ..ops import build, hit_scatter, shade, sweep
     from ..renderer import render
 
     build.build_all()
     spec = SCENES[args.scene]
     scene = spec.build(seed=args.seed, earth=None)
     cam = spec.camera(args.width, args.height)
-    kw = dict(max_depth=args.max_depth, seed=args.seed)
+    kw = dict(max_depth=args.max_depth, seed=args.seed, mode=args.mode)
     render(scene, cam, args.width, args.height, args.spp, **kw)   # warm-up
-    sweep.sweep.launches = shade.pool_step.launches = 0
+    counters = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
+                "pool_step": shade.pool_step,
+                "hit_scatter": hit_scatter.hit_scatter}
+    for fn in counters.values():
+        fn.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -67,18 +80,22 @@ def main(argv=None) -> int:
             kernels[e.key[:80]] = (us + _device_us(e), n + e.count)
     busy = sum(us for us, _ in kernels.values()) / 1e6
     out = dict(scene=args.scene, width=args.width, height=args.height,
-               spp=args.spp, max_depth=args.max_depth,
+               spp=args.spp, max_depth=args.max_depth, mode=args.mode,
+               sort=sweep.use_sort(),
                device=torch.cuda.get_device_name(0), wall_s=wall,
                device_busy_s=busy,
                idle_share=(1.0 - busy / wall) if busy else None,
-               launches={"sweep": sweep.sweep.launches,
-                         "pool_step": shade.pool_step.launches},
+               launches={k: fn.launches for k, fn in counters.items()},
+               n_kernel_names=len(kernels),
+               n_kernel_launches=sum(n for _, n in kernels.values()),
                kernels={k: dict(total_ms=us / 1e3, count=n,
                                 mean_us=us / max(n, 1))
                         for k, (us, n) in sorted(
-                            kernels.items(), key=lambda kv: -kv[1][0])})
-    print(f"{args.scene} {args.width}x{args.height} {args.spp} spp: wall "
-          f"{wall:.4f} s (profiled), device busy {busy:.4f} s")
+                            kernels.items(),
+                            key=lambda kv: -kv[1][0])[:args.top]})
+    print(f"{args.scene} {args.width}x{args.height} {args.spp} spp "
+          f"mode={args.mode} sort={sweep.use_sort()}: wall {wall:.4f} s (profiled), "
+          f"device busy {busy:.4f} s, {out['n_kernel_launches']} launches")
     for k, v in out["kernels"].items():
         print(f"  {v['total_ms']:10.3f} ms {v['count']:6d} x "
               f"{v['mean_us']:9.2f} us  {k}")
