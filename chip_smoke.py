@@ -1,11 +1,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives ``tpu_ray_torch``'s three paths (the pool renderer, the work-queue
-renderer and the plain wavefront) through its four CUDA kernels at full
-width, and fails unless every phase passes:
+Drives ``tpu_ray_torch``'s paths (the pool renderer with the wavefront
+kernels and with the whole-wave megakernel, the work-queue renderer and the
+plain wavefront) through its seven CUDA kernels at full width, and fails
+unless every phase passes:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit;
-2. build the three sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
+2. build the five sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build seconds and register use;
 3. each kernel against its plain PyTorch version at main-path shapes
    (1M-lane pools), with kernel and plain times from CUDA events: the
@@ -19,18 +20,34 @@ width, and fails unless every phase passes:
    book1-final and the 400-box grid against its plain version and against
    the dense sweep kernel (bit-equal t, no hit or index mismatch), with the
    share of (tile, block) pairs skipped and the times of the sort and of
-   the tile lists beside the kernel's own;
+   the tile lists beside the kernel's own; the megakernel against its plain
+   version (the uncompacted pool loop on tensors) on one wave of cornell at
+   1M lanes and of cornell-smoke, two-perlin-spheres and book1-final at
+   smaller lane counts, 2 samples per slot and depth 8 (equal sample counts,
+   the share of diverged lanes bounded), and timed alone on the full-depth
+   waves of phase 5 with its lane-iterations, its warp-iterations and its
+   operation bound; the mask-gated sweep on next-week-final's sorted rays
+   against its plain version and bit-equal to the dense kernel, with the
+   mask's build time and the skipped share; the matrix-product sphere sweep
+   on book1-final against its plain version and against the dense kernel;
 4. the eight non-strict golden configs rendered on the card (the image
    scenes with the cyan stand-in they were made with), held to the
    cross-engine criterion against ``tests/goldens/<name>.npy``, and an
    image scene with a seeded image rendered on the card against the same
-   render on the CPU;
+   render on the CPU; the six goldens the megakernel covers again with
+   ``engine="mega"``;
 5. full width, launch counts set to 0 before each path and read after it:
    pool - cornell 500x500 depth 50 at 64 spp (a 1M-lane pool) and
    book1-final 600x400 at 16 spp; queue - next-week-final (1409 prims)
    400x400, 100 spp, depth 50, unsorted and with the sorted sweep (the two
-   images bit-equal); wave - cornell 500x500, 64 spp, depth 50; and a small
-   queue render on the card against the same render on the CPU;
+   images bit-equal); wave - cornell 500x500, 64 spp, depth 50; a small
+   queue render on the card against the same render on the CPU; megakernel -
+   cornell 500x500 64 spp, book1-final 600x400 16 spp and cornell-smoke
+   500x500 64 spp with ``engine="mega"`` (one launch per wave, no sweep or
+   pool-step launch), each beside the wavefront pool render of the same
+   call; a next-week-final queue render with the mask-gated sweep (bit-equal
+   to the unsorted one) and a book1-final pool render with the
+   matrix-product sphere sweep;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -60,10 +77,11 @@ from tpu_ray_torch.integrator import (SceneKernels, _queue_init,  # noqa: E402
 from tpu_ray_torch.models import objects as ob  # noqa: E402
 from tpu_ray_torch.models.compile import build_scene  # noqa: E402
 from tpu_ray_torch.models.scenes import SCENES  # noqa: E402
-from tpu_ray_torch.ops import build, hit_scatter, shade, sweep  # noqa: E402
+from tpu_ray_torch.ops import (build, hit_scatter, megakernel, shade,  # noqa: E402
+                               sweep)
 from tpu_ray_torch.ops.intersect import intersect_ti  # noqa: E402
 from tpu_ray_torch.renderer import (pick_samples_per_wave, pixel_grid,  # noqa: E402
-                                    render, slot_ids)
+                                    plan_pool, render, slot_ids)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, fp32 outside tensor cores
@@ -81,6 +99,9 @@ GOLDENS = {   # tests/test_golden.py CONFIGS: (spp, depth, width, height)
     "random-moving": (4, 4, 24, 16),
 }
 DEV = torch.device("cuda")
+# the megakernel's full-width renders: (scene, width, height, spp), depth 50
+MEGA_FULL = (("cornell", 500, 500, 64), ("book1-final", 600, 400, 16),
+             ("cornell-smoke", 500, 500, 64))
 
 
 def log(*a):
@@ -350,6 +371,34 @@ def check_hit_scatter(name, width, height, spp, iters):
                 max_abs_err=worst)
 
 
+def hold_sorted_sweep(what, name, R, dense, got, plain):
+    """A sorted sweep's kernel result ``got`` against the dense sweep
+    kernel's (bit-equal t, no index mismatch on hits) and against its plain
+    version's; returns the max abs error against the plain version."""
+    (dt, di), (ct, ci), (pt, pi) = dense, got, plain
+    hit = torch.isfinite(dt)
+    t_bits = int((ct.view(torch.int32) != dt.view(torch.int32)).sum())
+    bad_i = int(((ci != di) & hit).sum())
+    hit_p = torch.isfinite(pt)
+    both = hit & hit_p
+    err = (ct[both] - pt[both]).abs()
+    max_abs = float(err.max()) if int(both.sum()) else 0.0
+    bad_t = int((err > 1e-5 + 2e-5 * pt[both].abs()).sum())
+    idx_diff = both & (ci != pi)
+    ties = int((idx_diff & (ct == pt)).sum())
+    log(f"{what} {name} R={R}: hits {int(hit.sum())}; vs dense kernel: t bit "
+        f"mismatches {t_bits}, idx mismatches on hits {bad_i}; vs plain: hit "
+        f"mismatches {int((hit != hit_p).sum())}, t out of tol {bad_t}, max "
+        f"abs err {max_abs:.3e}, idx mismatches "
+        f"{int(idx_diff.sum()) - ties} (+{ties} exact ties)")
+    if t_bits or bad_i:
+        raise AssertionError(f"{what} differs from the dense sweep on {name}")
+    if int((hit != hit_p).sum()) > 1e-5 * R or bad_t > 1e-5 * R \
+            or int(idx_diff.sum()) - ties > 1e-5 * R:
+        raise AssertionError(f"{what} kernel disagrees with plain on {name}")
+    return max_abs
+
+
 def check_sweep_compact(name, width, height, spp, iters):
     """The sorted, compacted-list sweep on one full-width pool's rays: the
     kernel against the dense sweep kernel (bit-equal) and against its plain
@@ -375,30 +424,10 @@ def check_sweep_compact(name, width, height, spp, iters):
     pt, pi = sweep.sweep_compact_plain(srays, kern.geo, blocks, cnt, lst,
                                        t_min, perm)
     torch.cuda.synchronize()
-    hit = torch.isfinite(dt)
-    t_bits = int((ct.view(torch.int32) != dt.view(torch.int32)).sum())
-    bad_i = int(((ci != di) & hit).sum())
-    hit_p = torch.isfinite(pt)
-    both = hit & hit_p
-    err = (ct[both] - pt[both]).abs()
-    max_abs = float(err.max()) if int(both.sum()) else 0.0
-    bad_t = int((err > 1e-5 + 2e-5 * pt[both].abs()).sum())
-    idx_diff = both & (ci != pi)
-    ties = int((idx_diff & (ct == pt)).sum())
-    log(f"sweep_compact {name} iters={iters} R={R}: {blocks.n_blocks} "
-        f"blocks, skipped (tile, block) pairs {skip:.4f}, hits "
-        f"{int(hit.sum())}; vs dense kernel: t bit mismatches {t_bits}, idx "
-        f"mismatches on hits {bad_i}; vs plain: hit mismatches "
-        f"{int((hit != hit_p).sum())}, t out of tol {bad_t}, max abs err "
-        f"{max_abs:.3e}, idx mismatches {int(idx_diff.sum()) - ties} "
-        f"(+{ties} exact ties)")
-    if t_bits or bad_i:
-        raise AssertionError(f"compacted sweep differs from the dense sweep "
-                             f"on {name}")
-    if int((hit != hit_p).sum()) > 1e-5 * R or bad_t > 1e-5 * R \
-            or int(idx_diff.sum()) - ties > 1e-5 * R:
-        raise AssertionError(f"compacted sweep kernel disagrees with plain "
-                             f"on {name}")
+    log(f"sweep_compact {name} iters={iters}: {blocks.n_blocks} blocks, "
+        f"skipped (tile, block) pairs {skip:.4f}")
+    max_abs = hold_sorted_sweep("sweep_compact", name, R, (dt, di), (ct, ci),
+                                (pt, pi))
     ms = cuda_ms(lambda: sweep.sweep_compact(srays, kern.geo, blocks, cnt,
                                              lst, t_min, perm), 20)
     dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min), 20)
@@ -423,6 +452,196 @@ def check_sweep_compact(name, width, height, spp, iters):
                 lists_ms=lists_ms, whole_sorted_ms=whole_ms, skip_share=skip)
 
 
+def check_sweep_masked(name, width, height, spp, iters):
+    """The mask-gated sweep on one full-width pool's sorted rays: bit-equal
+    to the dense sweep kernel, held against its plain version, with the
+    mask's build time beside the kernel's."""
+    scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
+    rays = st.fstate[:7].contiguous()
+    ranges = sweep._ranges(scene)
+    blocks = sweep.sweep_blocks(scene)
+    t_min = scene.t_min
+    R = rays.shape[1]
+    perm = torch.sort(sweep.sort_key(blocks, rays), stable=True).indices
+    srays = rays[:, perm].contiguous()
+    build_mask = lambda: sweep.needed_mask(srays, blocks.blo, blocks.bhi,
+                                           t_min)
+    mask = build_mask()
+    skip = 1.0 - float(mask.sum()) / mask.numel()
+    dt, di = sweep.sweep(rays, kern.geo, ranges, t_min)
+    mt, mi = sweep.sweep_masked(srays, kern.geo, blocks, mask, t_min, perm)
+    pt, pi = sweep.sweep_masked_plain(srays, kern.geo, blocks, mask, t_min,
+                                      perm)
+    torch.cuda.synchronize()
+    log(f"sweep_masked {name} iters={iters}: {blocks.n_blocks} blocks, "
+        f"skipped (tile, block) pairs {skip:.4f}")
+    max_abs = hold_sorted_sweep("sweep_masked", name, R, (dt, di), (mt, mi),
+                                (pt, pi))
+    ms = cuda_ms(lambda: sweep.sweep_masked(srays, kern.geo, blocks, mask,
+                                            t_min, perm), 20)
+    dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min), 20)
+    plain_ms = cuda_ms(lambda: sweep.sweep_masked_plain(
+        srays, kern.geo, blocks, mask, t_min, perm), 2)
+    mask_ms = cuda_ms(build_mask, 10)
+    whole_ms = cuda_ms(lambda: sweep.sweep_sorted(rays, kern.geo, blocks,
+                                                  t_min, masked=True), 10)
+    nbytes = R * (7 * 4 + 8) + kern.geo.numel() * 4 + mask.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sweep_flops(scene, R) / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    log(f"sweep_masked {name}: kernel {ms:.4f} ms (un-permute in its "
+        f"stores), dense kernel {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"needed mask {mask_ms:.4f} ms, whole sorted masked sweep "
+        f"{whole_ms:.4f} ms, dense bound {bound_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=max_abs, dense_ms=dense_ms, mask_ms=mask_ms,
+                whole_sorted_ms=whole_ms, skip_share=skip)
+
+
+def check_sweep_mxu(name, width, height, spp, iters):
+    """The matrix-product sphere sweep over the static spheres of one
+    full-width pool's rays: the kernel against its plain version (the same
+    operations) and against the dense sweep kernel (the classic form: equal
+    hit sets but for grazing rays, t to the expansion's conditioning)."""
+    scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
+    rays = st.fstate[:7].contiguous()
+    n_ss = scene.n_sphere_static
+    t_min = scene.t_min
+    R = rays.shape[1]
+    pack = sweep.mxu_pack(kern.geo, 0, n_ss)
+    only = (n_ss, n_ss, n_ss, n_ss)
+    args = (rays, kern.geo, 0, n_ss, t_min, pack)
+    mt, mi = sweep.sweep_sphere_mxu(*args)
+    pt, pi = sweep.sweep_sphere_mxu_plain(*args)
+    dt, di = sweep.sweep(rays, kern.geo[:n_ss], only, t_min)
+    torch.cuda.synchronize()
+    hit, hit_p, hit_d = (torch.isfinite(x) for x in (mt, pt, dt))
+    both = hit & hit_p
+    err = (mt[both] - pt[both]).abs()
+    max_abs = float(err.max()) if int(both.sum()) else 0.0
+    bad_t = int((err > 1e-6 + 2e-5 * pt[both].abs()).sum())
+    bad_i = int((mi[both] != pi[both]).sum())
+    bd = hit & hit_d
+    rel = ((mt[bd] - dt[bd]).abs() / dt[bd].abs())
+    loose = int((rel > 2e-5).sum())
+    looser = int((rel > 1e-3).sum())
+    worst_rel = float(rel.max()) if int(bd.sum()) else 0.0
+    same_i = float((mi[bd] == di[bd]).float().mean())
+    log(f"sweep_sphere_mxu {name} iters={iters} R={R}, {n_ss} spheres: hits "
+        f"{int(hit.sum())}; vs plain: hit mismatches "
+        f"{int((hit != hit_p).sum())}, t out of tol {bad_t}, idx mismatches "
+        f"{bad_i}, max abs err {max_abs:.3e}; vs dense kernel: hit "
+        f"mismatches {int((hit != hit_d).sum())}, t beyond rtol 2e-5 on "
+        f"{loose} rays, beyond 1e-3 on {looser}, worst rel err "
+        f"{worst_rel:.3e}, same idx {same_i:.6f}")
+    if int((hit != hit_p).sum()) > 1e-5 * R or bad_t > 1e-5 * R \
+            or bad_i > 1e-5 * R:
+        raise AssertionError(f"matrix-product sweep kernel disagrees with "
+                             f"plain on {name}")
+    # bounced rays start on sphere surfaces, where the expanded quadratic
+    # cancels worst: t is held to 1e-3 on all but 1% of the rays
+    if int((hit != hit_d).sum()) > 1e-3 * R or same_i < 0.99 \
+            or looser > 1e-2 * R:
+        raise AssertionError(f"matrix-product sweep is far from the dense "
+                             f"sweep on {name}")
+    ms = cuda_ms(lambda: sweep.sweep_sphere_mxu(*args), 20)
+    plain_ms = cuda_ms(lambda: sweep.sweep_sphere_mxu_plain(*args), 3)
+    dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo[:n_ss], only,
+                                           t_min), 20)
+    pack_ms = cuda_ms(lambda: sweep.mxu_pack(kern.geo, 0, n_ss), 10)
+    nbytes = R * (7 * 4 + 8) + pack.tab.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = float(R) * n_ss * sweep.FLOPS_PER_PAIR["sphere_mxu"] \
+        / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    log(f"sweep_sphere_mxu {name}: kernel {ms:.4f} ms, dense kernel on the "
+        f"same range {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, pack (once "
+        f"per render) {pack_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=max_abs, dense_ms=dense_ms,
+                worst_rel_err_vs_dense=worst_rel)
+
+
+def mega_wave(name, width, height, spp, depth, plan=None):
+    """The first wave of a pool render of ``name``: what ``trace_pool_mega``
+    takes.  ``plan``: (slots per pixel, samples per slot); as ``render``
+    plans ``spp`` samples when omitted."""
+    scene, cam = scene_and_camera(name, width, height)
+    k_pool, s_wave = plan or plan_pool(scene, width, height, spp)[:2]
+    cfg = shade.StepConfig.create(scene, cam, width, height, depth,
+                                  n_samples=s_wave, cam_salt=SEED)
+    kern = SceneKernels.create(scene, False)
+    return (scene, cfg, pixel_grid(width, height, k_pool, DEV),
+            slot_ids(width, height, k_pool, DEV),
+            rng.fold_in(rng.prng_key(SEED), 0), kern)
+
+
+def time_mega(what, args):
+    """One timed megakernel launch (after a warm-up launch) with the
+    iterations it counted: ms, bound and the share of lane slots that
+    worked, and the launch's (radiance, sample counts).  The bound counts
+    what this wave did: its lane-iterations, each a sweep over every solid
+    prim plus one pool step."""
+    scene, _, _, slot = args[:4]
+    R = slot.shape[0]
+    megakernel.trace_pool_mega(*args)
+    megakernel.read_stats(DEV)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    result = megakernel.trace_pool_mega(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    lane_iters, warp_iters = megakernel.read_stats(DEV)
+    ops = lane_iters * (sweep_flops(scene, 1) + shade.OPS_PER_LANE)
+    t_ops = ops / FP32_FLOPS_PER_S
+    t_bytes = R * megakernel.BYTES_PER_LANE / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    share = lane_iters / (32.0 * warp_iters)
+    log(f"megakernel {what} R={R}: {ms:.3f} ms, {lane_iters} lane-iterations "
+        f"({lane_iters / R:.2f} per lane), {warp_iters} warp-iterations, "
+        f"working share of lane slots {share:.4f}, bound {bound_ms:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return dict(ms=ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                lane_iters=lane_iters, warp_iters=warp_iters,
+                lane_share=share), result
+
+
+def check_mega(name, width, height, depth):
+    """The megakernel against its plain version on one wave of 4 slots per
+    pixel and 2 samples per slot: equal sample
+    counts; at most 3% of lanes diverged (a coin flipped at an ulp moves a
+    whole path; in the media ``logf`` differs from ``torch.log`` by ulps),
+    the rest within rtol 2e-4 / atol 1e-4."""
+    args = mega_wave(name, width, height, 8, depth, plan=(4, 2))
+    cfg, slot = args[1], args[3]
+    R = slot.shape[0]
+    what = f"{name} {cfg.n_samples} samples/slot depth {depth}"
+    out, (a, a_ns) = time_mega(what, args)
+    t0 = time.perf_counter()
+    b, b_ns = megakernel.trace_pool_mega_plain(*args)
+    torch.cuda.synchronize()
+    out["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+    ns_bad = int((a_ns != b_ns).sum()) + int((a_ns != cfg.n_samples).sum())
+    err = (a - b).abs() / (1.0 + b.abs())
+    close = (err < 1e-4).all(dim=0)
+    share = 1.0 - float(close.float().mean())
+    diff = (a - b).abs()[:, close]
+    out["max_abs_err"] = float(diff.max())
+    bad = int((diff > 1e-4 + 2e-4 * b[:, close].abs()).sum())
+    log(f"megakernel {what} R={R}: sample-count mismatches {ns_bad}, "
+        f"diverged lanes {share:.4%}, close lanes out of tol {bad}, max abs "
+        f"err {out['max_abs_err']:.3e}, plain {out['plain_ms']:.1f} ms, mean "
+        f"radiance {float(a.mean()):.4f}")
+    if ns_bad or share > 0.03 or bad or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"megakernel disagrees with plain on {name}")
+    return out
+
+
 def cross_engine(a, b, what):
     """At most 2% of pixels diverge, the rest within rtol 2e-4 / atol 1e-4."""
     err = np.abs(a - b) / (1.0 + np.abs(a))
@@ -435,13 +654,28 @@ def cross_engine(a, b, what):
         raise AssertionError(f"{what} fails the cross-engine criterion")
 
 
-def check_golden(name):
+def same_estimator(a, b, what, share_cap=0.25):
+    """Two renders whose hit distances differ in their last digits (the
+    matrix-product sweep reassociates the quadratic): paths branch apart at
+    depth 50, so many pixels differ by noise, but the mean must not move.
+    At most ``share_cap`` of the pixels diverge and the image means agree
+    to 1%."""
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    share = 1.0 - (err < 1e-4).all(axis=-1).mean()
+    rel = abs(float(a.mean()) - float(b.mean())) / float(a.mean())
+    log(f"{what}: divergent pixels {share:.4%}, image means "
+        f"{float(a.mean()):.6f} / {float(b.mean()):.6f}")
+    if share > share_cap or rel > 0.01:
+        raise AssertionError(f"{what}: the two renders are not one estimator")
+
+
+def check_golden(name, engine="auto"):
     spp, depth, w, h = GOLDENS[name]
     spec = SCENES[name]
     img = render(spec.build(seed=SEED, earth=None), spec.camera(w, h), w, h,
-                 spp=spp, max_depth=depth, seed=SEED)
+                 spp=spp, max_depth=depth, seed=SEED, engine=engine)
     cross_engine(np.load(os.path.join(GOLDEN_DIR, f"{name}.npy")), img,
-                 f"golden {name}")
+                 f"golden {name} engine={engine}")
 
 
 def check_card_vs_cpu(what, scene, cam, w, h, **kw):
@@ -453,11 +687,17 @@ def check_card_vs_cpu(what, scene, cam, w, h, **kw):
 
 COUNTERS = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
             "pool_step": shade.pool_step,
-            "hit_scatter": hit_scatter.hit_scatter}
+            "hit_scatter": hit_scatter.hit_scatter,
+            "megakernel": megakernel.trace_pool_mega,
+            "sweep_masked": sweep.sweep_masked,
+            "sweep_sphere_mxu": sweep.sweep_sphere_mxu}
 PLAIN = {"sweep": sweep.sweep_plain,
          "sweep_compact": sweep.sweep_compact_plain,
          "pool_step": shade.pool_step_plain,
-         "hit_scatter": hit_scatter.hit_scatter_plain}
+         "hit_scatter": hit_scatter.hit_scatter_plain,
+         "megakernel": megakernel.trace_pool_mega_plain,
+         "sweep_masked": sweep.sweep_masked_plain,
+         "sweep_sphere_mxu": sweep.sweep_sphere_mxu_plain}
 
 
 def reset_counts():
@@ -467,16 +707,32 @@ def reset_counts():
         fn.calls = 0
 
 
-def read_counts(path, expect):
-    """The launch counts of one path: every kernel in ``expect`` ran, no
-    plain version did."""
+def read_counts(path, expect, absent=()):
+    """The launch counts of one path: every kernel in ``expect`` ran, none
+    in ``absent`` did, and no plain version did."""
     got = {k: fn.launches for k, fn in COUNTERS.items()}
     plain = {k: fn.calls for k, fn in PLAIN.items()}
     log(f"  {path} launches {got}; plain-version calls {plain}")
-    if any(got[k] <= 0 for k in expect) or max(plain.values()) != 0:
+    if any(got[k] <= 0 for k in expect) or any(got[k] for k in absent) \
+            or max(plain.values()) != 0:
         raise AssertionError(f"the {path} path did not run through its "
                              "kernels")
     return got
+
+
+def with_env(env, fn):
+    """``fn()`` with the environment variables of ``env`` set, restored
+    afterwards (the sweep's switches are read when a render starts)."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
 
 def full_width(name, width, height, spp, **kw):
@@ -535,6 +791,15 @@ def main() -> int:
     sc_nw = check_sweep_compact("next-week-final", 1000, 1000, 1, 1)
     sc_book1 = check_sweep_compact("book1-final", 600, 400, 16, 1)
     sc_box = check_sweep_compact("box-grid", 1000, 1000, 1, 1)
+    mg = check_mega("cornell", 500, 500, 8)
+    mg_smoke = check_mega("cornell-smoke", 250, 250, 8)
+    mg_perlin = check_mega("two-perlin-spheres", 250, 250, 8)
+    mg_book1 = check_mega("book1-final", 300, 200, 8)
+    mg_full = {name: time_mega(f"{name} {w}x{h} {spp} spp depth 50",
+                               mega_wave(name, w, h, spp, 50))[0]
+               for name, w, h, spp in MEGA_FULL}
+    sm_nw = check_sweep_masked("next-week-final", 1000, 1000, 1, 1)
+    mx_book1 = check_sweep_mxu("book1-final", 600, 400, 16, 1)
 
     log("phase 4: goldens on the card, image scene card vs cpu")
     for name in GOLDENS:
@@ -543,6 +808,9 @@ def main() -> int:
                       SCENES["earth"].build(seed=SEED, earth=seeded_image()),
                       SCENES["earth"].camera(48, 32), 48, 32, spp=8,
                       max_depth=8, seed=SEED)
+    for name in GOLDENS:
+        if megakernel.supported(SCENES[name].build(seed=SEED, earth=None)):
+            check_golden(name, engine="mega")
 
     log("phase 5: full-width renders through the kernels")
     reset_counts()
@@ -574,8 +842,48 @@ def main() -> int:
     check_card_vs_cpu("next-week-final 48x48 queue",
                       nw.build(seed=SEED, earth=None), nw.camera(48, 48), 48,
                       48, spp=8, max_depth=8, seed=SEED, mode="queue")
+    walls = {}
+    n_mega = {k: 0 for k in COUNTERS}
+    for name, w, h, spp in MEGA_FULL:
+        reset_counts()
+        img_m, wall_m, _ = full_width(name, w, h, spp, engine="mega")
+        got = read_counts(f"megakernel {name}", ("megakernel",),
+                          ("sweep", "pool_step", "sweep_compact"))
+        n_waves = plan_pool(SCENES[name].build(seed=SEED, earth=None), w, h,
+                            spp)[2]
+        if got["megakernel"] != n_waves:
+            raise AssertionError(f"{name}: {got['megakernel']} megakernel "
+                                 f"launches for {n_waves} waves")
+        n_mega = {k: n_mega[k] + got[k] for k in COUNTERS}
+        img_p, wall_p, _ = full_width(name, w, h, spp)
+        cross_engine(img_p, img_m, f"{name} megakernel vs wavefront pool")
+        walls[name] = dict(mega_s=wall_m, pool_s=wall_p)
+        log(f"  {name}: megakernel {wall_m:.3f} s, wavefront pool "
+            f"{wall_p:.3f} s")
+    img_u, _, _ = full_width("next-week-final", 400, 400, 16, mode="queue",
+                             sort=False)
+    reset_counts()
+    img_k, wall_k, _ = with_env(
+        {"TPU_RAY_CULL_STYLE": "mask"},
+        lambda: full_width("next-week-final", 400, 400, 16, mode="queue",
+                           sort=True))
+    n_masked = read_counts("masked queue", ("sweep_masked", "pool_step"),
+                           ("sweep", "sweep_compact"))
+    log(f"  masked queue wall {wall_k:.3f} s; image bit-equal to unsorted "
+        f"{np.array_equal(img_u, img_k)}")
+    if not np.array_equal(img_u, img_k):
+        raise AssertionError("masked and unsorted queue renders differ")
+    img_b, _, _ = full_width("book1-final", 600, 400, 16)
+    reset_counts()
+    img_x, wall_x, _ = with_env(
+        {"TPU_RAY_SWEEP_MXU": "1"},
+        lambda: full_width("book1-final", 600, 400, 16))
+    n_mxu = read_counts("mxu pool", ("sweep_sphere_mxu", "pool_step"))
+    same_estimator(img_b, img_x, "book1-final matrix-product sweep vs dense")
+    log(f"  matrix-product pool wall {wall_x:.3f} s")
     paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
-             "wave": n_wave}
+             "wave": n_wave, "mega_pool": n_mega, "masked_queue": n_masked,
+             "mxu_pool": n_mxu}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -602,7 +910,31 @@ def main() -> int:
              launches=launches["sweep_compact"],
              launches_by_path=by_path["sweep_compact"], library_ms=None,
              **sc_nw),
+        dict(name="megakernel", route="cuda",
+             source="tpu_ray_torch/csrc/megakernel.cu",
+             replaces="tpu_ray/ops/megakernel.py:316 (_kernel)",
+             launches=launches["megakernel"],
+             launches_by_path=by_path["megakernel"], library_ms=None, **mg),
+        dict(name="sweep_masked", route="cuda",
+             source="tpu_ray_torch/csrc/sweep.cu",
+             replaces="tpu_ray/ops/intersect_pallas.py:59, :309, :256 "
+                      "(cull=True with _needed_mask :401)",
+             launches=launches["sweep_masked"],
+             launches_by_path=by_path["sweep_masked"], library_ms=None,
+             **sm_nw),
+        dict(name="sweep_sphere_mxu", route="cuda",
+             source="tpu_ray_torch/csrc/sweep_mxu.cu",
+             replaces="tpu_ray/ops/intersect_pallas.py:125 "
+                      "(_sphere_mxu_kernel)",
+             launches=launches["sweep_sphere_mxu"],
+             launches_by_path=by_path["sweep_sphere_mxu"], library_ms=None,
+             **mx_book1),
     ]
+    log(f"megakernel, one wave, 2 samples/slot depth 8: cornell-smoke "
+        f"{json.dumps(mg_smoke)}; two-perlin-spheres "
+        f"{json.dumps(mg_perlin)}; book1-final {json.dumps(mg_book1)}")
+    log(f"megakernel, full-depth waves alone: {json.dumps(mg_full)}")
+    log(f"megakernel vs wavefront pool render walls: {json.dumps(walls)}")
     log(f"next-week-final sweep (1 bounce): {json.dumps(sw_nw)}")
     log(f"next-week-final pool step (2 bounces): {json.dumps(st_nw)}")
     log(f"next-week-final pool step, queue state (6 iterations): "

@@ -19,7 +19,9 @@ from tpu_ray_torch.integrator import SceneKernels, init_pool_state
 from tpu_ray_torch.models import objects as ob
 from tpu_ray_torch.models.compile import build_scene
 from tpu_ray_torch.models.scenes import SCENES
+from tpu_ray_torch.core import rng
 from tpu_ray_torch.ops import hit_scatter as hs
+from tpu_ray_torch.ops import megakernel as mega
 from tpu_ray_torch.ops import shade
 from tpu_ray_torch.ops import sweep as sw
 from tpu_ray_torch.ops.intersect import intersect_ti, pack_rays
@@ -209,3 +211,148 @@ def test_render_on_the_card_matches_the_cpu(card, mode, name):
     if mode == "queue":
         c = render(*args, device=card, sort=True, **kw)
         np.testing.assert_array_equal(b, c)
+
+
+def _scattered_and_coherent_rays(card, n):
+    r = np.random.default_rng(n)
+    ro = r.uniform(-40, 40, (n, 3)).astype(np.float32)
+    rd = r.normal(size=(n, 3)).astype(np.float32)
+    ro[: n // 2] = np.float32([-40, 14, 13]) + r.normal(size=(n // 2, 3))
+    rd[: n // 2] = np.float32([1, 0, 0]) + 0.02 * r.normal(size=(n // 2, 3))
+    return pack_rays(*(torch.from_numpy(a).to(card) for a in (
+        ro, rd, r.random(n).astype(np.float32))))
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1000])
+def test_sweep_masked_kernel_bit_equal_to_dense(card, n):
+    """All four kinds, coherent and scattered rays, a ragged last tile."""
+    ps = _mixed_scene().to(card)
+    rays = _scattered_and_coherent_rays(card, n)
+    geo, ranges, blocks = sw.sweep_table(ps), sw._ranges(ps), \
+        sw.sweep_blocks(ps)
+    dt, di = sw.sweep(rays, geo, ranges, ps.t_min)
+    perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
+    srays = rays[:, perm].contiguous()
+    mask = sw.needed_mask(srays, blocks.blo, blocks.bhi, ps.t_min)
+    if n > 1000:
+        assert int(mask.sum()) < mask.numel()
+    launches = sw.sweep_masked.launches
+    mt, mi = sw.sweep_masked(srays, geo, blocks, mask, ps.t_min, perm)
+    assert sw.sweep_masked.launches == launches + 1
+    pt, pi = sw.sweep_masked_plain(srays, geo, blocks, mask, ps.t_min, perm)
+    hit = torch.isfinite(dt)
+    assert int(hit.sum()) > n // 8
+    assert torch.equal(mt, dt) and torch.equal(mi[hit], di[hit])
+    assert torch.equal(torch.isfinite(pt), hit) and torch.equal(pi[hit],
+                                                                di[hit])
+    torch.testing.assert_close(pt[hit], dt[hit], rtol=2e-5, atol=0)
+    st, si = sw.sweep_sorted(rays, geo, blocks, ps.t_min, masked=True)
+    assert torch.equal(st, dt) and torch.equal(si[hit], di[hit])
+
+
+def test_sweep_mxu_kernel_matches_plain_and_dense(card):
+    """More spheres than one shared-memory chunk; the kernel follows its
+    plain version's operations, and both the dense sweep to the expansion's
+    conditioning."""
+    ps = _mixed_scene().to(card)
+    n_ss = ps.n_sphere_static
+    assert n_ss > 256
+    rays = _scattered_and_coherent_rays(card, 1 << 16)
+    geo = sw.sweep_table(ps)
+    pack = sw.mxu_pack(geo, 0, n_ss)
+    launches = sw.sweep_sphere_mxu.launches
+    t, i = sw.sweep_sphere_mxu(rays, geo, 0, n_ss, ps.t_min, pack)
+    assert sw.sweep_sphere_mxu.launches == launches + 1
+    tp, ip = sw.sweep_sphere_mxu_plain(rays, geo, 0, n_ss, ps.t_min, pack)
+    hit = torch.isfinite(tp)
+    R = rays.shape[1]
+    assert int(hit.sum()) > 1000
+    assert int((torch.isfinite(t) != hit).sum()) <= 1e-4 * R
+    both = hit & torch.isfinite(t)
+    assert int((i[both] != ip[both]).sum()) <= 1e-4 * R
+    torch.testing.assert_close(t[both], tp[both], rtol=2e-5, atol=1e-6)
+    dt, di = sw.sweep(rays, geo, (n_ss, n_ss, n_ss, n_ss), ps.t_min)
+    dhit = torch.isfinite(dt)
+    assert int((dhit != torch.isfinite(t)).sum()) <= 1e-3 * R
+    both = dhit & torch.isfinite(t)
+    assert float((i[both] == di[both]).float().mean()) > 0.99
+    same = both & (i == di)
+    torch.testing.assert_close(t[same], dt[same], rtol=1e-3, atol=1e-4)
+    # with the other ranges merged in
+    mt, mi = sw.sweep_solids(rays, geo, sw._ranges(ps), ps.t_min, mxu=pack)
+    at, ai = sw.sweep(rays, geo, sw._ranges(ps), ps.t_min)
+    ahit = torch.isfinite(at)
+    assert int((torch.isfinite(mt) != ahit).sum()) <= 1e-3 * R
+    assert float((mi[ahit] == ai[ahit]).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell-smoke",
+                                  "two-perlin-spheres", "book1-final",
+                                  "random-moving", "two-spheres"])
+def test_megakernel_matches_plain(card, name):
+    """One wave: equal sample counts; at most 3% of lanes diverged
+    (|a - b| / (1 + |a|) >= 1e-4), the rest within rtol 2e-4 / atol 1e-4."""
+    W, H, K = 64, 32, 4
+    spec, ps = _build(name, card)
+    cfg = shade.StepConfig.create(ps, spec.camera(W, H), W, H, 8, rr_depth=3,
+                                  n_samples=3, sample0=5, cam_salt=7)
+    xy, slot = pixel_grid(W, H, K, card), slot_ids(W, H, K, card)
+    key = rng.fold_in(rng.prng_key(11), 2)
+    launches = mega.trace_pool_mega.launches
+    mega.read_stats(card)
+    a, a_ns = mega.trace_pool_mega(ps, cfg, xy, slot, key)
+    assert mega.trace_pool_mega.launches == launches + 1
+    lane_iters, warp_iters = mega.read_stats(card)
+    R = slot.shape[0]
+    assert 3 * R <= lane_iters <= 32 * warp_iters
+    assert warp_iters <= (R // 32) * (3 * 8 + 8)
+    b, b_ns = mega.trace_pool_mega_plain(ps, cfg, xy, slot, key)
+    assert torch.equal(a_ns, b_ns) and int((a_ns != 3).sum()) == 0
+    a, b = a.T.cpu().numpy(), b.T.cpu().numpy()
+    err = np.abs(a - b) / (1.0 + np.abs(b))
+    close = (err < 1e-4).all(axis=-1)
+    assert 1.0 - close.mean() <= 0.03
+    np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell-smoke"])
+def test_mega_render_on_the_card_matches_the_cpu_and_the_wavefront(card,
+                                                                   name):
+    spec = SCENES[name]
+    args = (spec.build(seed=1024, earth=None), spec.camera(32, 24), 32, 24)
+    kw = dict(spp=8, max_depth=6, seed=5, samples_per_wave=2,
+              rays_per_wave=1 << 10)
+    launches = mega.trace_pool_mega.launches, shade.pool_step.launches
+    b = render(*args, device=card, engine="mega", **kw)
+    assert mega.trace_pool_mega.launches == launches[0] + 4
+    assert shade.pool_step.launches == launches[1]
+    for other in (render(*args, device="cpu", engine="mega", **kw),
+                  render(*args, device=card, **kw)):
+        err = np.abs(other - b) / (1.0 + np.abs(other))
+        close = (err < 1e-4).all(axis=-1)
+        assert 1.0 - close.mean() <= 0.02
+        np.testing.assert_allclose(other[close], b[close], rtol=2e-4,
+                                   atol=1e-4)
+
+
+def test_masked_and_mxu_renders_on_the_card(card, monkeypatch):
+    spec = SCENES["next-week-final"]
+    args = (spec.build(seed=1024, earth=None), spec.camera(32, 24), 32, 24)
+    kw = dict(spp=4, max_depth=6, seed=5, mode="queue", device=card)
+    a = render(*args, sort=False, **kw)
+    monkeypatch.setenv("TPU_RAY_CULL_STYLE", "mask")
+    launches = sw.sweep_masked.launches
+    np.testing.assert_array_equal(a, render(*args, sort=True, **kw))
+    assert sw.sweep_masked.launches > launches
+    spec = SCENES["book1-final"]
+    args = (spec.build(seed=1024), spec.camera(32, 24), 32, 24)
+    kw = dict(spp=4, max_depth=6, seed=5, device=card)
+    a = render(*args, **kw)
+    monkeypatch.setenv("TPU_RAY_SWEEP_MXU", "1")
+    launches = sw.sweep_sphere_mxu.launches
+    b = render(*args, **kw)
+    assert sw.sweep_sphere_mxu.launches > launches
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    close = (err < 1e-4).all(axis=-1)
+    assert 1.0 - close.mean() <= 0.02
+    np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)

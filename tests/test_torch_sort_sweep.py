@@ -8,14 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_common import jax_scene_arrays
+from torch_port_common import jax_scene_arrays, mixed_scene
 
 from tpu_ray.models.scenes import SCENES as JSCENES
 from tpu_ray.ops import intersect_pallas as ip
 from tpu_ray_torch.convert import scene_from_jax_arrays
 from tpu_ray_torch.integrator import SceneKernels
-from tpu_ray_torch.models import objects as ob
-from tpu_ray_torch.models.compile import build_scene
 from tpu_ray_torch.models.scenes import SCENES
 from tpu_ray_torch.ops import sweep as sw
 from tpu_ray_torch.ops.intersect import intersect_ti, pack_rays
@@ -113,36 +111,12 @@ def test_sweep_compact_plain_bit_equal_to_dense_and_close_to_jax(name):
     np.testing.assert_allclose(t[loose], jt[loose], rtol=5e-4)
 
 
-def _mixed_scene():
-    """Every kind range non-empty and longer than one block where cheap:
-    300 static and 40 moving spheres, 150 boxes, 30 quads."""
-    r = np.random.default_rng(31)
-    white = ob.Lambertian((1, 1, 1))
-    objs = [ob.Sphere(tuple(r.uniform(-20, 20, 3)), r.uniform(0.3, 1.5),
-                      white) for _ in range(300)]
-    for _ in range(40):
-        c = r.uniform(-20, 20, 3)
-        objs.append(ob.MovingSphere(tuple(c), tuple(c + r.uniform(-2, 2, 3)),
-                                    0.0, 1.0, r.uniform(0.3, 1.5), white))
-    for _ in range(150):
-        lo3 = r.uniform(-20, 20, 3)
-        objs.append(ob.Box(tuple(lo3), tuple(lo3 + r.uniform(0.5, 4.0, 3)),
-                           white))
-    for plane in ("xy", "xz", "yz"):
-        for _ in range(10):
-            a = np.sort(r.uniform(-20, 20, 2))
-            b = np.sort(r.uniform(-20, 20, 2))
-            objs.append(ob.Rect(plane, a[0], a[1], b[0], b[1],
-                                r.uniform(-20, 20), white))
-    return build_scene(objs)
-
-
 @pytest.mark.parametrize("n", [256, 1000, 77])
 def test_sweep_compact_all_kinds_any_ray_count(n):
     """Coherent rays (one origin, a narrow cone) so tiles skip blocks; the
     results still equal the dense sweep's bit for bit, in sorted order and
     un-permuted."""
-    ps = _mixed_scene()
+    ps = mixed_scene()
     r = np.random.default_rng(n)
     ro = np.tile(np.float32([-40, 14, 13]), (n, 1)) \
         + r.normal(size=(n, 3)).astype(np.float32)
@@ -191,7 +165,7 @@ def test_intersect_ti_sorted_equals_unsorted_and_reads_the_switch(monkeypatch):
 
 
 def test_sweep_compact_wrapper_checks_its_inputs():
-    ps = _mixed_scene()
+    ps = mixed_scene()
     rays = torch.zeros((7, 300))
     rays[3:6] = 1.0
     geo, blocks = sw.sweep_table(ps), sw.sweep_blocks(ps)

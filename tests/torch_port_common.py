@@ -45,3 +45,31 @@ def cross_engine(a, b, share=0.02):
     assert div <= share, f"{div:.2%} pixels diverged (max {err.max():.2e})"
     np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
     return div
+
+
+def mixed_scene():
+    """Every kind range of the sweep non-empty, the sphere and box ranges
+    longer than one 128-row block: 300 static and 40 moving spheres, 150
+    boxes, 30 quads."""
+    from tpu_ray_torch.models import objects as ob
+    from tpu_ray_torch.models.compile import build_scene
+
+    r = np.random.default_rng(31)
+    white = ob.Lambertian((1, 1, 1))
+    objs = [ob.Sphere(tuple(r.uniform(-20, 20, 3)), r.uniform(0.3, 1.5),
+                      white) for _ in range(300)]
+    for _ in range(40):
+        c = r.uniform(-20, 20, 3)
+        objs.append(ob.MovingSphere(tuple(c), tuple(c + r.uniform(-2, 2, 3)),
+                                    0.0, 1.0, r.uniform(0.3, 1.5), white))
+    for _ in range(150):
+        lo3 = r.uniform(-20, 20, 3)
+        objs.append(ob.Box(tuple(lo3), tuple(lo3 + r.uniform(0.5, 4.0, 3)),
+                           white))
+    for plane in ("xy", "xz", "yz"):
+        for _ in range(10):
+            a = np.sort(r.uniform(-20, 20, 2))
+            b = np.sort(r.uniform(-20, 20, 2))
+            objs.append(ob.Rect(plane, a[0], a[1], b[0], b[1],
+                                r.uniform(-20, 20), white))
+    return build_scene(objs)

@@ -1,4 +1,5 @@
-// Closest-hit sweep over the solid primitives: one thread per ray.
+// Closest-hit sweeps over the solid primitives, one thread per ray: the dense
+// sweep, and the mask-gated sweep of sorted rays below it.
 //
 // Replaces the TPU kernels tpu_ray/ops/intersect_pallas.py::_sphere_kernel,
 // _box_kernel and _quad_kernel (launched per kind range by _sweep_range from
@@ -34,6 +35,8 @@
 
 #define CHUNK 256
 #define THREADS 256
+#define PBLK 128
+#define TILE_R 256
 
 __global__ void __launch_bounds__(THREADS)
 sweep_kernel(const float* __restrict__ rays, long long R,
@@ -91,5 +94,72 @@ extern "C" int tr_sweep(const float* rays, long long R, const float* geo,
   const long long blocks = (R + THREADS - 1) / THREADS;
   sweep_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       rays, R, geo, n_ss, n_s, n_sb, n_solid, t_min, out_t, out_i);
+  return (int)cudaGetLastError();
+}
+
+// Mask-gated sweep: one thread block per 256-ray tile of sorted rays.
+//
+// Replaces the cull=True mode of the same three TPU kernels (_sphere_kernel,
+// _box_kernel, _quad_kernel with the needed mask of
+// intersect_pallas._needed_mask, wired in _sweep_range): a block of at most
+// 128 prim rows is swept for a tile only where mask[tile, block] is not 0,
+// that is where some ray of the tile can enter the block's box
+// (tpu_ray_torch/ops/sweep.py::needed_mask).  Skipping is exact, so (t, i)
+// equals the dense sweep's bit for bit.  The blocks are the compacted
+// sweep's (unpadded runs of one kind with a (B, 3) descriptor: first row, row
+// count, kind), visited in table order; a visited block's rows are staged in
+// shared memory (8 KB) and merged with a strict '<', which in ascending
+// order keeps the first row of the minimum as the dense sweep does.  The
+// mask word is the same for the whole thread block, so the skip costs one
+// broadcast load and no divergence.  With ``perm`` the results are written
+// to out[perm[ray]], un-permuting the sorted rays in the same pass.  Its
+// bound is the dense sweep's for the same rays and prims.
+__global__ void __launch_bounds__(TILE_R)
+sweep_masked_kernel(const float* __restrict__ rays, long long R,
+                    const float* __restrict__ geo,
+                    const int* __restrict__ desc,
+                    const int* __restrict__ mask, int n_blocks, float t_min,
+                    const long long* __restrict__ perm,
+                    float* __restrict__ out_t, int* __restrict__ out_i) {
+  __shared__ float sg[PBLK * ROW];
+  const long long tile = blockIdx.x;
+  const long long i = tile * TILE_R + threadIdx.x;
+  const bool live = i < R;
+  const Ray r = load_ray(rays, R, live ? i : 0);
+  float bt = __int_as_float(0x7f800000);
+  int bi = 0;
+
+  const int* mine = mask + tile * n_blocks;
+  for (int b = 0; b < n_blocks; ++b) {
+    if (mine[b] == 0) continue;
+    const int start = desc[3 * b], rows = desc[3 * b + 1];
+    __syncthreads();
+    for (int q = threadIdx.x; q < rows * ROW; q += TILE_R)
+      sg[q] = geo[(long long)start * ROW + q];
+    __syncthreads();
+    float lt;
+    int li;
+    block_min(sg, r, start, rows, desc[3 * b + 2], t_min, lt, li);
+    if (lt < bt) { bt = lt; bi = li; }
+  }
+  if (live) {
+    const long long o = perm ? perm[i] : i;
+    out_t[o] = bt;
+    out_i[o] = bi;
+  }
+}
+
+// rays (7, R) f32 (sorted), geo (n_solid, 16) f32, desc (B, 3) i32, mask
+// (T, B) i32 with T = ceil(R / 256), perm (R) i64 or null, out_t / out_i
+// (R).  Returns the launch's cudaError_t (0 = launched).
+extern "C" int tr_sweep_masked(const float* rays, long long R,
+                               const float* geo, const int* desc,
+                               const int* mask, int n_blocks, float t_min,
+                               const long long* perm, float* out_t,
+                               int* out_i, void* stream) {
+  if (R <= 0) return 0;
+  const long long tiles = (R + TILE_R - 1) / TILE_R;
+  sweep_masked_kernel<<<(unsigned)tiles, TILE_R, 0, (cudaStream_t)stream>>>(
+      rays, R, geo, desc, mask, n_blocks, t_min, perm, out_t, out_i);
   return (int)cudaGetLastError();
 }

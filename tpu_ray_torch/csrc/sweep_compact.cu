@@ -65,24 +65,9 @@ sweep_compact_kernel(const float* __restrict__ rays, long long R,
     for (int q = threadIdx.x; q < rows * ROW; q += TILE_R)
       sg[q] = geo[(long long)start * ROW + q];
     __syncthreads();
-    float lt = INF;
-    int li = 0;
-    if (kind <= 1) {
-      for (int k = 0; k < rows; ++k) {
-        const float t = hit_sphere(sg + k * ROW, r, kind == 1, t_min);
-        if (t < lt) { lt = t; li = start + k; }
-      }
-    } else if (kind == 2) {
-      for (int k = 0; k < rows; ++k) {
-        const float t = hit_box(sg + k * ROW, r, t_min);
-        if (t < lt) { lt = t; li = start + k; }
-      }
-    } else {
-      for (int k = 0; k < rows; ++k) {
-        const float t = hit_quad(sg + k * ROW, r, t_min);
-        if (t < lt) { lt = t; li = start + k; }
-      }
-    }
+    float lt;
+    int li;
+    block_min(sg, r, start, rows, kind, t_min, lt, li);
     if (lt < bt || (lt == bt && li < bi)) { bt = lt; bi = li; }
   }
   if (live) {

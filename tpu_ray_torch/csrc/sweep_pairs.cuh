@@ -1,6 +1,7 @@
-// Per-(ray, prim) hit distances shared by the dense sweep (sweep.cu) and the
-// compacted-list sweep (sweep_compact.cu): the two kernels must return the
-// same t bit for bit, so they run this one copy of the math.  Each function
+// Per-(ray, prim) hit distances shared by the dense and the mask-gated sweep
+// (sweep.cu), the compacted-list sweep (sweep_compact.cu) and the whole-wave
+// megakernel (megakernel.cu): the kernels must return the same t bit for bit,
+// so they run this one copy of the math.  Each function
 // returns the hit distance of one prim row (16 floats, layout in
 // tpu_ray_torch/ops/sweep.py) or +inf, with the operations and their order
 // of tpu_ray_torch/ops/sweep.py::_block_t.  NaN fails every comparison,
@@ -23,16 +24,24 @@ struct Ray {
   float ix, iy, iz;      // 1 / d per axis (boxes)
 };
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
-                                        long long R, long long k) {
+// the per-ray terms the pair tests share, from an origin, a direction and a
+// shutter time held in registers
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx,
+                                        float dy, float dz, float rt) {
   Ray r;
-  r.ox = rays[k]; r.oy = rays[R + k]; r.oz = rays[2 * R + k];
-  r.dx = rays[3 * R + k]; r.dy = rays[4 * R + k]; r.dz = rays[5 * R + k];
-  r.rt = rays[6 * R + k];
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.rt = rt;
   r.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   r.inv_a = 1.0f / r.a;
   r.ix = 1.0f / r.dx; r.iy = 1.0f / r.dy; r.iz = 1.0f / r.dz;
   return r;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
+                                        long long R, long long k) {
+  return make_ray(rays[k], rays[R + k], rays[2 * R + k], rays[3 * R + k],
+                  rays[4 * R + k], rays[5 * R + k], rays[6 * R + k]);
 }
 
 // sphere quadratic; ``moving`` lerps the center by the ray's time
@@ -92,4 +101,30 @@ __device__ __forceinline__ float hit_quad(const float* g, const Ray& r,
   const bool ok = (tq > t_min) && (tq < INF) && (uq >= 0.0f) &&
                   (uq <= 1.0f) && (vq >= 0.0f) && (vq <= 1.0f);
   return ok ? tq : INF;
+}
+
+// closest hit (lt, li) of a ray over ``rows`` staged prim rows of one kind
+// (0 static sphere, 1 moving sphere, 2 box, 3 quad; table rows start..), in
+// ascending row order with a strict '<': the first row of the minimum
+__device__ __forceinline__ void block_min(const float* sg, const Ray& r,
+                                          int start, int rows, int kind,
+                                          float t_min, float& lt, int& li) {
+  lt = __int_as_float(0x7f800000);
+  li = 0;
+  if (kind <= 1) {
+    for (int k = 0; k < rows; ++k) {
+      const float t = hit_sphere(sg + k * ROW, r, kind == 1, t_min);
+      if (t < lt) { lt = t; li = start + k; }
+    }
+  } else if (kind == 2) {
+    for (int k = 0; k < rows; ++k) {
+      const float t = hit_box(sg + k * ROW, r, t_min);
+      if (t < lt) { lt = t; li = start + k; }
+    }
+  } else {
+    for (int k = 0; k < rows; ++k) {
+      const float t = hit_quad(sg + k * ROW, r, t_min);
+      if (t < lt) { lt = t; li = start + k; }
+    }
+  }
 }

@@ -1,5 +1,7 @@
 """The three integrators: the ray pool, the plain wavefront and the work
-queue.
+queue.  The pool also has a one-launch form, the whole-wave megakernel
+(:func:`tpu_ray_torch.ops.megakernel.trace_pool_mega`, re-exported here
+beside :func:`trace_pool_staged`, which it can stand in for).
 
 **Ray pool** (immediate path regeneration).
 
@@ -54,9 +56,11 @@ from .core import rng
 from .models.scene_data import SceneData
 from .ops.hit_scatter import hit_scatter
 from .ops.intersect import intersect_ti, media_rows
+from .ops.megakernel import trace_pool_mega  # noqa: F401  (re-exported)
 from .ops.shade import (N_FSTATE, N_ISTATE, RR_COL, RR_PMIN, StepConfig,
                         pool_step)
-from .ops.sweep import SweepBlocks, sweep_blocks, sweep_table, use_sort
+from .ops.sweep import (MxuPack, SweepBlocks, mxu_pack, sweep_blocks,
+                        sweep_table, use_mask_cull, use_mxu, use_sort)
 
 # compaction ladder (integrator.py COMPACT_* constants, kept identical:
 # the ladder decides nothing about the estimate, but the port keeps the
@@ -108,27 +112,39 @@ def pool_levels(R: int, n_prims: int):
 
 @dataclass
 class SceneKernels:
-    """Per-render tables of the sweeps and the media rows.  ``blocks`` is
-    set when the render uses the sorted, compacted-list sweep: this is the
-    one place that decides it."""
+    """Per-render tables of the sweeps and the media rows.  This is the one
+    place that decides the sweep: ``blocks`` is set when the render uses a
+    sorted sweep, ``masked`` picks the mask-gated kernel over the compacted
+    lists, ``mxu`` is set when the static spheres go through the
+    matrix-product sweep."""
 
     geo: torch.Tensor
     media: list
     blocks: SweepBlocks | None = None
+    masked: bool = False
+    mxu: MxuPack | None = None
 
     @classmethod
     def create(cls, scene: SceneData, sort: bool | None = None
                ) -> "SceneKernels":
         """``sort``: the sorted sweep on or off; ``None`` reads
-        ``TPU_RAY_SORT`` (off unless ``1``)."""
+        ``TPU_RAY_SORT`` (off unless ``1``).  The environment is read here,
+        once: ``TPU_RAY_CULL_STYLE`` other than ``compact`` makes a sorted
+        sweep mask-gated, ``TPU_RAY_SWEEP_MXU=1`` sends the static-sphere
+        range through the matrix-product sweep."""
         sort = use_sort(sort) and scene.n_solid > 0
-        return cls(geo=sweep_table(scene), media=media_rows(scene),
-                   blocks=sweep_blocks(scene) if sort else None)
+        geo = sweep_table(scene)
+        n_ss = scene.n_sphere_static
+        return cls(geo=geo, media=media_rows(scene),
+                   blocks=sweep_blocks(scene) if sort else None,
+                   masked=sort and use_mask_cull(),
+                   mxu=mxu_pack(geo, 0, n_ss) if use_mxu() and n_ss > 0
+                   else None)
 
     def intersect(self, scene: SceneData, rays, kd, lane_ids):
         """:func:`intersect_ti` with this render's tables."""
         return intersect_ti(scene, rays, kd, lane_ids, self.geo, self.media,
-                            self.blocks)
+                            self.blocks, self.masked, self.mxu)
 
 
 def _compact(st: PoolState, m: int) -> PoolState:

@@ -4,7 +4,9 @@ Port of ``tpu_ray/ops/intersect.py::intersect_ti``: solids go through the
 closest-hit sweep (:mod:`tpu_ray_torch.ops.sweep` - the CUDA kernel on the
 card), constant media stay plain PyTorch in the free-flight math of
 ``_chunk_t``, and the two are min-combined with a strict '<' in the order
-solids, then media.  The JAX package also keeps media outside its kernels.
+solids, then media.  The JAX package also keeps media outside its sweep
+kernels; only the whole-wave megakernel (``csrc/media.cuh``) has them
+inside.
 
 Constant media draw their free-flight distance from one uniform per
 (ray, medium), keyed by (intersect key words, lane id) - the
@@ -17,7 +19,7 @@ import torch
 
 from ..core import rng
 from ..models.scene_data import PRIM_MEDIUM_SPHERE, SceneData
-from .sweep import SweepBlocks, _ranges, sweep, sweep_sorted, sweep_table
+from .sweep import MxuPack, SweepBlocks, _ranges, sweep_solids, sweep_table
 
 INF = float("inf")
 MED_EPS = 1e-4
@@ -102,9 +104,20 @@ def _media_t(scene: SceneData, rays: torch.Tensor, kd, lane_ids, media):
     return out
 
 
+def merge_media(scene: SceneData, rays, kd, lane_ids, media, best_t, best_i):
+    """Min-combine the solids' (best_t, best_i) with every medium's free
+    flight, in row order with a strict '<'."""
+    for j, t in enumerate(_media_t(scene, rays, kd, lane_ids, media)):
+        closer = t < best_t
+        best_t = torch.where(closer, t, best_t)
+        best_i = torch.where(closer, scene.n_solid + j, best_i)
+    return best_t, best_i
+
+
 def intersect_ti(scene: SceneData, rays: torch.Tensor, kd, lane_ids,
                  geo: torch.Tensor | None = None, media: list | None = None,
-                 blocks: SweepBlocks | None = None):
+                 blocks: SweepBlocks | None = None, masked: bool = False,
+                 mxu: MxuPack | None = None):
     """(best_t, best_i) of each ray's closest hit; ``best_t`` is +inf where
     nothing is hit.
 
@@ -114,18 +127,18 @@ def intersect_ti(scene: SceneData, rays: torch.Tensor, kd, lane_ids,
     the sweep's prim table and :func:`media_rows` (built from the scene
     when omitted; a render builds them once).  With ``blocks``
     (:func:`~tpu_ray_torch.ops.sweep.sweep_blocks`) the solids go through
-    the sorted, compacted-list sweep over them instead of the dense one
-    (the JAX package's ``sort=True``) - the same ``(best_t, best_i)`` bit
-    for bit.
+    the sorted sweep over them instead of the dense one (the JAX package's
+    ``sort=True``), by compacted lists or, with ``masked``, the mask-gated
+    kernel - the same ``(best_t, best_i)`` bit for bit.  With ``mxu``
+    (:func:`~tpu_ray_torch.ops.sweep.mxu_pack` of the static spheres) that
+    range goes through the matrix-product sweep.
     """
     R = rays.shape[1]
     if scene.n_solid > 0:
         if geo is None:
             geo = sweep_table(scene)
-        if blocks is not None:
-            best_t, best_i = sweep_sorted(rays, geo, blocks, scene.t_min)
-        else:
-            best_t, best_i = sweep(rays, geo, _ranges(scene), scene.t_min)
+        best_t, best_i = sweep_solids(rays, geo, _ranges(scene), scene.t_min,
+                                      blocks, masked, mxu)
     else:
         best_t = torch.full((R,), INF, dtype=torch.float32,
                             device=rays.device)
@@ -133,8 +146,6 @@ def intersect_ti(scene: SceneData, rays: torch.Tensor, kd, lane_ids,
     if scene.has_media:
         if media is None:
             media = media_rows(scene)
-        for j, t in enumerate(_media_t(scene, rays, kd, lane_ids, media)):
-            closer = t < best_t
-            best_t = torch.where(closer, t, best_t)
-            best_i = torch.where(closer, scene.n_solid + j, best_i)
+        best_t, best_i = merge_media(scene, rays, kd, lane_ids, media,
+                                     best_t, best_i)
     return best_t, best_i

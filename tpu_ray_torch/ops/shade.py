@@ -85,7 +85,8 @@ PRIM_COLS = 40
 # scene feature bits of the kernel's ``flags`` argument
 FLAG_BITS = ("has_moving", "has_quads", "has_solid_box", "has_media",
              "has_checker", "has_perlin", "has_emissive", "has_lambertian",
-             "has_metal", "has_dielectric", "has_isotropic", "has_image")
+             "has_metal", "has_dielectric", "has_isotropic", "has_image",
+             "any_transform")
 
 
 def build_tables(scene: SceneData):
@@ -632,7 +633,7 @@ def _check(cfg, xy, slot, fstate, istate, best_t, best_i):
 
 def _params(cfg: StepConfig, kd, init: bool) -> np.ndarray:
     """The kernel's by-value parameter block as 32-bit words (layout of
-    ``StepParams`` in csrc/pool_step.cu)."""
+    ``StepParams`` in csrc/shade_core.cuh)."""
     w = np.zeros(24 + 15, np.uint32)
     fv = w.view(np.float32)
     fv[0:21] = cfg.cam

@@ -25,6 +25,19 @@ for every 256-ray tile the blocks some ray of it can enter, and
 :func:`sweep_compact` (kernel) / :func:`sweep_compact_plain` sweep only
 those.  Skipping is exact - a hit lies inside its block's box - and a
 lower-prim-id tie-break makes ``(t, i)`` bit-equal to the dense sweep's.
+
+Two more sweeps compute the same function.  The mask-gated sweep (a second
+kernel in ``csrc/sweep.cu``, replacing the ``cull=True`` mode of the three
+TPU kernels) takes the same sorted rays and blocks with a (tiles, blocks)
+mask from :func:`needed_mask` instead of lists: :func:`sweep_masked` /
+:func:`sweep_masked_plain`, bit-equal to the dense sweep too.  The
+matrix-product sphere sweep (``csrc/sweep_mxu.cu``, replacing
+``intersect_pallas.py::_sphere_mxu_kernel``) covers the static-sphere range
+with the quadratic expanded around the range centroid:
+:func:`sweep_sphere_mxu` / :func:`sweep_sphere_mxu_plain`; it reassociates
+the arithmetic, so it agrees with the dense sweep to ~1e-5 relative, not bit
+for bit.  :func:`sweep_solids` picks among them as a render's
+``SceneKernels`` says.
 """
 from __future__ import annotations
 
@@ -46,7 +59,8 @@ TILE_R = 256              # rays per tile of the compacted sweep
 KINDS = ("sphere", "moving", "box", "quad")
 
 # fp32 operations per (ray, prim) pair, the sweep's roofline numerator
-FLOPS_PER_PAIR = {"sphere": 21, "moving": 27, "box": 24, "quad": 31}
+FLOPS_PER_PAIR = {"sphere": 21, "moving": 27, "box": 24, "quad": 31,
+                  "sphere_mxu": 24}
 
 
 def sweep_table(scene: SceneData) -> torch.Tensor:
@@ -209,6 +223,20 @@ def use_sort(sort=None) -> bool:
     return os.environ.get("TPU_RAY_SORT", "auto") == "1"
 
 
+def use_mask_cull() -> bool:
+    """With the sorted sweep on, ``TPU_RAY_CULL_STYLE`` set to anything but
+    ``compact`` (the default) picks the mask-gated kernel instead of the
+    compacted lists, as ``intersect_solids_pallas`` does."""
+    return os.environ.get("TPU_RAY_CULL_STYLE", "compact") != "compact"
+
+
+def use_mxu() -> bool:
+    """``TPU_RAY_SWEEP_MXU=1`` sends the static-sphere range through the
+    matrix-product sweep (off by default, as
+    ``intersect_pallas._use_mxu_spheres``)."""
+    return os.environ.get("TPU_RAY_SWEEP_MXU", "0") == "1"
+
+
 def range_aabbs(scene: SceneData, lo: int, hi: int, flavor: str):
     """((n, 3) lo, (n, 3) hi) conservative boxes of prim rows [lo, hi);
     moving spheres take the union over shutter times 0..1."""
@@ -308,13 +336,15 @@ def sort_key(blocks: SweepBlocks, rays: torch.Tensor) -> torch.Tensor:
     return (oct_ << 29) | (m >> 1)
 
 
-def tile_lists(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
+def _slab_need(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
                t_min: float):
-    """Front-to-back block lists per 256-ray tile
-    (``intersect_pallas._tile_lists``): (cnt (T,) int32, lst (T, B) int32);
-    ``lst[t, :cnt[t]]`` are the blocks some ray of tile t can enter past
-    ``t_min``, by the tile's closest entry distance.  A last tile short of
-    256 rays is padded with rays from the origin along (1, 1, 1)."""
+    """The slab test of every ray against every block box: (need (Rp, B)
+    bool, entry distance tn (Rp, B)), Rp = R padded to whole 256-ray tiles
+    with rays from the origin along (1, 1, 1).  ``need`` says the ray can
+    enter the box past ``t_min``; zero direction components are nudged to
+    +-1e-30 and the slack ``1e-4 * (1 + |tn|)`` covers the rounding of the
+    slab against the prim tests (``intersect_pallas._needed_mask`` /
+    ``_tile_lists``, operation for operation)."""
     R = rays.shape[1]
     B = blo.shape[0]
     pad = (-R) % TILE_R
@@ -334,7 +364,19 @@ def tile_lists(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
         tf = torch.minimum(tf, torch.maximum(t0, t1))
     slack = 1e-4 * (1.0 + tn.abs())
     need = (tn - slack <= tf) & (tf > float(np.float32(t_min)))
-    T = (R + pad) // TILE_R
+    return need, tn
+
+
+def tile_lists(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
+               t_min: float):
+    """Front-to-back block lists per 256-ray tile
+    (``intersect_pallas._tile_lists``): (cnt (T,) int32, lst (T, B) int32);
+    ``lst[t, :cnt[t]]`` are the blocks some ray of tile t can enter past
+    ``t_min``, by the tile's closest entry distance.  A last tile short of
+    256 rays is padded with rays from the origin along (1, 1, 1)."""
+    need, tn = _slab_need(rays, blo, bhi, t_min)
+    B = blo.shape[0]
+    T = need.shape[0] // TILE_R
     need_t = need.reshape(T, TILE_R, B).any(1)
     key_t = torch.where(need, torch.clamp(tn, min=0.0), INF) \
         .reshape(T, TILE_R, B).min(1).values
@@ -343,41 +385,49 @@ def tile_lists(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
             order.to(torch.int32).contiguous())
 
 
-def _check_lists(rays, blocks, cnt, lst, perm):
+def needed_mask(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
+                t_min: float) -> torch.Tensor:
+    """(T, B) int32: can any ray of 256-ray tile t enter block b's box past
+    ``t_min`` (``intersect_pallas._needed_mask``)?  The last tile is padded
+    as in :func:`tile_lists`."""
+    need, _ = _slab_need(rays, blo, bhi, t_min)
+    return need.reshape(-1, TILE_R, blo.shape[0]).any(1).to(torch.int32) \
+        .contiguous()
+
+
+def _check_tiles(what, rays, blocks, tables, perm):
+    """``tables``: (tensor, trailing shape) pairs of per-tile int32 tables;
+    each must be contiguous (T, *trailing) on the rays' device."""
     R = rays.shape[1]
     T = -(-R // TILE_R)
     B = blocks.n_blocks
-    for x, shape, dtype in ((blocks.desc, (B, 3), torch.int32),
-                            (cnt, (T,), torch.int32),
-                            (lst, (T, B), torch.int32)):
-        if tuple(x.shape) != shape or x.dtype != dtype \
+    for x, shape in [(blocks.desc, (B, 3))] + [(x, (T, *tr))
+                                               for x, tr in tables]:
+        if tuple(x.shape) != shape or x.dtype != torch.int32 \
                 or not x.is_contiguous() or x.device != rays.device:
-            raise ValueError(f"compacted sweep: expected a contiguous {shape} "
-                             f"{dtype} on the rays' device")
+            raise ValueError(f"{what}: expected a contiguous {shape} "
+                             f"{torch.int32} on the rays' device")
     if perm is not None and (tuple(perm.shape) != (R,)
                              or perm.dtype != torch.int64
                              or not perm.is_contiguous()
                              or perm.device != rays.device):
-        raise ValueError("compacted sweep: perm must be a contiguous (R,) "
+        raise ValueError(f"{what}: perm must be a contiguous (R,) "
                          "int64 on the rays' device")
 
 
-def sweep_compact_plain(rays, geo, blocks: SweepBlocks, cnt, lst,
-                        t_min: float, perm=None):
-    """Plain-PyTorch compacted sweep: every listed (tile, block) pair runs
-    :func:`_block_t`, unlisted pairs are skipped (their t is +inf), and
-    blocks merge with the lower-prim-id tie-break.  Returns (best_t,
-    best_i), written to position ``perm[ray]`` when ``perm`` is given."""
-    _check(rays, geo)
-    _check_lists(rays, blocks, cnt, lst, perm)
-    sweep_compact_plain.calls += 1
+def _check_lists(rays, blocks, cnt, lst, perm):
+    _check_tiles("compacted sweep", rays, blocks,
+                 [(cnt, ()), (lst, (blocks.n_blocks,))], perm)
+
+
+def _sweep_listed_plain(rays, geo, blocks: SweepBlocks, listed, t_min, perm):
+    """Plain-PyTorch sweep of the (tile, block) pairs that ``listed`` (T, B)
+    bool names: each runs :func:`_block_t`, the others are skipped (their t
+    is +inf), and blocks merge with the lower-prim-id tie-break (in table
+    order a strict '<' alone)."""
     R = rays.shape[1]
-    B = blocks.n_blocks
     dev = rays.device
     t_min = float(np.float32(t_min))
-    listed = torch.zeros((cnt.shape[0], B), dtype=torch.bool, device=dev)
-    ranks = torch.arange(B, device=dev)[None, :] < cnt[:, None]
-    listed.scatter_(1, lst.to(torch.int64), ranks)            # (T, B)
     tile_of = torch.arange(R, device=dev) // TILE_R
     best_t = torch.full((R,), INF, dtype=torch.float32, device=dev)
     best_i = torch.zeros((R,), dtype=torch.int32, device=dev)
@@ -398,6 +448,23 @@ def sweep_compact_plain(rays, geo, blocks: SweepBlocks, cnt, lst,
         best_t = torch.empty_like(best_t).index_copy_(0, perm, best_t)
         best_i = torch.empty_like(best_i).index_copy_(0, perm, best_i)
     return best_t, best_i
+
+
+def sweep_compact_plain(rays, geo, blocks: SweepBlocks, cnt, lst,
+                        t_min: float, perm=None):
+    """Plain-PyTorch compacted sweep: every listed (tile, block) pair runs
+    :func:`_block_t`, unlisted pairs are skipped (their t is +inf), and
+    blocks merge with the lower-prim-id tie-break.  Returns (best_t,
+    best_i), written to position ``perm[ray]`` when ``perm`` is given."""
+    _check(rays, geo)
+    _check_lists(rays, blocks, cnt, lst, perm)
+    sweep_compact_plain.calls += 1
+    B = blocks.n_blocks
+    dev = rays.device
+    listed = torch.zeros((cnt.shape[0], B), dtype=torch.bool, device=dev)
+    ranks = torch.arange(B, device=dev)[None, :] < cnt[:, None]
+    listed.scatter_(1, lst.to(torch.int64), ranks)            # (T, B)
+    return _sweep_listed_plain(rays, geo, blocks, listed, t_min, perm)
 
 
 sweep_compact_plain.calls = 0
@@ -438,11 +505,205 @@ def sweep_compact(rays, geo, blocks: SweepBlocks, cnt, lst, t_min: float,
 sweep_compact.launches = 0
 
 
-def sweep_sorted(rays, geo, blocks: SweepBlocks, t_min: float):
+# --- the mask-gated sweep ----------------------------------------------------
+
+def sweep_masked_plain(rays, geo, blocks: SweepBlocks, mask, t_min: float,
+                       perm=None):
+    """Plain-PyTorch mask-gated sweep of sorted ``rays``: block b is swept
+    for tile t only where ``mask[t, b]`` is not 0.  Returns (best_t,
+    best_i), written to position ``perm[ray]`` when ``perm`` is given."""
+    _check(rays, geo)
+    _check_tiles("masked sweep", rays, blocks,
+                 [(mask, (blocks.n_blocks,))], perm)
+    sweep_masked_plain.calls += 1
+    return _sweep_listed_plain(rays, geo, blocks, mask > 0, t_min, perm)
+
+
+sweep_masked_plain.calls = 0
+
+
+def sweep_masked(rays, geo, blocks: SweepBlocks, mask, t_min: float,
+                 perm=None):
+    """Closest solid hit of sorted ``rays`` under the (tiles, blocks) mask of
+    :func:`needed_mask`: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  With ``perm`` the results land at the rays' unsorted
+    positions."""
+    if not rays.is_cuda:
+        return sweep_masked_plain(rays, geo, blocks, mask, t_min, perm)
+    _check(rays, geo)
+    _check_tiles("masked sweep", rays, blocks,
+                 [(mask, (blocks.n_blocks,))], perm)
+    if not geo.is_cuda:
+        raise ValueError("prim table must be on the rays' device")
+    fn = load_fn("sweep", "tr_sweep_masked", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    R = rays.shape[1]
+    best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
+    best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
+    err = fn(rays.data_ptr(), R, geo.data_ptr(), blocks.desc.data_ptr(),
+             mask.data_ptr(), blocks.n_blocks, float(np.float32(t_min)),
+             None if perm is None else perm.data_ptr(), best_t.data_ptr(),
+             best_i.data_ptr(),
+             torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"masked sweep kernel launch failed (cudaError "
+                           f"{err})")
+    sweep_masked.launches += 1
+    return best_t, best_i
+
+
+sweep_masked.launches = 0
+
+
+def sweep_sorted(rays, geo, blocks: SweepBlocks, t_min: float,
+                 masked: bool = False):
     """The whole sorted sweep of unsorted ``rays``: key, stable sort, ray
-    gather, tile lists, compacted sweep with the un-permute folded into the
+    gather, then tile lists and the compacted sweep or, with ``masked``, the
+    needed mask and the mask-gated sweep; the un-permute is folded into the
     kernel's stores.  Same (best_t, best_i) as :func:`sweep`."""
     perm = torch.sort(sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
+    if masked:
+        mask = needed_mask(srays, blocks.blo, blocks.bhi, t_min)
+        return sweep_masked(srays, geo, blocks, mask, t_min, perm)
     cnt, lst = tile_lists(srays, blocks.blo, blocks.bhi, t_min)
     return sweep_compact(srays, geo, blocks, cnt, lst, t_min, perm)
+
+
+# --- the matrix-product sphere sweep -----------------------------------------
+
+@dataclass
+class MxuPack:
+    """Static-sphere rows [lo, hi) packed for the matrix-product sweep
+    (``intersect_pallas._sweep_sphere_mxu``): the range centroid ``m`` and
+    per sphere c' = c - m and k' = |c'|^2 - r^2."""
+
+    lo: int
+    hi: int
+    m: tuple              # (mx, my, mz) python floats of the float32 values
+    tab: torch.Tensor     # (hi - lo, 4) float32: c'x, c'y, c'z, k'
+
+
+def mxu_pack(geo: torch.Tensor, lo: int, hi: int) -> MxuPack:
+    """Pack sphere rows [lo, hi) of the prim table (reads the centroid back
+    to the host, so a render packs once)."""
+    if not 0 <= lo < hi <= geo.shape[0]:
+        raise ValueError(f"mxu_pack: empty or out-of-range rows [{lo}, {hi})")
+    c = geo[lo:hi, 0:3]
+    m = c.mean(dim=0)
+    cs = c - m
+    k = (cs * cs).sum(dim=1) - geo[lo:hi, 7]
+    return MxuPack(lo, hi, tuple(m.tolist()),
+                   torch.cat([cs, k[:, None]], dim=1).contiguous())
+
+
+def _check_mxu(rays, geo, lo, hi, pack):
+    _check(rays, geo)
+    if pack is None:
+        pack = mxu_pack(geo, lo, hi)
+    if (pack.lo, pack.hi) != (lo, hi) or pack.tab.device != rays.device \
+            or tuple(pack.tab.shape) != (hi - lo, 4) \
+            or pack.tab.dtype != torch.float32 \
+            or not pack.tab.is_contiguous():
+        raise ValueError("matrix-product sweep: the pack is not a contiguous "
+                         f"({hi - lo}, 4) float32 of rows [{lo}, {hi}) on the "
+                         "rays' device")
+    return pack
+
+
+def sweep_sphere_mxu_plain(rays, geo, lo: int, hi: int, t_min: float,
+                           pack: MxuPack | None = None):
+    """Plain-PyTorch matrix-product sweep over static-sphere rows [lo, hi):
+    (best_t, best_i), the kernel's operations in the kernel's order."""
+    pack = _check_mxu(rays, geo, lo, hi, pack)
+    sweep_sphere_mxu_plain.calls += 1
+    R = rays.shape[1]
+    t_min = float(np.float32(t_min))
+    best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
+    best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
+    c = pack.tab.T[:, None, :]                                # (4, 1, n)
+    for r0 in range(0, R, RAY_CHUNK):
+        blk = rays[:, r0:r0 + RAY_CHUNK]
+        dx, dy, dz = (blk[3 + i][:, None] for i in range(3))
+        ox, oy, oz = (blk[i][:, None] - pack.m[i] for i in range(3))
+        a = dx * dx + dy * dy + dz * dz
+        inv_a = 1.0 / a
+        od = ox * dx + oy * dy + oz * dz
+        oo = ox * ox + oy * oy + oz * oz
+        cd = dx * c[0] + dy * c[1] + dz * c[2]
+        ccp = ox * (-2.0 * c[0]) + oy * (-2.0 * c[1]) + oz * (-2.0 * c[2]) \
+            + c[3]
+        b = od - cd
+        cc = oo + ccp
+        disc = b * b - a * cc
+        ok = disc > 0.0
+        sd = torch.sqrt(torch.clamp(disc, min=0.0))
+        t1 = (-b - sd) * inv_a
+        t2 = (-b + sd) * inv_a
+        t = torch.where(ok & (t1 > t_min), t1,
+                        torch.where(ok & (t2 > t_min), t2, INF))
+        ct, cidx = torch.min(t, dim=1)             # first index of the minimum
+        best_t[r0:r0 + RAY_CHUNK] = ct
+        best_i[r0:r0 + RAY_CHUNK] = torch.where(
+            ct < INF, cidx.to(torch.int32) + lo, 0)
+    return best_t, best_i
+
+
+sweep_sphere_mxu_plain.calls = 0
+
+
+def sweep_sphere_mxu(rays, geo, lo: int, hi: int, t_min: float,
+                     pack: MxuPack | None = None):
+    """Closest hit over static-sphere rows [lo, hi) in the matrix-product
+    form: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors.  ``pack``: :func:`mxu_pack` of the same rows (made here when
+    omitted).  Returns (best_t, best_i); best_i is 0 where nothing is hit."""
+    if not rays.is_cuda:
+        return sweep_sphere_mxu_plain(rays, geo, lo, hi, t_min, pack)
+    pack = _check_mxu(rays, geo, lo, hi, pack)
+    fn = load_fn("sweep_mxu", "tr_sweep_mxu", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    R = rays.shape[1]
+    best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
+    best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
+    err = fn(rays.data_ptr(), R, pack.tab.data_ptr(), hi - lo, lo, *pack.m,
+             float(np.float32(t_min)), best_t.data_ptr(), best_i.data_ptr(),
+             torch.cuda.current_stream(rays.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("matrix-product sweep kernel launch failed "
+                           f"(cudaError {err})")
+    sweep_sphere_mxu.launches += 1
+    return best_t, best_i
+
+
+sweep_sphere_mxu.launches = 0
+
+
+def sweep_solids(rays, geo, ranges, t_min: float,
+                 blocks: SweepBlocks | None = None, masked: bool = False,
+                 mxu: MxuPack | None = None):
+    """Closest solid hit through the sweep a render chose: with ``mxu`` the
+    static-sphere range goes through the matrix-product sweep and the other
+    ranges through the dense one, merged in range order with a strict '<'
+    (sorted or not: the sorted sweeps are bit-equal to the dense one, so the
+    result is that of the JAX package's combination); else with ``blocks``
+    the sorted sweep (mask-gated if ``masked``, else compacted lists); else
+    the dense sweep."""
+    if mxu is not None:
+        n_ss, n_s, n_sb, n_solid = ranges
+        best_t, best_i = sweep_sphere_mxu(rays, geo, 0, n_ss, t_min, mxu)
+        if n_solid > n_ss:
+            rest_t, rest_i = sweep(rays, geo[n_ss:],
+                                   (0, n_s - n_ss, n_sb - n_ss,
+                                    n_solid - n_ss), t_min)
+            closer = rest_t < best_t
+            best_t = torch.where(closer, rest_t, best_t)
+            best_i = torch.where(closer, rest_i + n_ss, best_i)
+        return best_t, best_i
+    if blocks is not None:
+        return sweep_sorted(rays, geo, blocks, t_min, masked)
+    return sweep(rays, geo, ranges, t_min)

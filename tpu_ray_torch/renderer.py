@@ -1,15 +1,18 @@
 """Rendering: the schedules of the three modes, waves, chunks and the film.
 
-Port of ``tpu_ray/renderer.py``: ``resolve_mode``, ``plan_pool`` /
-``plan_queue``, ``_pixel_grid``, ``_slot_ids``, ``_film_add``,
-``make_wave_fn``, ``_render_queue`` and ``render``.
+Port of ``tpu_ray/renderer.py``: ``resolve_engine``, ``resolve_mode``,
+``plan_pool`` / ``plan_queue``, ``_pixel_grid``, ``_slot_ids``,
+``_film_add``, ``make_wave_fn``, ``_render_queue`` and ``render``.
 
 * ``mode="pool"`` (``"auto"`` up to 512 prims): the ray pool.
   ``plan_pool`` and its constants are kept identical to the JAX package's
   even though they were tuned on a TPU: ``k_pool`` decides the global slot
   ids and those key every random stream, so any other plan would change
   the image's noise and the port could no longer be held to the JAX
-  renders and goldens.
+  renders and goldens.  With ``engine="mega"`` each wave of the pool is one
+  launch of the whole-wave megakernel instead of the host's loop over the
+  sweep and the pool step; plan, slot ids and keys are the same, so both
+  engines trace the same paths.
 * ``mode="queue"`` (``"auto"`` above 512 prims): the work queue.  Its
   lane count, epoch length and drain ladder key no stream, so
   ``plan_queue`` chooses them for the card.
@@ -32,9 +35,10 @@ import torch
 from .core import rng
 from .core.camera import Camera
 from .integrator import (COMPACT_FLOOR, COMPACT_MIN, SceneKernels, trace,
-                         trace_pool_staged, trace_queue)
+                         trace_pool_mega, trace_pool_staged, trace_queue)
 from .models.scene_data import SceneData
 from .ops.intersect import pack_rays
+from .ops.megakernel import supported as mega_supported
 from .ops.shade import StepConfig
 
 QUEUE_MIN_PRIMS = 512    # mode="auto" picks the work queue above this
@@ -86,21 +90,56 @@ def check_supported(scene: SceneData, camera: Camera) -> None:
                                   "yet (a later slice adds core/qmc.py)")
 
 
-def resolve_mode(scene: SceneData, mode: str = "auto") -> str:
+ENGINES = ("auto", "xla", "mxu", "pallas", "mega")
+
+
+def resolve_engine(scene: SceneData, engine: str = "auto") -> str:
+    """The JAX package's engine names on this port.  ``"auto"``, ``"xla"``
+    and ``"pallas"`` all mean the wavefront path through the one
+    hand-written sweep: the port has no second sweep engine, so ``"auto"``
+    resolves to ``"xla"`` and the other two come back as given.  ``"mega"``
+    is the whole-wave megakernel on scenes it supports; on any other scene
+    it falls back to ``"xla"``, as the JAX package does, and says so on
+    stderr.  ``"mxu"`` (the JAX package's chunk-centred XLA sweep, not a
+    kernel) is not ported and raises ``NotImplementedError``."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "mxu":
+        raise NotImplementedError("the chunk-centred 'mxu' sweep engine is "
+                                  "not ported yet")
+    if engine == "mega":
+        if mega_supported(scene):
+            return "mega"
+        print("tpu_ray_torch: engine=mega does not cover this scene (image "
+              "textures, strict mode or more than 512 prims); rendering on "
+              "the wavefront path", file=sys.stderr)
+        return "xla"
+    return "xla" if engine == "auto" else engine
+
+
+def resolve_mode(scene: SceneData, mode: str = "auto",
+                 engine: str = "auto") -> str:
     """``"auto"`` -> the work queue for scenes of more than 512 prims, the
     pool otherwise.  A pool request for a bigger scene is demoted to the
     queue and announced on stderr: the pool's plan above 512 prims is a
     set of lane caps of one TPU worker that key the noise, which this port
-    does not carry."""
+    does not carry.  A queue request with the megakernel engine (on a scene
+    it supports) is demoted to the pool, where the megakernel runs, and
+    announced too.  ``mode="wave"`` keeps the plain wavefront whatever the
+    engine, as in the JAX package."""
     if mode not in ("auto", "pool", "queue", "wave"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "auto":
-        return "queue" if scene.n_prims > QUEUE_MIN_PRIMS else "pool"
-    if mode == "pool" and scene.n_prims > QUEUE_MIN_PRIMS:
+        mode = "queue" if scene.n_prims > QUEUE_MIN_PRIMS else "pool"
+    elif mode == "pool" and scene.n_prims > QUEUE_MIN_PRIMS:
         print(f"tpu_ray_torch: demoting mode=pool to the work queue: "
               f"{scene.n_prims} prims (pool mode renders up to "
               f"{QUEUE_MIN_PRIMS})", file=sys.stderr)
         return "queue"
+    if mode == "queue" and resolve_engine(scene, engine) == "mega":
+        print("tpu_ray_torch: demoting mode=queue to the wave pool: the "
+              "megakernel runs on the pool integrator", file=sys.stderr)
+        return "pool"
     return mode
 
 
@@ -237,11 +276,13 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
            rr_depth: int = 0, device=None, progress: bool = False,
            mode: str = "auto", bvh=False, mesh=None, adaptive: float = 0.0,
            checkpoint_path=None, on_partial=None,
-           sort: bool | None = None) -> np.ndarray:
+           sort: bool | None = None, engine: str = "auto") -> np.ndarray:
     """Render to a linear (H, W, 3) float32 image (mean over spp samples).
 
     ``mode``: "auto" (the work queue above 512 prims, else the pool),
-    "pool", "queue" or "wave".  ``sort`` sends the closest-hit sweep
+    "pool", "queue" or "wave".  ``engine``: "auto", "xla" or "pallas" for
+    the wavefront kernels, "mega" for one megakernel launch per pool wave
+    (:func:`resolve_engine`).  ``sort`` sends the closest-hit sweep
     through the sorted, compacted-list kernel (the same image bit for bit;
     ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  The remaining
     arguments of the JAX ``render`` (BVH traversal, device meshes, adaptive
@@ -256,7 +297,8 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
             raise NotImplementedError(f"{name} is not ported yet (a later "
                                       "slice of the port)")
     check_supported(scene, camera)
-    mode = resolve_mode(scene, mode)
+    engine = resolve_engine(scene, engine)
+    mode = resolve_mode(scene, mode, engine)
     dev = resolve_device(device)
     scene = scene.to(dev)
     if mode == "queue":
@@ -270,6 +312,7 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     xy = pixel_grid(width, height, k_pool, dev)
     sids = slot_ids(width, height, k_pool, dev)
     kern = SceneKernels.create(scene, sort)
+    trace_wave = trace_pool_mega if engine == "mega" else trace_pool_staged
     base_key = rng.prng_key(seed)
     accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
     cfg = StepConfig.create(scene, camera, width, height, max_depth,
@@ -281,8 +324,8 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
             print(f"\rRendering wave {w + 1} of {n_waves}", end="",
                   file=sys.stderr)
         cfg = dataclasses.replace(cfg, sample0=(w * s_wave) & rng.M32)
-        rad, _ = trace_pool_staged(scene, cfg, xy, sids,
-                                   rng.fold_in(base_key, w), kern)
+        rad, _ = trace_wave(scene, cfg, xy, sids, rng.fold_in(base_key, w),
+                            kern)
         accum = film_add(accum, rad, k_pool, height, width)
     img = accum.cpu().numpy()
     if progress:

@@ -2,7 +2,8 @@
 
 The flags of the JAX CLI that this port covers (``--scene``, ``--width``,
 ``--height``, ``--spp``, ``--max-depth``, ``--seed``, ``--out``,
-``--list-scenes``, ``--rr-depth``, ``--mode``) with the same defaults, plus
+``--list-scenes``, ``--rr-depth``, ``--mode``, ``--engine``) with the same
+defaults, plus
 ``--device``: the card by default, ``cpu`` for the plain PyTorch versions.
 The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or as
 a P3 PPM to stdout; progress and "Done." go to stderr.
@@ -38,6 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="integrator: persistent work queue, ray pool with "
                         "regeneration, or plain one-sample wavefront; auto = "
                         "queue for scenes over 512 prims, else pool")
+    p.add_argument("--engine", default="auto",
+                   choices=("auto", "xla", "mxu", "pallas", "mega"),
+                   help="auto / xla / pallas: the wavefront kernels; mega: "
+                        "one whole-wave megakernel launch per pool wave "
+                        "(scenes of at most 512 prims without image "
+                        "textures); mxu is not ported")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain "
                         "PyTorch versions")
@@ -75,7 +82,7 @@ def main(argv=None) -> int:
     img = render(scene, camera, args.width, args.height, args.spp,
                  max_depth=args.max_depth, seed=args.seed,
                  rr_depth=args.rr_depth, device=args.device, progress=True,
-                 mode=args.mode)
+                 mode=args.mode, engine=args.engine)
     elapsed = time.perf_counter() - t_start
     film.write_image(img, None if args.out == "-" else args.out)
     if args.time:

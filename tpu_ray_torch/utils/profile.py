@@ -5,15 +5,21 @@
     python -m tpu_ray_torch.utils.profile --scene next-week-final \\
         --width 400 --height 400 --spp 100 --mode queue
 
-(``TPU_RAY_SORT=1`` in the environment profiles the sorted sweep.)
+    python -m tpu_ray_torch.utils.profile --scene cornell --engine mega
+
+(``TPU_RAY_SORT=1`` in the environment profiles the sorted sweep, with
+``TPU_RAY_CULL_STYLE=mask`` its mask-gated kernel; ``TPU_RAY_SWEEP_MXU=1``
+the matrix-product sphere sweep.)
 
 Builds the kernels, renders once to warm up, then renders again under
 ``torch.profiler`` (CPU + CUDA activities) and prints the wall time, the
 device busy time summed over kernels, the device's idle share
 (1 - busy / wall), each kernel's total time, launches and mean time, and
 the wrappers' launch counts (kernel names cut to 80 characters; only the
-``--top`` kernels by time are printed, all are summed).  The last line is
-the same as one JSON object.  Needs a CUDA device.
+``--top`` kernels by time are printed, all are summed).  With ``--engine
+mega`` it also prints the megakernel's lane-iterations, warp-iterations and
+their ratio over 32 (the share of lane slots that did work).  The last line
+is the same as one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=1024)
     p.add_argument("--mode", default="auto",
                    choices=("auto", "pool", "queue", "wave"))
+    p.add_argument("--engine", default="auto",
+                   choices=("auto", "xla", "pallas", "mega"))
     p.add_argument("--top", type=int, default=12,
                    help="kernels to print, by device time")
     args = p.parse_args(argv)
@@ -51,20 +59,25 @@ def main(argv=None) -> int:
         return 1
 
     from ..models.scenes import SCENES
-    from ..ops import build, hit_scatter, shade, sweep
+    from ..ops import build, hit_scatter, megakernel, shade, sweep
     from ..renderer import render
 
     build.build_all()
     spec = SCENES[args.scene]
     scene = spec.build(seed=args.seed, earth=None)
     cam = spec.camera(args.width, args.height)
-    kw = dict(max_depth=args.max_depth, seed=args.seed, mode=args.mode)
+    kw = dict(max_depth=args.max_depth, seed=args.seed, mode=args.mode,
+              engine=args.engine)
     render(scene, cam, args.width, args.height, args.spp, **kw)   # warm-up
     counters = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
+                "sweep_masked": sweep.sweep_masked,
+                "sweep_sphere_mxu": sweep.sweep_sphere_mxu,
                 "pool_step": shade.pool_step,
-                "hit_scatter": hit_scatter.hit_scatter}
+                "hit_scatter": hit_scatter.hit_scatter,
+                "megakernel": megakernel.trace_pool_mega}
     for fn in counters.values():
         fn.launches = 0
+    megakernel.read_stats("cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -73,6 +86,7 @@ def main(argv=None) -> int:
         render(scene, cam, args.width, args.height, args.spp, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    lane_iters, warp_iters = megakernel.read_stats("cuda")
     kernels = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e):
@@ -81,7 +95,10 @@ def main(argv=None) -> int:
     busy = sum(us for us, _ in kernels.values()) / 1e6
     out = dict(scene=args.scene, width=args.width, height=args.height,
                spp=args.spp, max_depth=args.max_depth, mode=args.mode,
-               sort=sweep.use_sort(),
+               engine=args.engine, sort=sweep.use_sort(),
+               mega_lane_iters=lane_iters, mega_warp_iters=warp_iters,
+               mega_lane_share=(lane_iters / (32.0 * warp_iters)
+                                if warp_iters else None),
                device=torch.cuda.get_device_name(0), wall_s=wall,
                device_busy_s=busy,
                idle_share=(1.0 - busy / wall) if busy else None,
@@ -94,7 +111,8 @@ def main(argv=None) -> int:
                             kernels.items(),
                             key=lambda kv: -kv[1][0])[:args.top]})
     print(f"{args.scene} {args.width}x{args.height} {args.spp} spp "
-          f"mode={args.mode} sort={sweep.use_sort()}: wall {wall:.4f} s (profiled), "
+          f"mode={args.mode} engine={args.engine} sort={sweep.use_sort()}: "
+          f"wall {wall:.4f} s (profiled), "
           f"device busy {busy:.4f} s, {out['n_kernel_launches']} launches")
     for k, v in out["kernels"].items():
         print(f"  {v['total_ms']:10.3f} ms {v['count']:6d} x "
