@@ -10,7 +10,11 @@ unless every phase passes:
    parallel) and print the build seconds and register use;
 3. each kernel against its plain PyTorch version at main-path shapes
    (1M-lane pools), with kernel and plain times from CUDA events: the
-   dense sweep and the pool step as before, the step also on an image
+   dense sweep (also on the first 240k, 60k, 3k and 1 of book1-final's
+   bounce-1 rays, the partly filled pools of the pool path; each size with
+   the rays per thread the wrapper picks, every instantiation held
+   bit-equal to it and timed from a CUDA graph) and the pool step as
+   before, the step also on an image
    scene with a seeded image and at the shape the queue gives it (a 1M-lane
    queue state of next-week-final and of the image scene a few iterations
    in: ``n_samples = 0``, zero ``xy``, hashed path ids as slot ids), where
@@ -26,7 +30,9 @@ unless every phase passes:
    smaller lane counts, 2 samples per slot and depth 8 (equal sample counts,
    the share of diverged lanes bounded), and timed alone on the full-depth
    waves of phase 5 with its lane-iterations, its warp-iterations and its
-   operation bound; the mask-gated sweep on next-week-final's sorted rays
+   operation bound, each wave launched persistent and at one thread per
+   slot (the two bit-equal, with both times, shares and the registers);
+   the mask-gated sweep on next-week-final's sorted rays
    against its plain version and bit-equal to the dense kernel, with the
    mask's build time and the skipped share; the matrix-product sphere sweep
    on book1-final against its plain version and against the dense kernel;
@@ -122,6 +128,28 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per launch of the kernel wrapper ``fn``: ``reps``
+    launches captured in a CUDA graph and replayed back to back (after a
+    warm-up call and a warm-up replay), so the host's per-launch work, which
+    exceeds a short kernel's time, does not pace the card."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def box_grid():
     """The 20 x 20 grid of ground boxes of next-week-final (a scene of 400
     solid boxes under its camera): the sweep's box range at main-path
@@ -188,15 +216,11 @@ def sweep_flops(scene, R: int) -> float:
     return float(R) * per_ray
 
 
-def check_sweep(name, width, height, spp, iters):
-    """Sweep kernel vs sweep_plain on one full-width pool's rays."""
-    scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
-    rays = st.fstate[:7]
-    ranges = sweep._ranges(scene)
-    bt, bi = sweep.sweep(rays, kern.geo, ranges, scene.t_min)
-    pt, pi = sweep.sweep_plain(rays, kern.geo, ranges, scene.t_min)
-    torch.cuda.synchronize()
-    R = rays.shape[1]
+def hold_sweep(what, R, got, plain):
+    """The dense sweep kernel's (t, i) against its plain version's: at most
+    1e-5 of the rays hit the other way, are out of tolerance in t or name
+    another prim (exact ties aside).  Returns the max abs error in t."""
+    (bt, bi), (pt, pi) = got, plain
     hit_k, hit_p = torch.isfinite(bt), torch.isfinite(pt)
     hit_mismatch = int((hit_k != hit_p).sum())
     both = hit_k & hit_p
@@ -206,23 +230,66 @@ def check_sweep(name, width, height, spp, iters):
     idx_diff = both & (bi != pi)
     ties = int((idx_diff & (bt == pt)).sum())
     bad_i = int(idx_diff.sum()) - ties
-    log(f"sweep {name} iters={iters} R={R}: hits {int(hit_k.sum())}, "
+    log(f"sweep {what} R={R}: hits {int(hit_k.sum())}, "
         f"hit mismatches {hit_mismatch}, t max abs err {max_abs:.3e}, "
         f"t out of tol {bad_t}, idx mismatches {bad_i} (+{ties} exact ties)")
     if hit_mismatch > 1e-5 * R or bad_t > 1e-5 * R or bad_i > 1e-5 * R:
-        raise AssertionError(f"sweep kernel disagrees with plain on {name}")
-    ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo, ranges, scene.t_min), 20)
-    plain_ms = cuda_ms(lambda: sweep.sweep_plain(rays, kern.geo, ranges,
-                                                 scene.t_min), 3)
-    nbytes = R * (7 * 4 + 8) + kern.geo.numel() * 4
-    flops = sweep_flops(scene, R)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    log(f"sweep {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=max_abs)
+        raise AssertionError(f"sweep kernel disagrees with plain on {what}")
+    return max_abs
+
+
+def sweep_bound(scene, geo, R):
+    """(bound ms, what binds) of the dense sweep over R rays."""
+    nbytes = R * (7 * 4 + 8) + geo.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sweep_flops(scene, R) / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_sweep(name, width, height, spp, iters, parts=()):
+    """Sweep kernel vs sweep_plain on one full-width pool's rays, and on its
+    first ``parts`` rays (the partly filled pools the pool path launches
+    the sweep on): each size with the rays per thread the wrapper picks
+    and the time of every rays-per-thread instantiation."""
+    scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
+    ranges = sweep._ranges(scene)
+    sms = sweep.sm_count(DEV)
+    out = None
+    for R in (st.fstate.shape[1],) + tuple(parts):
+        rays = st.fstate[:7, :R].contiguous()
+        what = f"{name} iters={iters}"
+        run = lambda rpt: sweep.sweep_launch(rays, kern.geo, ranges,
+                                             scene.t_min, rpt)
+        plain = sweep.sweep_plain(rays, kern.geo, ranges, scene.t_min)
+        got = sweep.sweep(rays, kern.geo, ranges, scene.t_min)
+        max_abs = hold_sweep(what, R, got, plain)
+        for rpt in (1, 2, 4):    # every instantiation gives the same bits
+            t, i = run(rpt)
+            if not (torch.equal(t, got[0]) and torch.equal(i, got[1])):
+                raise AssertionError(f"sweep at {rpt} rays per thread differs "
+                                     f"on {what} R={R}")
+        rpt = sweep.pick_rpt(R, sms, ranges[3])
+        dense = lambda: sweep.sweep(rays, kern.geo, ranges, scene.t_min)
+        ms = kernel_ms(dense)
+        events_ms = cuda_ms(dense, 20)
+        by_rpt = {k: kernel_ms(lambda: run(k)) for k in (1, 2, 4)}
+        plain_ms = cuda_ms(lambda: sweep.sweep_plain(rays, kern.geo, ranges,
+                                                     scene.t_min), 3)
+        bound_ms, bound_by = sweep_bound(scene, kern.geo, R)
+        log(f"sweep {what} R={R}: kernel {ms:.4f} ms at {rpt} rays/thread "
+            f"(1, 2, 4 rays/thread: {by_rpt[1]:.4f}, {by_rpt[2]:.4f}, "
+            f"{by_rpt[4]:.4f} ms; launched from the host one by one "
+            f"{events_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        got = dict(ms=ms, events_ms=events_ms, rpt=rpt, ms_by_rpt=by_rpt,
+                   bound_ms=bound_ms)
+        if out is None:
+            out = dict(got, plain_ms=plain_ms, bound_by=bound_by,
+                       max_abs_err=max_abs, parts={})
+        else:
+            out["parts"][R] = got
+    return out
 
 
 STEP_TOL = {   # tests/test_shade_pallas.py:68-86
@@ -437,18 +504,15 @@ def check_sweep_compact(name, width, height, spp, iters):
     lists_ms = cuda_ms(lists, 10)
     whole_ms = cuda_ms(lambda: sweep.sweep_sorted(rays, kern.geo, blocks,
                                                   t_min), 10)
-    nbytes = R * (7 * 4 + 8) + kern.geo.numel() * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sweep_flops(scene, R) / FP32_FLOPS_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_ms, bound_by = sweep_bound(scene, kern.geo, R)
     log(f"sweep_compact {name}: kernel {ms:.4f} ms (un-permute in its "
         f"stores), dense kernel {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"sort (key, sort, gather) {sort_ms:.4f} ms, tile lists "
         f"{lists_ms:.4f} ms, whole sorted sweep {whole_ms:.4f} ms, dense "
         f"bound {bound_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=max_abs, dense_ms=dense_ms, sort_ms=sort_ms,
+                bound_by=bound_by, max_abs_err=max_abs, dense_ms=dense_ms,
+                sort_ms=sort_ms,
                 lists_ms=lists_ms, whole_sorted_ms=whole_ms, skip_share=skip)
 
 
@@ -578,20 +642,32 @@ def mega_wave(name, width, height, spp, depth, plan=None):
             rng.fold_in(rng.prng_key(SEED), 0), kern)
 
 
-def time_mega(what, args):
+def mega_registers() -> str:
+    """ptxas's register line for the megakernel, from phase 2's build."""
+    for line in build.build_log.get("megakernel", "").splitlines():
+        if "registers" in line:
+            return line.split("info    :")[-1].strip()
+    return "not in the build log (library reused)"
+
+
+def time_mega(what, args, threads=None):
     """One timed megakernel launch (after a warm-up launch) with the
     iterations it counted: ms, bound and the share of lane slots that
-    worked, and the launch's (radiance, sample counts).  The bound counts
-    what this wave did: its lane-iterations, each a sweep over every solid
-    prim plus one pool step."""
+    worked, and the launch's (radiance, sample counts).  ``threads``: the
+    launch's thread count (one per slot: the slot count); persistent when
+    omitted.  The bound counts what this wave did: its slot-iterations,
+    each a sweep over every solid prim plus one pool step."""
     scene, _, _, slot = args[:4]
     R = slot.shape[0]
-    megakernel.trace_pool_mega(*args)
+    if threads is None:
+        threads = megakernel.persistent_threads(DEV)
+    launch = lambda: megakernel.launch_mega(*args, threads)
+    launch()
     megakernel.read_stats(DEV)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    result = megakernel.trace_pool_mega(*args)
+    result = launch()
     t1.record()
     torch.cuda.synchronize()
     ms = t0.elapsed_time(t1)
@@ -601,14 +677,33 @@ def time_mega(what, args):
     t_bytes = R * megakernel.BYTES_PER_LANE / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
     share = lane_iters / (32.0 * warp_iters)
-    log(f"megakernel {what} R={R}: {ms:.3f} ms, {lane_iters} lane-iterations "
-        f"({lane_iters / R:.2f} per lane), {warp_iters} warp-iterations, "
-        f"working share of lane slots {share:.4f}, bound {bound_ms:.4f} ms "
+    log(f"megakernel {what} R={R} threads={min(threads, R)}: {ms:.3f} ms, "
+        f"{lane_iters} lane-iterations ({lane_iters / R:.2f} per slot), "
+        f"{warp_iters} warp-iterations, working share of lane slots "
+        f"{share:.4f}, bound {bound_ms:.4f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
     return dict(ms=ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 lane_iters=lane_iters, warp_iters=warp_iters,
-                lane_share=share), result
+                lane_share=share, threads=min(threads, R)), result
+
+
+def mega_schedules(what, args):
+    """The megakernel persistent and at one thread per slot on the same
+    wave: the two must give the same bits and count the same
+    slot-iterations.  Returns the persistent launch's numbers (with the
+    other's under ``per_slot``) and its result."""
+    out, res = time_mega(what, args)
+    one, res1 = time_mega(what, args, threads=args[3].shape[0])
+    same = torch.equal(res[0], res1[0]) and torch.equal(res[1], res1[1])
+    log(f"megakernel {what}: persistent {out['ms']:.3f} ms (share "
+        f"{out['lane_share']:.4f}), one thread per slot {one['ms']:.3f} ms "
+        f"(share {one['lane_share']:.4f}), bit-equal {same}; "
+        f"{mega_registers()}")
+    if not same or out["lane_iters"] != one["lane_iters"]:
+        raise AssertionError(f"megakernel schedules differ on {what}")
+    out["per_slot"] = one
+    return out, res
 
 
 def check_mega(name, width, height, depth):
@@ -616,12 +711,13 @@ def check_mega(name, width, height, depth):
     pixel and 2 samples per slot: equal sample
     counts; at most 3% of lanes diverged (a coin flipped at an ulp moves a
     whole path; in the media ``logf`` differs from ``torch.log`` by ulps),
-    the rest within rtol 2e-4 / atol 1e-4."""
+    the rest within rtol 2e-4 / atol 1e-4.  The persistent launch and one
+    thread per slot are held bit-equal first."""
     args = mega_wave(name, width, height, 8, depth, plan=(4, 2))
     cfg, slot = args[1], args[3]
     R = slot.shape[0]
     what = f"{name} {cfg.n_samples} samples/slot depth {depth}"
-    out, (a, a_ns) = time_mega(what, args)
+    out, (a, a_ns) = mega_schedules(what, args)
     t0 = time.perf_counter()
     b, b_ns = megakernel.trace_pool_mega_plain(*args)
     torch.cuda.synchronize()
@@ -774,7 +870,8 @@ def main() -> int:
     sw = check_sweep("cornell", 500, 500, 64, 0)
     check_sweep("cornell", 500, 500, 64, 1)
     check_sweep("book1-final", 600, 400, 16, 0)
-    sw_book1 = check_sweep("book1-final", 600, 400, 16, 1)
+    sw_book1 = check_sweep("book1-final", 600, 400, 16, 1,
+                           parts=(240000, 60000, 3000, 1))
     check_sweep("cornell-smoke", 500, 500, 64, 2)
     sw_box = check_sweep("box-grid", 1000, 1000, 1, 1)
     sw_nw = check_sweep("next-week-final", 1000, 1000, 1, 1)
@@ -795,8 +892,8 @@ def main() -> int:
     mg_smoke = check_mega("cornell-smoke", 250, 250, 8)
     mg_perlin = check_mega("two-perlin-spheres", 250, 250, 8)
     mg_book1 = check_mega("book1-final", 300, 200, 8)
-    mg_full = {name: time_mega(f"{name} {w}x{h} {spp} spp depth 50",
-                               mega_wave(name, w, h, spp, 50))[0]
+    mg_full = {name: mega_schedules(f"{name} {w}x{h} {spp} spp depth 50",
+                                    mega_wave(name, w, h, spp, 50))[0]
                for name, w, h, spp in MEGA_FULL}
     sm_nw = check_sweep_masked("next-week-final", 1000, 1000, 1, 1)
     mx_book1 = check_sweep_mxu("book1-final", 600, 400, 16, 1)

@@ -250,6 +250,31 @@ def test_sweep_masked_kernel_bit_equal_to_dense(card, n):
     assert torch.equal(st, dt) and torch.equal(si[hit], di[hit])
 
 
+@pytest.mark.parametrize("n", [1, 255, 257, 4097, 65537])
+def test_sweep_kernel_every_rays_per_thread(card, n):
+    """Each rays-per-thread instantiation of the dense kernel, ragged edges
+    included: bit-equal to the compacted sweep (the same pair math) and
+    within the plain version's tolerance."""
+    ps = _mixed_scene().to(card)
+    rays = _scattered_and_coherent_rays(card, n)
+    geo, ranges, blocks = sw.sweep_table(ps), sw._ranges(ps), \
+        sw.sweep_blocks(ps)
+    ct, ci = sw.sweep_sorted(rays, geo, blocks, ps.t_min)
+    pt, pi = sw.sweep_plain(rays, geo, ranges, ps.t_min)
+    hit = torch.isfinite(pt)
+    assert n < 4097 or int(hit.sum()) > n // 8
+    for rpt in (1, 2, 4):
+        launches = sw.sweep.launches
+        t, i = sw.sweep_launch(rays, geo, ranges, ps.t_min, rpt)
+        assert sw.sweep.launches == launches + 1
+        assert torch.equal(t, ct) and torch.equal(i[hit], ci[hit])
+        assert torch.equal(torch.isfinite(t), hit)
+        assert torch.equal(i[hit], pi[hit])
+        torch.testing.assert_close(t[hit], pt[hit], rtol=2e-5, atol=0)
+    with pytest.raises(ValueError):
+        sw.sweep_launch(rays, geo, ranges, ps.t_min, 3)
+
+
 def test_sweep_mxu_kernel_matches_plain_and_dense(card):
     """More spheres than one shared-memory chunk; the kernel follows its
     plain version's operations, and both the dense sweep to the expansion's
@@ -313,6 +338,31 @@ def test_megakernel_matches_plain(card, name):
     close = (err < 1e-4).all(axis=-1)
     assert 1.0 - close.mean() <= 0.03
     np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell-smoke", "book1-final"])
+def test_megakernel_persistent_bit_equal_to_one_thread_per_slot(card, name):
+    """The slot queue changes no bit: the persistent launch, one thread per
+    slot and one block of 256 threads (16 slots a thread) give the same
+    radiance and sample counts, and count the same slot-iterations."""
+    W, H, K = 64, 32, 2
+    spec, ps = _build(name, card)
+    cfg = shade.StepConfig.create(ps, spec.camera(W, H), W, H, 8, rr_depth=3,
+                                  n_samples=3, sample0=5, cam_salt=7)
+    xy, slot = pixel_grid(W, H, K, card), slot_ids(W, H, K, card)
+    key = rng.fold_in(rng.prng_key(11), 2)
+    R = slot.shape[0]
+    mega.read_stats(card)
+    a, a_ns = mega.trace_pool_mega(ps, cfg, xy, slot, key)
+    lanes_a, _ = mega.read_stats(card)
+    for threads in (R, 256):
+        launches = mega.trace_pool_mega.launches
+        b, b_ns = mega.launch_mega(ps, cfg, xy, slot, key, None, threads)
+        assert mega.trace_pool_mega.launches == launches + 1
+        lanes_b, trips_b = mega.read_stats(card)
+        assert torch.equal(a, b) and torch.equal(a_ns, b_ns)
+        assert lanes_b == lanes_a and lanes_b <= 32 * trips_b
+    assert int((a_ns != 3).sum()) == 0 and bool(torch.isfinite(a).all())
 
 
 @pytest.mark.parametrize("name", ["cornell", "cornell-smoke"])

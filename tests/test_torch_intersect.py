@@ -192,4 +192,28 @@ def test_sweep_wrapper_takes_plain_path_on_cpu_only():
     with pytest.raises(ValueError):
         sw.sweep(rays.T.contiguous(), sw.sweep_table(ps), sw._ranges(ps),
                  ps.t_min)
+    with pytest.raises(ValueError, match="CUDA"):      # no plain fallback
+        sw.sweep_launch(rays, sw.sweep_table(ps), sw._ranges(ps), ps.t_min, 1)
+    assert sw.sweep.launches == before[0]
+
+
+@pytest.mark.parametrize("sms", [1, 78, 132])
+@pytest.mark.parametrize("n_solid", [13, 485])
+def test_pick_rpt_fills_every_sm_before_it_packs_rays(sms, n_solid):
+    """Rays per thread of the dense kernel: 1 until the grid would give
+    every SM FILL_THREADS threads at 2, then 2, then 4 where the scene has
+    PACK_PRIMS solid prims or more; never fewer threads per SM than that."""
+    full = sw.FILL_THREADS * sms
+    top = 4 if n_solid >= sw.PACK_PRIMS else 2
+    picks = {R: sw.pick_rpt(R, sms, n_solid)
+             for R in (1, 255, full - 1, 2 * full - 1, 2 * full,
+                       4 * full - 1, 4 * full, 10 ** 7)}
+    assert picks[1] == picks[255] == picks[full - 1] == 1
+    assert picks[2 * full - 1] == 1 and picks[2 * full] == 2
+    assert picks[4 * full - 1] == 2
+    assert picks[4 * full] == picks[10 ** 7] == top
+    for R, rpt in picks.items():
+        assert rpt in (1, 2, 4) and (rpt == 1 or R // rpt >= full)
+    assert sw.pick_rpt(10 ** 7, sms, sw.PACK_PRIMS - 1) == 2
+    assert sw.pick_rpt(10 ** 7, sms, sw.PACK_PRIMS) == 4
 

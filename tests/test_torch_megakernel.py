@@ -113,6 +113,27 @@ def test_mega_plain_matches_the_ports_wavefront_pool(name):
     _agree(a, b, a_ns, b_ns)
 
 
+@pytest.mark.parametrize("name", ["cornell", "cornell-smoke"])
+def test_mega_plain_lane_results_follow_their_slots(name):
+    """The invariant the persistent megakernel rests on: a lane's result is
+    a function of its (xy, slot id), not of its position, so the same wave
+    with its lanes permuted gives the same bits, permuted."""
+    spec = SCENES[name]
+    scene = spec.build(seed=1024, earth=None)
+    cfg = StepConfig.create(scene, spec.camera(W, H), W, H, 6, n_samples=3,
+                            sample0=2, cam_salt=9)
+    xs, ys = _grid()
+    xy = torch.from_numpy(np.stack([xs, ys]))
+    slot = torch.arange(W * H, dtype=torch.int32)
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(W * H))
+    key = rng.prng_key(5)
+    a, a_ns = mega.trace_pool_mega_plain(scene, cfg, xy, slot, key)
+    b, b_ns = mega.trace_pool_mega_plain(scene, cfg, xy[:, perm].contiguous(),
+                                         slot[perm].contiguous(), key)
+    assert torch.equal(b, a[:, perm]) and torch.equal(b_ns, a_ns[perm])
+    assert (a_ns == 3).all() and a.any()
+
+
 def test_mega_depth_zero_and_input_checks():
     spec = SCENES["cornell"]
     scene = spec.build(seed=1024)
@@ -128,6 +149,21 @@ def test_mega_depth_zero_and_input_checks():
     big = SCENES["next-week-final"].build(seed=1024, earth=None)
     with pytest.raises(ValueError, match="scope"):
         trace_pool_mega(big, cfg, xy, slot, rng.prng_key(1))
+
+
+@pytest.mark.parametrize("threads", [1, 8, 256])
+def test_launch_mega_takes_cuda_tensors_only(threads):
+    """The kernel's launch at any thread count has no plain fallback: on
+    CPU tensors it raises and counts no launch."""
+    spec = SCENES["cornell"]
+    scene = spec.build(seed=1024)
+    cfg = StepConfig.create(scene, spec.camera(W, H), W, H, 4, n_samples=2)
+    xy = torch.zeros((2, 8))
+    slot = torch.arange(8, dtype=torch.int32)
+    launches = mega.trace_pool_mega.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        mega.launch_mega(scene, cfg, xy, slot, rng.prng_key(1), None, threads)
+    assert mega.trace_pool_mega.launches == launches
 
 
 def test_key_table_is_the_jax_megakernels():

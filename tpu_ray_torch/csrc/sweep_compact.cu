@@ -46,7 +46,7 @@ sweep_compact_kernel(const float* __restrict__ rays, long long R,
                      const int* __restrict__ lst, int n_blocks, float t_min,
                      const long long* __restrict__ perm,
                      float* __restrict__ out_t, int* __restrict__ out_i) {
-  __shared__ float sg[PBLK * ROW];
+  __shared__ __align__(16) float sg[PBLK * ROW];
   const long long tile = blockIdx.x;
   const long long i = tile * TILE_R + threadIdx.x;
   const bool live = i < R;

@@ -133,9 +133,10 @@ def _card(device) -> int:
 
 def read_stats(device, reset: bool = True):
     """(lane-iterations, warp-iterations) the kernel has counted on
-    ``device`` since the last reset: the iterations of all lanes, and of
-    all warps (a warp lasts as long as its longest lane).  Their ratio over
-    32 is the share of lane slots that did work.  Waits for the device."""
+    ``device`` since the last reset: the iterations of all slots, and the
+    loop trips of all warps (a trip in which any lane of the warp
+    iterates).  Their ratio over 32 is the share of lane slots that did
+    work.  Waits for the device."""
     st = _stats.get(_card(device))
     if st is None:
         return 0, 0
@@ -143,6 +144,26 @@ def read_stats(device, reset: bool = True):
     if reset:
         st.zero_()
     return lanes, warps
+
+
+def persistent_threads(device) -> int:
+    """Threads the card ``device`` holds at once in the megakernel
+    (resident blocks per SM x SMs x block size, from the CUDA occupancy
+    calculator): the persistent launch's thread count (cached)."""
+    card = _card(device)
+    n = _threads.get(card)
+    if n is None:
+        fn = load_fn("megakernel", "tr_megakernel_threads", [])
+        fn.restype = ctypes.c_longlong
+        with torch.cuda.device(card):
+            n = int(fn())
+        if n <= 0:
+            raise RuntimeError("megakernel: the occupancy query failed")
+        _threads[card] = n
+    return n
+
+
+_threads: dict = {}   # card index -> persistent thread count
 
 
 def trace_pool_mega(scene: SceneData, cfg: StepConfig, xy, slot, k_loop,
@@ -156,10 +177,28 @@ def trace_pool_mega(scene: SceneData, cfg: StepConfig, xy, slot, k_loop,
     ids; ``kern``: the render's ``SceneKernels`` (only its prim table and
     media rows are read; built from the scene when omitted).  Returns
     (accum (3, R) summed radiance, samples done (R,) int32).  The CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, launched persistent (:func:`persistent_threads`
+    threads take the slots from a queue), the plain version for CPU
+    tensors."""
     if not slot.is_cuda:
         return trace_pool_mega_plain(scene, cfg, xy, slot, k_loop, kern)
+    return launch_mega(scene, cfg, xy, slot, k_loop, kern,
+                       persistent_threads(slot.device))
+
+
+trace_pool_mega.launches = 0
+
+
+def launch_mega(scene: SceneData, cfg: StepConfig, xy, slot, k_loop, kern,
+                threads: int):
+    """The megakernel on CUDA tensors with ``threads`` threads (at most one
+    per slot; whole blocks): fewer than the slots take them from a queue,
+    one per slot runs each slot on its own thread.  Every thread count gives
+    the same bits.  Arguments and result as :func:`trace_pool_mega`; counts
+    into ``trace_pool_mega.launches``."""
     _check(scene, cfg, xy, slot)
+    if not slot.is_cuda:
+        raise ValueError("the megakernel takes CUDA tensors")
     R = slot.shape[0]
     dev = slot.device
     if cfg.max_depth <= 0:
@@ -175,23 +214,21 @@ def trace_pool_mega(scene: SceneData, cfg: StepConfig, xy, slot, k_loop,
     if stats is None:
         stats = _stats[_card(dev)] = torch.zeros((2,), dtype=torch.int64,
                                                  device=dev)
+    nxt = torch.zeros((1,), dtype=torch.int64, device=dev)   # slot queue
     accum = torch.empty((3, R), dtype=torch.float32, device=dev)
     sample = torch.empty((R,), dtype=torch.int32, device=dev)
     fn = load_fn("megakernel", "tr_megakernel",
                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
-                 + [ctypes.c_longlong, ctypes.c_void_p])
+                 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
+                 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
     n_ss, n_s, n_sb, n_solid = _ranges(scene)
     params = _params(cfg, (0, 0), False)
     err = fn(xy.data_ptr(), slot.data_ptr(), geo.data_ptr(), n_ss, n_s, n_sb,
              n_solid, scene.n_prims, keys.data_ptr(), iter_cap,
              *table_ptrs(cfg), params.ctypes.data, accum.data_ptr(),
-             sample.data_ptr(), stats.data_ptr(), R,
-             torch.cuda.current_stream(dev).cuda_stream)
+             sample.data_ptr(), stats.data_ptr(), nxt.data_ptr(), R,
+             int(threads), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed (cudaError {err})")
     trace_pool_mega.launches += 1
     return accum, sample
-
-
-trace_pool_mega.launches = 0

@@ -55,6 +55,8 @@ ROW = 16
 INF = float("inf")
 RAY_CHUNK = 1 << 16       # plain version: rays per (R, C) temporary block
 PBLK = 128                # prim rows per block of the compacted sweep
+FILL_THREADS = 512        # dense sweep: threads per SM before rays per thread
+PACK_PRIMS = 32           # dense sweep: solid prims before 4 rays per thread
 TILE_R = 256              # rays per tile of the compacted sweep
 KINDS = ("sphere", "moving", "box", "quad")
 
@@ -184,32 +186,65 @@ def sweep_plain(rays: torch.Tensor, geo: torch.Tensor, ranges, t_min: float):
 sweep_plain.calls = 0
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pick_rpt(R: int, sms: int, n_solid: int) -> int:
+    """Rays per thread of the dense sweep kernel for an R-ray launch over
+    ``n_solid`` prims on a card of ``sms`` SMs: the most of 4 and 2 that
+    still gives every SM ``FILL_THREADS`` threads, else 1 (partly filled
+    pools keep more warps in flight at one ray a thread).  4 only from
+    ``PACK_PRIMS`` prims on: below ~30 pair tests a ray's 36 bytes take
+    longer than its operations (3.35 TB/s against 67 TFLOP/s), and the
+    registers of four rays cost more warps than the shared reads save.
+    Every choice gives the same bits."""
+    for rpt in (4, 2) if n_solid >= PACK_PRIMS else (2,):
+        if R >= rpt * FILL_THREADS * sms:
+            return rpt
+    return 1
+
+
 def sweep(rays: torch.Tensor, geo: torch.Tensor, ranges, t_min: float):
-    """Closest solid hit of every ray: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  Returns (best_t, best_i)."""
+    """Closest solid hit of every ray: the CUDA kernel for CUDA tensors
+    (rays per thread by :func:`pick_rpt`), the plain version for CPU
+    tensors.  Returns (best_t, best_i)."""
     if not rays.is_cuda:
         return sweep_plain(rays, geo, ranges, t_min)
+    return sweep_launch(rays, geo, ranges, t_min,
+                        pick_rpt(rays.shape[1], sm_count(rays.device),
+                                 ranges[3]))
+
+
+sweep.launches = 0
+
+
+def sweep_launch(rays: torch.Tensor, geo: torch.Tensor, ranges,
+                 t_min: float, rpt: int):
+    """The dense sweep kernel at ``rpt`` rays per thread (1, 2 or 4) on
+    CUDA tensors; counts into ``sweep.launches``.  Returns (best_t,
+    best_i)."""
     _check(rays, geo)
-    if not geo.is_cuda:
-        raise ValueError("prim table must be on the rays' device")
+    if not rays.is_cuda or not geo.is_cuda:
+        raise ValueError("the sweep kernel takes CUDA tensors on one device")
+    if rpt not in (1, 2, 4):
+        raise ValueError(f"rays per thread must be 1, 2 or 4, not {rpt}")
     fn = load_fn("sweep", "tr_sweep", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     R = rays.shape[1]
     best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
     best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
     n_ss, n_s, n_sb, n_solid = ranges
     err = fn(rays.data_ptr(), R, geo.data_ptr(), n_ss, n_s, n_sb, n_solid,
              float(np.float32(t_min)), best_t.data_ptr(), best_i.data_ptr(),
-             torch.cuda.current_stream(rays.device).cuda_stream)
+             rpt, torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed (cudaError {err})")
     sweep.launches += 1
     return best_t, best_i
-
-
-sweep.launches = 0
 
 
 # --- the sorted, compacted-list sweep ---------------------------------------
