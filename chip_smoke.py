@@ -2,12 +2,13 @@
 
 Drives ``tpu_ray_torch``'s paths (the pool renderer with the wavefront
 kernels and with the whole-wave megakernel, the work-queue renderer and the
-plain wavefront) through its seven CUDA kernels at full width, and fails
+plain wavefront) through its eight CUDA kernels at full width, and fails
 unless every phase passes:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit;
 2. build the five sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
-   parallel) and print the build seconds and register use;
+   parallel) and print the build seconds, the register use and the count of
+   tensor-core (HMMA) instructions in the matrix-product sweep's SASS;
 3. each kernel against its plain PyTorch version at main-path shapes
    (1M-lane pools), with kernel and plain times from CUDA events: the
    dense sweep (also on the first 240k, 60k, 3k and 1 of book1-final's
@@ -20,11 +21,13 @@ unless every phase passes:
    in: ``n_samples = 0``, zero ``xy``, hashed path ids as slot ids), where
    the skip share of the sorted sweep is read again on those later rays;
    ``hit_scatter`` on cornell and
-   two-perlin-spheres; the sorted, compacted-list sweep on next-week-final,
-   book1-final and the 400-box grid against its plain version and against
-   the dense sweep kernel (bit-equal t, no hit or index mismatch), with the
-   share of (tile, block) pairs skipped and the times of the sort and of
-   the tile lists beside the kernel's own; the megakernel against its plain
+   two-perlin-spheres; the list pass (tile lists, needed mask, tile order)
+   equal to its plain twin, and the sorted, compacted-list sweep at each
+   rays-per-thread build on next-week-final, book1-final and the 400-box
+   grid against its plain version and bit-equal to the dense sweep kernel,
+   with the share of (tile, block) pairs listed and culled, both bounds
+   (the dense sweep's, the listed pairs') and the times of the sort, the
+   list pass and the whole sorted sweep; the megakernel against its plain
    version (the uncompacted pool loop on tensors) on one wave of cornell at
    1M lanes and of cornell-smoke, two-perlin-spheres and book1-final at
    smaller lane counts, 2 samples per slot and depth 8 (equal sample counts,
@@ -34,8 +37,10 @@ unless every phase passes:
    slot (the two bit-equal, with both times, shares and the registers);
    the mask-gated sweep on next-week-final's sorted rays
    against its plain version and bit-equal to the dense kernel, with the
-   mask's build time and the skipped share; the matrix-product sphere sweep
-   on book1-final against its plain version and against the dense kernel;
+   card's mask (equal to its plain twin) and its time, and the skipped
+   share; the tensor-core matrix-product sphere sweep on book1-final
+   against its plain version (bit-equal) and against the dense kernel, with
+   the share of pairs it retested and its bound beside the scalar form's;
 4. the eight non-strict golden configs rendered on the card (the image
    scenes with the cyan stand-in they were made with), held to the
    cross-engine criterion against ``tests/goldens/<name>.npy``, and an
@@ -91,6 +96,7 @@ from tpu_ray_torch.renderer import (pick_samples_per_wave, pixel_grid,  # noqa: 
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, fp32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12       # H100 SXM data sheet, dense TF32 tensor cores
 SEED = 1024
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "goldens")
@@ -349,8 +355,8 @@ def check_step_queue(name, width, height, iters, earth=None):
                        st.istate, bt, bi, ks)
     blocks = sweep.sweep_blocks(scene)
     perm = torch.sort(sweep.sort_key(blocks, rays), stable=True).indices
-    cnt, _ = sweep.tile_lists(rays[:, perm].contiguous(), blocks.blo,
-                              blocks.bhi, scene.t_min)
+    cnt = sweep.tile_lists(rays[:, perm].contiguous(), blocks.blo,
+                           blocks.bhi, scene.t_min)[0]
     out["skip_share"] = 1.0 - float(cnt.sum()) / (cnt.numel()
                                                   * blocks.n_blocks)
     log(f"step {what} queue iters={iters}: bounces 0..."
@@ -466,10 +472,33 @@ def hold_sorted_sweep(what, name, R, dense, got, plain):
     return max_abs
 
 
+def listed_flops(scene, blocks, cnt, lst, R) -> float:
+    """Operations of the dense sweep's pair tests over the (tile, block)
+    pairs the lists name, the rays of a short last tile counted as they
+    are."""
+    T, B = lst.shape
+    listed = torch.zeros((T, B), dtype=torch.bool, device=lst.device)
+    ranks = torch.arange(B, device=lst.device)[None, :] < cnt[:, None]
+    listed.scatter_(1, lst.long(), ranks)
+    rays = torch.full((T,), float(sweep.TILE_R), device=lst.device)
+    rays[-1] = R - (T - 1) * sweep.TILE_R
+    per_block = (listed.float() * rays[:, None]).sum(0)          # (B,)
+    desc = blocks.desc.long()
+    flops = torch.tensor([sweep.FLOPS_PER_PAIR[sweep.KINDS[k]]
+                          for k in desc[:, 2].tolist()],
+                         dtype=torch.float32, device=lst.device)
+    return float((per_block * desc[:, 1].float() * flops).sum())
+
+
 def check_sweep_compact(name, width, height, spp, iters):
     """The sorted, compacted-list sweep on one full-width pool's rays: the
-    kernel against the dense sweep kernel (bit-equal) and against its plain
-    version, with the sort's and the lists' times beside the kernel's."""
+    list pass against its plain twin (equal counts and lists), the kernel
+    at each rays-per-thread build, in the list pass's tile order and in
+    natural order, against the dense sweep kernel (bit-equal) and against
+    its plain version, the share of listed pairs the front-to-back cull
+    skipped, and the sort's, the lists' and the whole sorted sweep's times
+    beside the kernel's; two bounds: the dense sweep's and that of the
+    listed pairs."""
     scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
     rays = st.fstate[:7].contiguous()
     ranges = sweep._ranges(scene)
@@ -482,38 +511,82 @@ def check_sweep_compact(name, width, height, spp, iters):
         return perm, rays[:, perm].contiguous()
 
     perm, srays = sort_rays()
-    lists = lambda: sweep.tile_lists(srays, blocks.blo, blocks.bhi, t_min)
-    cnt, lst = lists()
-    skip = 1.0 - float(cnt.sum()) / (cnt.numel() * blocks.n_blocks)
+    box = (srays, blocks.blo, blocks.bhi, t_min)
+    lists = lambda: sweep.tile_lists(*box)
+    cnt, lst, order = lists()
+    cp, lp, op = sweep.tile_lists_plain(*box)
+    natural = torch.arange(cnt.numel(), dtype=torch.int32, device=DEV)
+    # the order: a permutation of the tiles by descending count, as the
+    # plain twin's (equal counts in any order)
+    if not (torch.equal(cnt, cp) and torch.equal(lst, lp)
+            and torch.equal(torch.sort(order).values, natural)
+            and torch.equal(cnt[order.long()], cp[op.long()])):
+        raise AssertionError(f"list pass differs from its plain twin on "
+                             f"{name}")
+    listed_share = float(cnt.sum()) / (cnt.numel() * blocks.n_blocks)
+    rpt = sweep.pick_rpt_compact(R, sweep.sm_count(DEV))
     dt, di = sweep.sweep(rays, kern.geo, ranges, t_min)
-    ct, ci = sweep.sweep_compact(srays, kern.geo, blocks, cnt, lst, t_min,
-                                 perm)
+    stats = torch.zeros(2, dtype=torch.int64, device=DEV)
+    run = lambda k, o=order, s=None: sweep.sweep_compact(
+        srays, kern.geo, blocks, cnt, lst, o, t_min, perm, rpt=k, stats=s)
+    ct, ci = run(rpt, s=stats)
     pt, pi = sweep.sweep_compact_plain(srays, kern.geo, blocks, cnt, lst,
-                                       t_min, perm)
+                                       order, t_min, perm)
     torch.cuda.synchronize()
+    listed, skipped = stats.tolist()
     log(f"sweep_compact {name} iters={iters}: {blocks.n_blocks} blocks, "
-        f"skipped (tile, block) pairs {skip:.4f}")
+        f"list pass equal to its plain twin, listed (tile, block) pairs "
+        f"{listed_share:.4f}, of them skipped by the front-to-back cull "
+        f"{skipped / max(listed, 1):.4f}")
     max_abs = hold_sorted_sweep("sweep_compact", name, R, (dt, di), (ct, ci),
                                 (pt, pi))
-    ms = cuda_ms(lambda: sweep.sweep_compact(srays, kern.geo, blocks, cnt,
-                                             lst, t_min, perm), 20)
-    dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min), 20)
+    for k in (1, 2):              # every build, either order: the same bits
+        for o in (order, natural):
+            t, i = run(k, o)
+            if not (torch.equal(t, ct) and torch.equal(i, ci)):
+                raise AssertionError(f"sweep_compact at {k} rays per thread "
+                                     f"differs on {name}")
+    ms = kernel_ms(lambda: run(rpt))
+    by_rpt = {k: kernel_ms(lambda: run(k)) for k in (1, 2)}
+    unordered_ms = kernel_ms(lambda: run(rpt, natural))
+    dense_ms = kernel_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min))
     plain_ms = cuda_ms(lambda: sweep.sweep_compact_plain(
-        srays, kern.geo, blocks, cnt, lst, t_min, perm), 2)
+        srays, kern.geo, blocks, cnt, lst, order, t_min, perm), 2)
     sort_ms = cuda_ms(sort_rays, 10)
-    lists_ms = cuda_ms(lists, 10)
+    lists_ms = kernel_ms(lists)
+    lists_plain_ms = cuda_ms(lambda: sweep.tile_lists_plain(*box), 10)
     whole_ms = cuda_ms(lambda: sweep.sweep_sorted(rays, kern.geo, blocks,
                                                   t_min), 10)
-    bound_ms, bound_by = sweep_bound(scene, kern.geo, R)
-    log(f"sweep_compact {name}: kernel {ms:.4f} ms (un-permute in its "
-        f"stores), dense kernel {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"sort (key, sort, gather) {sort_ms:.4f} ms, tile lists "
-        f"{lists_ms:.4f} ms, whole sorted sweep {whole_ms:.4f} ms, dense "
-        f"bound {bound_ms:.4f} ms")
+    dense_bound_ms, _ = sweep_bound(scene, kern.geo, R)
+    t_bytes = (R * (7 * 4 + 8 + 8) + kern.geo.numel() * 4
+               + lst.numel() * 4) / HBM_BYTES_PER_S
+    t_ops = listed_flops(scene, blocks, cnt, lst, R) / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    # the list pass: 24 B in per ray, cnt, lst and the order out; ~20
+    # operations per (ray, block) slab test
+    T = cnt.numel()
+    lb = (R * 24 + T * (blocks.n_blocks + 2) * 4) / HBM_BYTES_PER_S
+    lo_ = T * sweep.TILE_R * blocks.n_blocks * 20 / FP32_FLOPS_PER_S
+    lists_bound_ms = 1e3 * max(lb, lo_)
+    log(f"sweep_compact {name}: kernel {ms:.4f} ms at {rpt} rays/thread in "
+        f"the list pass's order (1, 2 rays/thread: {by_rpt[1]:.4f}, "
+        f"{by_rpt[2]:.4f} ms; natural order "
+        f"{unordered_ms:.4f} ms), dense kernel {dense_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, sort (key, sort, gather) {sort_ms:.4f} ms, list "
+        f"pass {lists_ms:.4f} ms (plain {lists_plain_ms:.4f} ms, bound "
+        f"{lists_bound_ms:.4f}), whole sorted sweep {whole_ms:.4f} ms; bound "
+        f"of the listed pairs {bound_ms:.4f} ms, dense bound "
+        f"{dense_bound_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=max_abs, dense_ms=dense_ms,
-                sort_ms=sort_ms,
-                lists_ms=lists_ms, whole_sorted_ms=whole_ms, skip_share=skip)
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                dense_bound_ms=dense_bound_ms, max_abs_err=max_abs,
+                rpt=rpt, ms_by_rpt=by_rpt, unordered_ms=unordered_ms,
+                dense_ms=dense_ms, sort_ms=sort_ms, lists_ms=lists_ms,
+                lists_plain_ms=lists_plain_ms, lists_bound_ms=lists_bound_ms,
+                lists_bound_by="bytes" if lb >= lo_ else "operations",
+                whole_sorted_ms=whole_ms, listed_share=listed_share,
+                skip_share=1.0 - listed_share,
+                cull_skip_share=skipped / max(listed, 1))
 
 
 def check_sweep_masked(name, width, height, spp, iters):
@@ -528,9 +601,12 @@ def check_sweep_masked(name, width, height, spp, iters):
     R = rays.shape[1]
     perm = torch.sort(sweep.sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
-    build_mask = lambda: sweep.needed_mask(srays, blocks.blo, blocks.bhi,
-                                           t_min)
+    box = (srays, blocks.blo, blocks.bhi, t_min)
+    build_mask = lambda: sweep.needed_mask(*box)
     mask = build_mask()
+    if not torch.equal(mask, sweep.needed_mask_plain(*box)):
+        raise AssertionError(f"the list pass's mask differs from its plain "
+                             f"twin on {name}")
     skip = 1.0 - float(mask.sum()) / mask.numel()
     dt, di = sweep.sweep(rays, kern.geo, ranges, t_min)
     mt, mi = sweep.sweep_masked(srays, kern.geo, blocks, mask, t_min, perm)
@@ -546,7 +622,8 @@ def check_sweep_masked(name, width, height, spp, iters):
     dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min), 20)
     plain_ms = cuda_ms(lambda: sweep.sweep_masked_plain(
         srays, kern.geo, blocks, mask, t_min, perm), 2)
-    mask_ms = cuda_ms(build_mask, 10)
+    mask_ms = kernel_ms(build_mask)
+    mask_plain_ms = cuda_ms(lambda: sweep.needed_mask_plain(*box), 10)
     whole_ms = cuda_ms(lambda: sweep.sweep_sorted(rays, kern.geo, blocks,
                                                   t_min, masked=True), 10)
     nbytes = R * (7 * 4 + 8) + kern.geo.numel() * 4 + mask.numel() * 4
@@ -555,19 +632,33 @@ def check_sweep_masked(name, width, height, spp, iters):
     bound_ms = 1e3 * max(t_bytes, t_ops)
     log(f"sweep_masked {name}: kernel {ms:.4f} ms (un-permute in its "
         f"stores), dense kernel {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"needed mask {mask_ms:.4f} ms, whole sorted masked sweep "
+        f"needed mask from the list pass {mask_ms:.4f} ms (plain "
+        f"{mask_plain_ms:.4f} ms), whole sorted masked sweep "
         f"{whole_ms:.4f} ms, dense bound {bound_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=max_abs, dense_ms=dense_ms, mask_ms=mask_ms,
-                whole_sorted_ms=whole_ms, skip_share=skip)
+                mask_plain_ms=mask_plain_ms, whole_sorted_ms=whole_ms,
+                skip_share=skip)
+
+
+def hmma_count() -> int:
+    """HMMA (tensor-core) instructions in the matrix-product sweep's
+    library, from ``cuobjdump -sass``."""
+    so = build._target("sweep_mxu")[1]
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(1 for line in sass.splitlines() if "HMMA" in line)
 
 
 def check_sweep_mxu(name, width, height, spp, iters):
     """The matrix-product sphere sweep over the static spheres of one
-    full-width pool's rays: the kernel against its plain version (the same
-    operations) and against the dense sweep kernel (the classic form: equal
-    hit sets but for grazing rays, t to the expansion's conditioning)."""
+    full-width pool's rays: the tensor-core kernel against its plain
+    version (its discriminant test and roots repeat the plain twin's
+    operations: bit-equal) and against the dense sweep kernel (the classic
+    form: equal hit sets but for grazing rays, t to the expansion's
+    conditioning), with the share of pairs the kernel retested in scalar."""
     scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
     rays = st.fstate[:7].contiguous()
     n_ss = scene.n_sphere_static
@@ -576,16 +667,19 @@ def check_sweep_mxu(name, width, height, spp, iters):
     pack = sweep.mxu_pack(kern.geo, 0, n_ss)
     only = (n_ss, n_ss, n_ss, n_ss)
     args = (rays, kern.geo, 0, n_ss, t_min, pack)
-    mt, mi = sweep.sweep_sphere_mxu(*args)
+    stats = torch.zeros(1, dtype=torch.int64, device=DEV)
+    mt, mi = sweep.sweep_sphere_mxu(*args, stats=stats)
     pt, pi = sweep.sweep_sphere_mxu_plain(*args)
     dt, di = sweep.sweep(rays, kern.geo[:n_ss], only, t_min)
     torch.cuda.synchronize()
+    retest = float(stats.item()) / (R * n_ss)
     hit, hit_p, hit_d = (torch.isfinite(x) for x in (mt, pt, dt))
     both = hit & hit_p
     err = (mt[both] - pt[both]).abs()
     max_abs = float(err.max()) if int(both.sum()) else 0.0
     bad_t = int((err > 1e-6 + 2e-5 * pt[both].abs()).sum())
     bad_i = int((mi[both] != pi[both]).sum())
+    t_bits = int((mt.view(torch.int32) != pt.view(torch.int32)).sum())
     bd = hit & hit_d
     rel = ((mt[bd] - dt[bd]).abs() / dt[bd].abs())
     loose = int((rel > 2e-5).sum())
@@ -594,37 +688,52 @@ def check_sweep_mxu(name, width, height, spp, iters):
     same_i = float((mi[bd] == di[bd]).float().mean())
     log(f"sweep_sphere_mxu {name} iters={iters} R={R}, {n_ss} spheres: hits "
         f"{int(hit.sum())}; vs plain: hit mismatches "
-        f"{int((hit != hit_p).sum())}, t out of tol {bad_t}, idx mismatches "
-        f"{bad_i}, max abs err {max_abs:.3e}; vs dense kernel: hit "
-        f"mismatches {int((hit != hit_d).sum())}, t beyond rtol 2e-5 on "
-        f"{loose} rays, beyond 1e-3 on {looser}, worst rel err "
-        f"{worst_rel:.3e}, same idx {same_i:.6f}")
+        f"{int((hit != hit_p).sum())}, t out of tol {bad_t}, t bit "
+        f"mismatches {t_bits}, idx mismatches {bad_i}, max abs err "
+        f"{max_abs:.3e}; vs dense kernel: hit mismatches "
+        f"{int((hit != hit_d).sum())}, t beyond rtol 2e-5 on {loose} rays, "
+        f"beyond 1e-3 on {looser}, worst rel err {worst_rel:.3e}, same idx "
+        f"{same_i:.6f}; pairs retested in scalar {retest:.5f}")
     if int((hit != hit_p).sum()) > 1e-5 * R or bad_t > 1e-5 * R \
             or bad_i > 1e-5 * R:
         raise AssertionError(f"matrix-product sweep kernel disagrees with "
                              f"plain on {name}")
+    # the kernel retests every pair its filter passes with the plain twin's
+    # operations: a pair the filter dropped wrongly shows as a difference
+    if t_bits or not torch.equal(mi, pi):
+        raise AssertionError(f"matrix-product sweep kernel is not bit-equal "
+                             f"to plain on {name}: {t_bits} t, "
+                             f"{int((mi != pi).sum())} idx")
     # bounced rays start on sphere surfaces, where the expanded quadratic
     # cancels worst: t is held to 1e-3 on all but 1% of the rays
     if int((hit != hit_d).sum()) > 1e-3 * R or same_i < 0.99 \
             or looser > 1e-2 * R:
         raise AssertionError(f"matrix-product sweep is far from the dense "
                              f"sweep on {name}")
-    ms = cuda_ms(lambda: sweep.sweep_sphere_mxu(*args), 20)
+    ms = kernel_ms(lambda: sweep.sweep_sphere_mxu(*args))
     plain_ms = cuda_ms(lambda: sweep.sweep_sphere_mxu_plain(*args), 3)
-    dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo[:n_ss], only,
-                                           t_min), 20)
+    dense_ms = kernel_ms(lambda: sweep.sweep(rays, kern.geo[:n_ss], only,
+                                             t_min))
     pack_ms = cuda_ms(lambda: sweep.mxu_pack(kern.geo, 0, n_ss), 10)
-    nbytes = R * (7 * 4 + 8) + pack.tab.numel() * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = float(R) * n_ss * sweep.FLOPS_PER_PAIR["sphere_mxu"] \
-        / FP32_FLOPS_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
+    pairs = float(R) * n_ss
+    t_bytes = (R * (7 * 4 + 8) + pack.tab.numel() * 4
+               + pack.frag.numel() * 4) / HBM_BYTES_PER_S
+    t_cuda = pairs * sweep.MXU_CUDA_FLOPS / FP32_FLOPS_PER_S
+    t_tensor = pairs * sweep.MXU_TENSOR_FLOPS / TF32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_cuda, t_tensor)
+    bound_by = "bytes" if t_bytes >= max(t_cuda, t_tensor) else "operations"
+    scalar_bound_ms = 1e3 * max(
+        t_bytes, pairs * sweep.FLOPS_PER_PAIR["sphere_mxu"]
+        / FP32_FLOPS_PER_S)
     log(f"sweep_sphere_mxu {name}: kernel {ms:.4f} ms, dense kernel on the "
         f"same range {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, pack (once "
-        f"per render) {pack_ms:.4f} ms, bound {bound_ms:.4f} ms")
+        f"per render) {pack_ms:.4f} ms, bound {bound_ms:.4f} ms (tensor "
+        f"cores {1e3 * t_tensor:.4f}, CUDA cores {1e3 * t_cuda:.4f}; the "
+        f"scalar form's {scalar_bound_ms:.4f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=max_abs, dense_ms=dense_ms,
+                bound_by=bound_by, scalar_bound_ms=scalar_bound_ms,
+                max_abs_err=max_abs, t_bit_mismatches=t_bits,
+                dense_ms=dense_ms, retest_share=retest,
                 worst_rel_err_vs_dense=worst_rel)
 
 
@@ -782,12 +891,15 @@ def check_card_vs_cpu(what, scene, cam, w, h, **kw):
 
 
 COUNTERS = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
+            "list_pass": sweep.list_pass,
             "pool_step": shade.pool_step,
             "hit_scatter": hit_scatter.hit_scatter,
             "megakernel": megakernel.trace_pool_mega,
             "sweep_masked": sweep.sweep_masked,
             "sweep_sphere_mxu": sweep.sweep_sphere_mxu}
 PLAIN = {"sweep": sweep.sweep_plain,
+         "tile_lists": sweep.tile_lists_plain,
+         "needed_mask": sweep.needed_mask_plain,
          "sweep_compact": sweep.sweep_compact_plain,
          "pool_step": shade.pool_step_plain,
          "hit_scatter": hit_scatter.hit_scatter_plain,
@@ -865,6 +977,11 @@ def main() -> int:
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {n}: {line.strip()}")
+    n_hmma = hmma_count()
+    log(f"  sweep_mxu: {n_hmma} HMMA (tensor-core) instructions in its SASS")
+    if n_hmma == 0:
+        raise AssertionError("the matrix-product sweep has no tensor-core "
+                             "instruction")
 
     log("phase 3: kernels vs plain versions at main-path shapes")
     sw = check_sweep("cornell", 500, 500, 64, 0)
@@ -924,7 +1041,8 @@ def main() -> int:
     reset_counts()
     img_s, wall_s, _ = full_width("next-week-final", 400, 400, 100,
                                   mode="queue", sort=True)
-    n_sorted = read_counts("sorted queue", ("sweep_compact", "pool_step"))
+    n_sorted = read_counts("sorted queue", ("sweep_compact", "list_pass",
+                                            "pool_step"))
     log(f"  queue walls: unsorted {wall_q:.3f} s, sorted {wall_s:.3f} s; "
         f"images bit-equal {np.array_equal(img_q, img_s)}")
     if not np.array_equal(img_q, img_s):
@@ -964,7 +1082,8 @@ def main() -> int:
         {"TPU_RAY_CULL_STYLE": "mask"},
         lambda: full_width("next-week-final", 400, 400, 16, mode="queue",
                            sort=True))
-    n_masked = read_counts("masked queue", ("sweep_masked", "pool_step"),
+    n_masked = read_counts("masked queue", ("sweep_masked", "list_pass",
+                                            "pool_step"),
                            ("sweep", "sweep_compact"))
     log(f"  masked queue wall {wall_k:.3f} s; image bit-equal to unsorted "
         f"{np.array_equal(img_u, img_k)}")
@@ -977,6 +1096,11 @@ def main() -> int:
         lambda: full_width("book1-final", 600, 400, 16))
     n_mxu = read_counts("mxu pool", ("sweep_sphere_mxu", "pool_step"))
     same_estimator(img_b, img_x, "book1-final matrix-product sweep vs dense")
+    mean_b, mean_x = float(img_b.mean()), float(img_x.mean())
+    log(f"  book1-final image mean: dense {mean_b:.6f}, matrix-product "
+        f"{mean_x:.6f}, difference {abs(mean_b - mean_x):.2e}")
+    if abs(mean_b - mean_x) > 1e-4:
+        raise AssertionError("the matrix-product render's mean moved")
     log(f"  matrix-product pool wall {wall_x:.3f} s")
     paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
              "wave": n_wave, "mega_pool": n_mega, "masked_queue": n_masked,
@@ -985,7 +1109,19 @@ def main() -> int:
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
 
+    list_keys = ("lists_ms", "lists_plain_ms", "lists_bound_ms",
+                 "lists_bound_by")
     kernels = [
+        dict(name="list_pass", route="cuda",
+             source="tpu_ray_torch/csrc/sweep_compact.cu",
+             replaces="tpu_ray/ops/intersect_pallas.py:462 (_tile_lists) "
+                      "and :401 (_needed_mask), the block lists and mask "
+                      "of the :505 and cull=True kernels",
+             launches=launches["list_pass"],
+             launches_by_path=by_path["list_pass"], library_ms=None,
+             ms=sc_nw["lists_ms"], plain_ms=sc_nw["lists_plain_ms"],
+             bound_ms=sc_nw["lists_bound_ms"],
+             bound_by=sc_nw["lists_bound_by"], max_abs_err=0.0),
         dict(name="sweep", route="cuda", source="tpu_ray_torch/csrc/sweep.cu",
              replaces="tpu_ray/ops/intersect_pallas.py:59 (_sphere_kernel), "
                       ":309 (_box_kernel), :256 (_quad_kernel)",
@@ -1006,7 +1142,7 @@ def main() -> int:
              replaces="tpu_ray/ops/intersect_pallas.py:505 (_compact_kernel)",
              launches=launches["sweep_compact"],
              launches_by_path=by_path["sweep_compact"], library_ms=None,
-             **sc_nw),
+             **{k: v for k, v in sc_nw.items() if k not in list_keys}),
         dict(name="megakernel", route="cuda",
              source="tpu_ray_torch/csrc/megakernel.cu",
              replaces="tpu_ray/ops/megakernel.py:316 (_kernel)",

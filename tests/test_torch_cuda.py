@@ -175,14 +175,15 @@ def test_sweep_compact_kernel_bit_equal_to_dense(card, n):
     dt, di = sw.sweep(rays, geo, ranges, ps.t_min)
     perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
-    cnt, lst = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)
+    cnt, lst, order = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)
     if n > 1000:     # whole tiles of coherent rays skip blocks
         assert int(cnt.sum()) < cnt.numel() * blocks.n_blocks
     launches = sw.sweep_compact.launches
-    ct, ci = sw.sweep_compact(srays, geo, blocks, cnt, lst, ps.t_min, perm)
+    ct, ci = sw.sweep_compact(srays, geo, blocks, cnt, lst, order, ps.t_min,
+                              perm)
     assert sw.sweep_compact.launches == launches + 1
-    pt, pi = sw.sweep_compact_plain(srays, geo, blocks, cnt, lst, ps.t_min,
-                                    perm)
+    pt, pi = sw.sweep_compact_plain(srays, geo, blocks, cnt, lst, order,
+                                    ps.t_min, perm)
     hit = torch.isfinite(dt)
     assert int(hit.sum()) > n // 8
     assert torch.equal(ct, dt) and torch.equal(ci[hit], di[hit])
@@ -273,6 +274,113 @@ def test_sweep_kernel_every_rays_per_thread(card, n):
         torch.testing.assert_close(t[hit], pt[hit], rtol=2e-5, atol=0)
     with pytest.raises(ValueError):
         sw.sweep_launch(rays, geo, ranges, ps.t_min, 3)
+
+
+@pytest.mark.parametrize("n", [77, 256, 1000, 1 << 16])
+def test_list_pass_equals_the_plain_tile_lists(card, n):
+    """The card's list pass against its plain twin (torch on the card) on
+    sorted and unsorted rays: the same counts, lists (whole rows, so
+    lst[:cnt] too) and needed mask; the order is a permutation of the tiles
+    by descending count.  next-week-final's 14 blocks and the mixed scene's
+    7."""
+    for ps in (_mixed_scene().to(card),
+               SCENES["next-week-final"].build(seed=1024).to(card)):
+        rays = _scattered_and_coherent_rays(card, n)
+        blocks = sw.sweep_blocks(ps)
+        perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
+        for x in (rays[:, perm].contiguous(), rays):
+            args = (x, blocks.blo, blocks.bhi, ps.t_min)
+            cp, lp, op = sw.tile_lists_plain(*args)
+            mp = sw.needed_mask_plain(*args)
+            launches = sw.list_pass.launches
+            ck, lk, order = sw.tile_lists(*args)
+            assert sw.list_pass.launches == launches + 1
+            assert torch.equal(ck, cp) and torch.equal(lk, lp)
+            T = ck.numel()
+            assert torch.equal(torch.sort(order).values,
+                               torch.arange(T, dtype=torch.int32,
+                                            device=card))
+            oc = ck[order.long()]
+            assert bool((oc[:-1] >= oc[1:]).all())
+            assert torch.equal(oc, cp[op.long()])
+            assert torch.equal(sw.needed_mask(*args), mp)
+            assert sw.list_pass.launches == launches + 2
+
+
+def _coherent_rays(card, n):
+    r = np.random.default_rng(n + 1)
+    ro = np.float32([-40, 14, 13]) + r.normal(size=(n, 3))
+    rd = np.float32([1, 0, 0]) + 0.02 * r.normal(size=(n, 3))
+    return pack_rays(*(torch.from_numpy(a.astype(np.float32)).to(card)
+                       for a in (ro, rd, r.random(n))))
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097, 1 << 16])
+def test_sweep_compact_every_rays_per_thread_bit_equal_to_dense(card, n):
+    """Each rays-per-thread build of the compacted kernel, in list-pass
+    order and in natural order, with the front-to-back cull always on:
+    (t, i) bit-equal to the dense kernel's on scattered, coherent and
+    ragged rays; the kernel counts the listed pairs and skips some on
+    coherent rays."""
+    ps = _mixed_scene().to(card)
+    geo, ranges, blocks = sw.sweep_table(ps), sw._ranges(ps), \
+        sw.sweep_blocks(ps)
+    for rays in (_scattered_and_coherent_rays(card, n),
+                 _coherent_rays(card, n)):
+        dt, di = sw.sweep(rays, geo, ranges, ps.t_min)
+        perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
+        srays = rays[:, perm].contiguous()
+        cnt, lst, order = sw.tile_lists(srays, blocks.blo, blocks.bhi,
+                                        ps.t_min)
+        natural = torch.arange(cnt.numel(), dtype=torch.int32, device=card)
+        skipped = 0
+        for rpt in (1, 2):
+            for o in (natural, order):
+                stats = torch.zeros(2, dtype=torch.int64, device=card)
+                launches = sw.sweep_compact.launches
+                t, i = sw.sweep_compact(srays, geo, blocks, cnt, lst, o,
+                                        ps.t_min, perm, rpt=rpt,
+                                        stats=stats)
+                assert sw.sweep_compact.launches == launches + 1
+                assert torch.equal(t, dt) and torch.equal(i, di)
+                listed, skip = stats.tolist()
+                assert listed == int(cnt.sum()) and 0 <= skip <= listed
+                skipped = skip
+        st, si = sw.sweep_sorted(rays, geo, blocks, ps.t_min)
+        assert torch.equal(st, dt) and torch.equal(si, di)
+    if n >= 4097:
+        assert skipped > 0                 # coherent tiles cull far blocks
+    for rpt in (3, 4):
+        with pytest.raises(ValueError):
+            sw.sweep_compact(srays, geo, blocks, cnt, lst, order, ps.t_min,
+                             rpt=rpt)
+
+
+@pytest.mark.parametrize("n", [77, 1000, 1 << 16])
+@pytest.mark.parametrize("hi", [13, 301])
+def test_sweep_mxu_tensor_core_kernel_bit_equal_to_plain(card, n, hi):
+    """The tensor cores pick the pairs, the plain twin's operations decide
+    them: (t, i) bit-equal to the plain twin's, with a sphere count that is
+    no multiple of 8 (13, 301: more than one 128-sphere chunk) and ray
+    counts that are no multiple of 16; every pair whose plain discriminant
+    is > 0 is among the retested ones (their count bounds it)."""
+    from tpu_ray_torch.utils import mxu_split_study as study
+
+    ps = _mixed_scene().to(card)
+    geo = sw.sweep_table(ps)
+    rays = _scattered_and_coherent_rays(card, n)
+    pack = sw.mxu_pack(geo, 0, hi)
+    stats = torch.zeros(1, dtype=torch.int64, device=card)
+    t, i = sw.sweep_sphere_mxu(rays, geo, 0, hi, ps.t_min, pack,
+                               stats=stats)
+    tp, ip = sw.sweep_sphere_mxu_plain(rays, geo, 0, hi, ps.t_min, pack)
+    assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    assert torch.equal(i, ip)
+    need = int((study.plain_disc(rays, pack) > 0).sum())
+    retested = int(stats.item())
+    assert need <= retested <= 0.05 * n * hi + need
+    if hi == 301:     # 13 spheres are there for the ragged tile: few hits
+        assert int(torch.isfinite(tp).sum()) > n // 20
 
 
 def test_sweep_mxu_kernel_matches_plain_and_dense(card):

@@ -72,14 +72,94 @@ def test_sort_key_and_tile_lists_bit_equal_to_jax(name):
         np.testing.assert_array_equal(blocks.bhi[b0:b1].numpy(),
                                       np.asarray(bhi))
         cnt_j, lst_j = ip._tile_lists(sro, srd, blo, bhi, float(js.t_min))
-        cnt, lst = sw.tile_lists(srays, blocks.blo[b0:b1], blocks.bhi[b0:b1],
-                                 ps.t_min)
+        cnt, lst, _ = sw.tile_lists(srays, blocks.blo[b0:b1],
+                                    blocks.bhi[b0:b1], ps.t_min)
         np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j)[:, 0])
         np.testing.assert_array_equal(lst.numpy(), np.asarray(lst_j))
         total += cnt.numel() * (b1 - b0)
         skipped += cnt.numel() * (b1 - b0) - int(cnt.sum())
     if name == "next-week-final":
         assert blocks.n_blocks == 14 and skipped > 0.1 * total
+
+
+@pytest.mark.parametrize("n", [77, 1000])
+@pytest.mark.parametrize("name", ["next-week-final", "book1-final"])
+def test_tile_lists_bit_equal_to_jax_at_ragged_ray_counts(name, n):
+    """The reference of the card's list pass at ray counts that leave a
+    short last tile (77: one tile, mostly pad rays), over all blocks at
+    once: the plain twin equals JAX's per kind range and the mask's row
+    sums are the counts."""
+    js, ps = _scenes(name)
+    ro, rd, rt = _rays(name, n=n, seed=n)
+    rays = pack_rays(*(torch.from_numpy(a) for a in (ro, rd, rt)))
+    blocks = sw.sweep_blocks(ps)
+    perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
+    srays = rays[:, perm].contiguous()
+    calls = sw.tile_lists_plain.calls
+    cnt, lst, order = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)
+    assert sw.tile_lists_plain.calls == calls + 1        # CPU: the plain twin
+    T = -(-n // sw.TILE_R)
+    assert cnt.shape == (T,) and lst.shape == (T, blocks.n_blocks)
+    # the launch order: the tiles by descending count
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(T, dtype=torch.int32))
+    assert bool((cnt[order.long()].diff() <= 0).all())
+    pad = T * sw.TILE_R - n
+    sro = jnp.pad(jnp.asarray(ro[perm.numpy()]), ((0, pad), (0, 0)))
+    srd = jnp.pad(jnp.asarray(rd[perm.numpy()]), ((0, pad), (0, 0)),
+                  constant_values=1.0)
+    alo = np.concatenate([np.asarray(ip._block_aabbs(
+        *ip._range_aabbs(js, lo, hi, fl), (-(hi - lo)) % sw.PBLK)[0])
+        for lo, hi, fl in _spans(js) if hi > lo])
+    ahi = np.concatenate([np.asarray(ip._block_aabbs(
+        *ip._range_aabbs(js, lo, hi, fl), (-(hi - lo)) % sw.PBLK)[1])
+        for lo, hi, fl in _spans(js) if hi > lo])
+    cnt_j, lst_j = ip._tile_lists(sro, srd, jnp.asarray(alo),
+                                  jnp.asarray(ahi), float(js.t_min))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j)[:, 0])
+    np.testing.assert_array_equal(lst.numpy(), np.asarray(lst_j))
+    mask = sw.needed_mask(srays, blocks.blo, blocks.bhi, ps.t_min)
+    np.testing.assert_array_equal(mask.sum(1).numpy(), cnt.numpy())
+
+
+def _spans(js):
+    n_sb = js.n_sphere + js.n_box
+    return ((0, js.n_sphere_static, "sphere"),
+            (js.n_sphere_static, js.n_sphere, "sphere"),
+            (js.n_sphere, n_sb, "box"), (n_sb, js.n_solid, "quad"))
+
+
+def test_list_pass_and_compacted_kernel_take_cuda_tensors_only():
+    """No plain fallback: the card's entry points raise on CPU tensors,
+    while the dispatching wrappers take the plain twins there."""
+    ps = mixed_scene()
+    rays = torch.zeros((7, 300))
+    rays[3:6] = 1.0
+    geo, blocks = sw.sweep_table(ps), sw.sweep_blocks(ps)
+    launches = sw.list_pass.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        sw.list_pass(rays, blocks.blo, blocks.bhi, ps.t_min)
+    calls = sw.needed_mask_plain.calls, sw.tile_lists_plain.calls
+    sw.needed_mask(rays, blocks.blo, blocks.bhi, ps.t_min)
+    cnt, lst, order = sw.tile_lists(rays, blocks.blo, blocks.bhi, ps.t_min)
+    assert (sw.needed_mask_plain.calls, sw.tile_lists_plain.calls) == \
+        (calls[0] + 1, calls[1] + 1)
+    assert sw.list_pass.launches == launches
+    # the sweep's options belong to the kernel; on the CPU the plain twin
+    # gives the same result whatever they say
+    a = sw.sweep_compact(rays, geo, blocks, cnt, lst, order, ps.t_min)
+    b = sw.sweep_compact(rays, geo, blocks, cnt, lst, order.flip(0),
+                         ps.t_min, rpt=2)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("sms", [1, 78, 132])
+def test_pick_rpt_compact_fills_every_sm_before_it_packs_rays(sms):
+    full = sw.FILL_THREADS * sms
+    assert sw.pick_rpt_compact(1, sms) == 1
+    assert sw.pick_rpt_compact(2 * full - 1, sms) == 1
+    assert sw.pick_rpt_compact(2 * full, sms) == 2
+    assert sw.pick_rpt_compact(10 ** 7, sms) == 2
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -128,12 +208,13 @@ def test_sweep_compact_all_kinds_any_ray_count(n):
     dt, di = sw.sweep_plain(rays, geo, sw._ranges(ps), ps.t_min)
     perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
-    cnt, lst = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)
+    cnt, lst, order = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)
     if n >= sw.TILE_R:      # a short tile's pad rays cross the whole scene
         assert int(cnt.sum()) < cnt.numel() * blocks.n_blocks  # some skipped
-    st, si = sw.sweep_compact(srays, geo, blocks, cnt, lst, ps.t_min)
+    st, si = sw.sweep_compact(srays, geo, blocks, cnt, lst, order, ps.t_min)
     assert torch.equal(st, dt[perm]) and torch.equal(si, di[perm])
-    ut, ui = sw.sweep_compact(srays, geo, blocks, cnt, lst, ps.t_min, perm)
+    ut, ui = sw.sweep_compact(srays, geo, blocks, cnt, lst, order, ps.t_min,
+                              perm)
     assert torch.equal(ut, dt) and torch.equal(ui, di)
     assert int(torch.isfinite(dt).sum()) > n // 8
 
@@ -169,14 +250,16 @@ def test_sweep_compact_wrapper_checks_its_inputs():
     rays = torch.zeros((7, 300))
     rays[3:6] = 1.0
     geo, blocks = sw.sweep_table(ps), sw.sweep_blocks(ps)
-    cnt, lst = sw.tile_lists(rays, blocks.blo, blocks.bhi, ps.t_min)
+    cnt, lst, order = sw.tile_lists(rays, blocks.blo, blocks.bhi, ps.t_min)
     launches = sw.sweep_compact.launches
-    sw.sweep_compact(rays, geo, blocks, cnt, lst, ps.t_min)
+    sw.sweep_compact(rays, geo, blocks, cnt, lst, order, ps.t_min)
     assert sw.sweep_compact.launches == launches        # CPU: no kernel
     with pytest.raises(ValueError):
-        sw.sweep_compact(rays, geo, blocks, cnt[:1], lst, ps.t_min)
+        sw.sweep_compact(rays, geo, blocks, cnt[:1], lst, order, ps.t_min)
     with pytest.raises(ValueError):
-        sw.sweep_compact(rays, geo, blocks, cnt, lst.long(), ps.t_min)
+        sw.sweep_compact(rays, geo, blocks, cnt, lst.long(), order, ps.t_min)
     with pytest.raises(ValueError):
-        sw.sweep_compact(rays, geo, blocks, cnt, lst, ps.t_min,
+        sw.sweep_compact(rays, geo, blocks, cnt, lst, order[:1], ps.t_min)
+    with pytest.raises(ValueError):
+        sw.sweep_compact(rays, geo, blocks, cnt, lst, order, ps.t_min,
                          torch.arange(300, dtype=torch.int32))

@@ -124,7 +124,7 @@ def test_sweep_masked_all_kinds_any_ray_count(n):
     dt, di = sw.sweep_plain(rays, geo, sw._ranges(ps), ps.t_min)
     perm, srays = _sorted(blocks, rays)
     mask = sw.needed_mask(srays, blocks.blo, blocks.bhi, ps.t_min)
-    cnt, _ = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)
+    cnt = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)[0]
     np.testing.assert_array_equal(mask.sum(1).numpy(), cnt.numpy())
     if n >= sw.TILE_R:
         assert int(mask.sum()) < mask.numel()              # some skipped
@@ -205,11 +205,93 @@ def test_mxu_pack_is_the_jax_packing_and_is_checked():
     # rounding of the two terms, not of their difference
     assert (np.abs(pack.tab[:, 3].numpy() - (c2 - r * r))
             <= 4e-7 * (c2 + r * r) + 1e-6).all()
+    # -2c' is exactly -2 x the c' column, as JAX's c2 rows
+    # (intersect_pallas.py:203-210); the last column is 0
+    assert torch.equal(pack.tab[:, 4:7], -2.0 * pack.tab[:, 0:3])
+    assert not pack.tab[:, 7].any()
+    # the tensor cores' side: per sphere the margin's bounds, per lane the
+    # TF32 split (hi has 13 low bits 0; hi + lo is x to 2^-21 relative)
+    assert torch.equal(pack.bound[:, 0], pack.tab[:, 0:3].norm(dim=1))
+    assert torch.equal(pack.bound[:, 1], pack.tab[:, 3].abs())
+    G = -(-n // 8)
+    assert pack.frag.shape == (G, 32, 8)
+    f = pack.frag.reshape(8 * G, 4, 8)
+    assert not f[n:].any()                              # no sphere past n
+    for h, lo_, x in ((f[:n, :, 0], f[:n, :, 1], torch.cat([
+            pack.tab[:, 4:7], (pack.tab[:, 3] - sw.MXU_MARGIN * (
+                pack.bound[:, 0] ** 2 + pack.bound[:, 1]))[:, None]], 1)),
+                      (f[:n, :, 4], f[:n, :, 5], torch.cat([
+                          pack.tab[:, 0:3], -torch.ones(n, 1)], 1))):
+        assert not (h.view(torch.int32) & 0x1FFF).any()
+        assert not (lo_.view(torch.int32) & 0x1FFF).any()
+        assert ((h.double() + lo_.double() - x.double()).abs()
+                <= 2.0 ** -21 * x.double().abs()).all()
+    assert torch.equal(f[:n, :2, 2], torch.ones(n, 2))
+    assert (f[:n, 2, 2] == -sw.MXU_MARGIN).all()
+    assert torch.equal(f[:n, 3, 2],
+                       sw.tf32_round(-2.0 * sw.MXU_MARGIN * pack.bound[:, 0]))
+    # the plain twin reads -2c' from the pack and gives the bits of the
+    # form it had before the pack carried the column
     rays = _cone_rays(64)
+    t, i = sw.sweep_sphere_mxu_plain(rays, geo, 0, n, ps.t_min, pack)
+    c = pack.tab.T[:, None, :]
+    dx, dy, dz = (rays[3 + j][:, None] for j in range(3))
+    ox, oy, oz = (rays[j][:, None] - pack.m[j] for j in range(3))
+    a = dx * dx + dy * dy + dz * dz
+    b = ox * dx + oy * dy + oz * dz - (dx * c[0] + dy * c[1] + dz * c[2])
+    cc = ox * ox + oy * oy + oz * oz + (ox * (-2.0 * c[0]) + oy * (
+        -2.0 * c[1]) + oz * (-2.0 * c[2]) + c[3])
+    disc = b * b - a * cc
+    sd = torch.sqrt(torch.clamp(disc, min=0.0))
+    t1, t2 = (-b - sd) * (1.0 / a), (-b + sd) * (1.0 / a)
+    tt = torch.where((disc > 0) & (t1 > ps.t_min), t1, torch.where(
+        (disc > 0) & (t2 > ps.t_min), t2, float("inf")))
+    assert torch.equal(t, tt.min(dim=1).values)
     with pytest.raises(ValueError):
         sw.sweep_sphere_mxu(rays, geo, 0, n - 1, ps.t_min, pack)
     with pytest.raises(ValueError):
         sw.mxu_pack(geo, 5, 5)
+
+
+@pytest.mark.parametrize("case", ["book1-final", "mixed", "far"])
+def test_mxu_split_filter_keeps_every_pair_the_plain_twin_can_hit(case):
+    """The tensor-core kernel retests only the pairs its split products
+    pick (b^2 > a cc - M); emulated with the products summed exactly,
+    that set must hold every pair whose plain discriminant is > 0, and stay
+    a small share of the pairs.  book1-final's rays of the JAX test, the
+    mixed scene's cone, and rays from 2000 units away (a large |o'|)."""
+    from tpu_ray_torch.utils import mxu_split_study as study
+
+    if case == "book1-final":
+        ps = _scenes("book1-final")[1]
+        ro, rd, _ = _rays(7, 512, -12, 12)
+        rays = pack_rays(torch.from_numpy(ro), torch.from_numpy(rd),
+                         torch.zeros(512))
+    else:
+        ps = mixed_scene()
+        rays = _cone_rays(700)
+        if case == "far":
+            rays = rays.clone()
+            rays[0] -= 2000.0
+    geo = sw.sweep_table(ps)
+    n = ps.n_sphere_static
+    pack = sw.mxu_pack(geo, 0, n)
+    pick = study.split_filter(rays, pack)
+    need = study.plain_disc(rays, pack) > 0.0
+    assert int(need.sum()) > 0
+    assert not (need & ~pick).any()
+    if case != "far":        # far origins widen the margin with |o'|^2
+        assert float(pick.float().mean()) < 0.05
+    # the tile spheres pass wherever a member sphere's plain discriminant
+    # is > 0
+    tiles = study.split_filter(rays, pack, tiles=True)
+    G = tiles.shape[1]
+    assert G == -(-n // 8) and pack.frag2.shape == (-(-G // 8), 32, 8)
+    member = torch.nn.functional.pad(need, (0, 8 * G - n)) \
+        .reshape(-1, G, 8).any(-1)
+    assert not (member & ~tiles).any()
+    if case == "mixed":
+        assert not tiles.all()                  # the cone misses some tiles
 
 
 def test_sweep_solids_merges_the_mxu_range_with_the_dense_ranges():

@@ -21,10 +21,12 @@ The sorted, compacted-list sweep (``csrc/sweep_compact.cu``, replacing
 ``intersect_pallas.py::_compact_kernel``) computes the same function for
 rays sorted by :func:`sort_key`: the prim table is cut into blocks of at
 most 128 rows of one kind (:func:`sweep_blocks`), :func:`tile_lists` finds
-for every 256-ray tile the blocks some ray of it can enter, and
-:func:`sweep_compact` (kernel) / :func:`sweep_compact_plain` sweep only
-those.  Skipping is exact - a hit lies inside its block's box - and a
-lower-prim-id tie-break makes ``(t, i)`` bit-equal to the dense sweep's.
+for every 256-ray tile the blocks some ray of it can enter (on the card the
+list pass of the same source, :func:`list_pass`; its plain twin
+:func:`tile_lists_plain`), and :func:`sweep_compact` (kernel) /
+:func:`sweep_compact_plain` sweep only those.  Skipping is exact - a hit
+lies inside its block's box - and a lower-prim-id tie-break makes ``(t,
+i)`` bit-equal to the dense sweep's.
 
 Two more sweeps compute the same function.  The mask-gated sweep (a second
 kernel in ``csrc/sweep.cu``, replacing the ``cull=True`` mode of the three
@@ -36,8 +38,8 @@ matrix-product sphere sweep (``csrc/sweep_mxu.cu``, replacing
 with the quadratic expanded around the range centroid:
 :func:`sweep_sphere_mxu` / :func:`sweep_sphere_mxu_plain`; it reassociates
 the arithmetic, so it agrees with the dense sweep to ~1e-5 relative, not bit
-for bit.  :func:`sweep_solids` picks among them as a render's
-``SceneKernels`` says.
+for bit (the kernel, on the tensor cores, gives its plain twin's bits).
+:func:`sweep_solids` picks among them as a render's ``SceneKernels`` says.
 """
 from __future__ import annotations
 
@@ -63,6 +65,11 @@ KINDS = ("sphere", "moving", "box", "quad")
 # fp32 operations per (ray, prim) pair, the sweep's roofline numerator
 FLOPS_PER_PAIR = {"sphere": 21, "moving": 27, "box": 24, "quad": 31,
                   "sphere_mxu": 24}
+# the matrix-product sweep's function per pair, with its products on the
+# tensor cores: the 7 products of its cross terms (c'.d, o'.(-2c') + k'),
+# each split three ways, are 21 multiply-adds (42 flops); b, cc, disc and
+# the compare stay 6 flops on the CUDA cores
+MXU_CUDA_FLOPS, MXU_TENSOR_FLOPS = 6, 42
 
 
 def sweep_table(scene: SceneData) -> torch.Tensor:
@@ -93,15 +100,30 @@ def _ranges(scene: SceneData):
             scene.n_sphere + scene.n_box, scene.n_solid)
 
 
-def _check(rays: torch.Tensor, geo: torch.Tensor):
+def _check_rays(rays: torch.Tensor):
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
         raise ValueError(f"rays must be (7, R) float32, got "
                          f"{tuple(rays.shape)} {rays.dtype}")
     if rays.stride(1) != 1 or rays.stride(0) != rays.shape[1]:
         raise ValueError("rays must be row-contiguous with row stride R")
+
+
+def _check(rays: torch.Tensor, geo: torch.Tensor):
+    _check_rays(rays)
     if geo.dtype != torch.float32 or not geo.is_contiguous() \
             or geo.dim() != 2 or geo.shape[1] != ROW:
         raise ValueError("prim table must be a contiguous (n, 16) float32")
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE square root of a float32 tensor, rounded to nearest, as
+    the CUDA kernels' ``sqrtf``.  ``torch.sqrt`` on the CPU calls MKL's
+    vector library, whose float32 result is not correctly rounded (it
+    differs from IEEE in the last bit on ~0.7% of inputs) and follows its
+    run-time code path; the float64 root rounded to float32 is the
+    correctly rounded float32 root (the double rounding of a square root
+    is harmless), on any device."""
+    return torch.sqrt(x.double()).float()
 
 
 def _block_t(rays, geo, lo, hi, kind, t_min):
@@ -122,7 +144,7 @@ def _block_t(rays, geo, lo, hi, kind, t_min):
         c = ocx * ocx + ocy * ocy + ocz * ocz - g[7]
         disc = b * b - a * c
         ok = disc > 0.0
-        sd = torch.sqrt(torch.clamp(disc, min=0.0))
+        sd = sqrt_rn(torch.clamp(disc, min=0.0))
         inv_a = 1.0 / a
         t1 = (-b - sd) * inv_a
         t2 = (-b + sd) * inv_a
@@ -204,6 +226,15 @@ def pick_rpt(R: int, sms: int, n_solid: int) -> int:
         if R >= rpt * FILL_THREADS * sms:
             return rpt
     return 1
+
+
+def pick_rpt_compact(R: int, sms: int) -> int:
+    """Rays per thread of the compacted sweep for R sorted rays on a card of
+    ``sms`` SMs: 2 where the grid still gives every SM ``FILL_THREADS``
+    threads at 2, else 1 (the kernel has no build for 4: four rays a thread
+    cost 124 registers and were slower at next-week-final).  Both choices
+    give the same bits."""
+    return 2 if R >= 2 * FILL_THREADS * sms else 1
 
 
 def sweep(rays: torch.Tensor, geo: torch.Tensor, ranges, t_min: float):
@@ -402,32 +433,111 @@ def _slab_need(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
     return need, tn
 
 
-def tile_lists(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
-               t_min: float):
-    """Front-to-back block lists per 256-ray tile
-    (``intersect_pallas._tile_lists``): (cnt (T,) int32, lst (T, B) int32);
-    ``lst[t, :cnt[t]]`` are the blocks some ray of tile t can enter past
-    ``t_min``, by the tile's closest entry distance.  A last tile short of
-    256 rays is padded with rays from the origin along (1, 1, 1)."""
+def tile_lists_plain(rays: torch.Tensor, blo: torch.Tensor,
+                     bhi: torch.Tensor, t_min: float):
+    """Front-to-back block lists per 256-ray tile in plain PyTorch
+    (``intersect_pallas._tile_lists``): (cnt (T,) int32, lst (T, B) int32,
+    order (T,) int32); ``lst[t, :cnt[t]]`` are the blocks some ray of tile t
+    can enter past ``t_min``, by the tile's closest entry distance, ties to
+    the lower block id; ``order`` lists the tiles by descending cnt (the
+    compacted sweep's launch order; equal counts in any order).  A last tile
+    short of 256 rays is padded with rays from the origin along (1, 1, 1).
+    The reference of the card's list pass."""
+    tile_lists_plain.calls += 1
     need, tn = _slab_need(rays, blo, bhi, t_min)
     B = blo.shape[0]
     T = need.shape[0] // TILE_R
     need_t = need.reshape(T, TILE_R, B).any(1)
     key_t = torch.where(need, torch.clamp(tn, min=0.0), INF) \
         .reshape(T, TILE_R, B).min(1).values
-    order = torch.argsort(torch.where(need_t, key_t, INF), dim=1, stable=True)
-    return (need_t.sum(1, dtype=torch.int32).contiguous(),
+    lst = torch.argsort(torch.where(need_t, key_t, INF), dim=1, stable=True)
+    cnt = need_t.sum(1, dtype=torch.int32)
+    order = torch.argsort(cnt, descending=True, stable=True)
+    return (cnt.contiguous(), lst.to(torch.int32).contiguous(),
             order.to(torch.int32).contiguous())
+
+
+tile_lists_plain.calls = 0
+
+
+def needed_mask_plain(rays: torch.Tensor, blo: torch.Tensor,
+                      bhi: torch.Tensor, t_min: float) -> torch.Tensor:
+    """(T, B) int32 in plain PyTorch: can any ray of 256-ray tile t enter
+    block b's box past ``t_min`` (``intersect_pallas._needed_mask``)?  The
+    last tile is padded as in :func:`tile_lists_plain`."""
+    needed_mask_plain.calls += 1
+    need, _ = _slab_need(rays, blo, bhi, t_min)
+    return need.reshape(-1, TILE_R, blo.shape[0]).any(1).to(torch.int32) \
+        .contiguous()
+
+
+needed_mask_plain.calls = 0
+
+
+def _check_boxes(what, rays, blo, bhi):
+    B = blo.shape[0]
+    for x in (blo, bhi):
+        if not x.is_cuda or x.device != rays.device \
+                or x.dtype != torch.float32 or not x.is_contiguous() \
+                or tuple(x.shape) != (B, 3) or B == 0:
+            raise ValueError(f"{what}: block boxes must be contiguous (B, 3) "
+                             "float32 on the rays' CUDA device, B > 0")
+
+
+def list_pass(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
+              t_min: float, mask: bool = False):
+    """The card's list pass (``csrc/sweep_compact.cu::tile_lists_kernel``) on
+    CUDA tensors, one launch: (cnt, lst, order) as :func:`tile_lists_plain`
+    gives them or, with ``mask``, only the (T, B) needed mask of
+    :func:`needed_mask_plain`.  Counts into ``list_pass.launches``."""
+    _check_rays(rays)
+    _check_boxes("list pass", rays, blo, bhi)
+    B = blo.shape[0]
+    fn = load_fn("sweep_compact", "tr_tile_lists", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    R = rays.shape[1]
+    T = -(-R // TILE_R)
+    dev = rays.device
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    cnt = i32(T)
+    if mask:
+        msk, lst, order, done = i32(T, B), None, None, None
+    else:
+        msk, lst, order = None, i32(T, B), i32(T)
+        done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = fn(rays.data_ptr(), R, blo.data_ptr(), bhi.data_ptr(), B,
+             float(np.float32(t_min)), cnt.data_ptr(), ptr(lst), ptr(msk),
+             ptr(order), ptr(done), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"list pass launch failed (cudaError {err})")
+    list_pass.launches += 1
+    return msk if mask else (cnt, lst, order)
+
+
+list_pass.launches = 0
+
+
+def tile_lists(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
+               t_min: float):
+    """Front-to-back block lists per 256-ray tile, (cnt (T,) int32, lst (T,
+    B) int32, order (T,) int32): the card's list pass for CUDA tensors, the
+    plain version (:func:`tile_lists_plain`) for CPU tensors."""
+    if not rays.is_cuda:
+        return tile_lists_plain(rays, blo, bhi, t_min)
+    return list_pass(rays, blo, bhi, t_min)
 
 
 def needed_mask(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
                 t_min: float) -> torch.Tensor:
-    """(T, B) int32: can any ray of 256-ray tile t enter block b's box past
-    ``t_min`` (``intersect_pallas._needed_mask``)?  The last tile is padded
-    as in :func:`tile_lists`."""
-    need, _ = _slab_need(rays, blo, bhi, t_min)
-    return need.reshape(-1, TILE_R, blo.shape[0]).any(1).to(torch.int32) \
-        .contiguous()
+    """(T, B) int32 needed mask of 256-ray tiles against block boxes: the
+    card's list pass for CUDA tensors, :func:`needed_mask_plain` for CPU
+    tensors."""
+    if not rays.is_cuda:
+        return needed_mask_plain(rays, blo, bhi, t_min)
+    return list_pass(rays, blo, bhi, t_min, mask=True)
 
 
 def _check_tiles(what, rays, blocks, tables, perm):
@@ -450,9 +560,9 @@ def _check_tiles(what, rays, blocks, tables, perm):
                          "int64 on the rays' device")
 
 
-def _check_lists(rays, blocks, cnt, lst, perm):
+def _check_lists(rays, blocks, cnt, lst, order, perm):
     _check_tiles("compacted sweep", rays, blocks,
-                 [(cnt, ()), (lst, (blocks.n_blocks,))], perm)
+                 [(cnt, ()), (lst, (blocks.n_blocks,)), (order, ())], perm)
 
 
 def _sweep_listed_plain(rays, geo, blocks: SweepBlocks, listed, t_min, perm):
@@ -485,14 +595,15 @@ def _sweep_listed_plain(rays, geo, blocks: SweepBlocks, listed, t_min, perm):
     return best_t, best_i
 
 
-def sweep_compact_plain(rays, geo, blocks: SweepBlocks, cnt, lst,
+def sweep_compact_plain(rays, geo, blocks: SweepBlocks, cnt, lst, order,
                         t_min: float, perm=None):
     """Plain-PyTorch compacted sweep: every listed (tile, block) pair runs
     :func:`_block_t`, unlisted pairs are skipped (their t is +inf), and
-    blocks merge with the lower-prim-id tie-break.  Returns (best_t,
-    best_i), written to position ``perm[ray]`` when ``perm`` is given."""
+    blocks merge with the lower-prim-id tie-break, so the tile ``order``
+    changes nothing.  Returns (best_t, best_i), written to position
+    ``perm[ray]`` when ``perm`` is given."""
     _check(rays, geo)
-    _check_lists(rays, blocks, cnt, lst, perm)
+    _check_lists(rays, blocks, cnt, lst, order, perm)
     sweep_compact_plain.calls += 1
     B = blocks.n_blocks
     dev = rays.device
@@ -505,30 +616,50 @@ def sweep_compact_plain(rays, geo, blocks: SweepBlocks, cnt, lst,
 sweep_compact_plain.calls = 0
 
 
-def sweep_compact(rays, geo, blocks: SweepBlocks, cnt, lst, t_min: float,
-                  perm=None):
-    """Closest solid hit over the per-tile block lists: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors.  ``rays`` are the
-    sorted rays; with ``perm`` (the sort's permutation) the results land at
-    the rays' unsorted positions."""
+def sweep_compact(rays, geo, blocks: SweepBlocks, cnt, lst, order,
+                  t_min: float, perm=None, rpt: int | None = None,
+                  stats=None):
+    """Closest solid hit over the per-tile block lists (cnt, lst, order) of
+    :func:`tile_lists`: the CUDA kernel for CUDA tensors, launching the
+    tiles in ``order`` at ``rpt`` rays per thread (1 or 2, by
+    :func:`pick_rpt_compact` when omitted; every order and choice gives the
+    same bits), the plain version for CPU tensors.  ``rays`` are the sorted
+    rays; with ``perm`` (the sort's permutation) the results land at the
+    rays' unsorted positions.  ``stats``: an optional (2,) int64 CUDA tensor
+    the kernel adds its listed and its skipped (tile, block) pairs to."""
     if not rays.is_cuda:
-        return sweep_compact_plain(rays, geo, blocks, cnt, lst, t_min, perm)
+        return sweep_compact_plain(rays, geo, blocks, cnt, lst, order, t_min,
+                                   perm)
     _check(rays, geo)
-    _check_lists(rays, blocks, cnt, lst, perm)
-    if not geo.is_cuda:
-        raise ValueError("prim table must be on the rays' device")
+    _check_lists(rays, blocks, cnt, lst, order, perm)
+    _check_boxes("compacted sweep", rays, blocks.blo, blocks.bhi)
+    if not geo.is_cuda or geo.data_ptr() % 16:
+        raise ValueError("prim table must be 16-byte aligned on the rays' "
+                         "device")
+    R = rays.shape[1]
+    if rpt is None:
+        rpt = pick_rpt_compact(R, sm_count(rays.device))
+    if rpt not in (1, 2):
+        raise ValueError(f"rays per thread must be 1 or 2, not {rpt}")
+    if stats is not None and (tuple(stats.shape) != (2,)
+                              or stats.dtype != torch.int64
+                              or stats.device != rays.device):
+        raise ValueError("stats must be a (2,) int64 on the rays' device")
     fn = load_fn("sweep_compact", "tr_sweep_compact", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    R = rays.shape[1]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
     best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
     best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
     err = fn(rays.data_ptr(), R, geo.data_ptr(), blocks.desc.data_ptr(),
-             cnt.data_ptr(), lst.data_ptr(), blocks.n_blocks,
+             blocks.blo.data_ptr(), blocks.bhi.data_ptr(), cnt.data_ptr(),
+             lst.data_ptr(), order.data_ptr(), blocks.n_blocks,
              float(np.float32(t_min)),
              None if perm is None else perm.data_ptr(), best_t.data_ptr(),
-             best_i.data_ptr(),
+             best_i.data_ptr(), rpt,
+             None if stats is None else stats.data_ptr(),
              torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError("compacted sweep kernel launch failed (cudaError "
@@ -595,16 +726,17 @@ sweep_masked.launches = 0
 def sweep_sorted(rays, geo, blocks: SweepBlocks, t_min: float,
                  masked: bool = False):
     """The whole sorted sweep of unsorted ``rays``: key, stable sort, ray
-    gather, then tile lists and the compacted sweep or, with ``masked``, the
-    needed mask and the mask-gated sweep; the un-permute is folded into the
-    kernel's stores.  Same (best_t, best_i) as :func:`sweep`."""
+    gather, then the tile lists (with the tiles' launch order) and the
+    compacted sweep or, with ``masked``, the needed mask and the
+    mask-gated sweep; the un-permute is folded into the kernel's stores.
+    Same (best_t, best_i) as :func:`sweep`."""
     perm = torch.sort(sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
     if masked:
         mask = needed_mask(srays, blocks.blo, blocks.bhi, t_min)
         return sweep_masked(srays, geo, blocks, mask, t_min, perm)
-    cnt, lst = tile_lists(srays, blocks.blo, blocks.bhi, t_min)
-    return sweep_compact(srays, geo, blocks, cnt, lst, t_min, perm)
+    cnt, lst, order = tile_lists(srays, blocks.blo, blocks.bhi, t_min)
+    return sweep_compact(srays, geo, blocks, cnt, lst, order, t_min, perm)
 
 
 # --- the matrix-product sphere sweep -----------------------------------------
@@ -612,53 +744,143 @@ def sweep_sorted(rays, geo, blocks: SweepBlocks, t_min: float,
 @dataclass
 class MxuPack:
     """Static-sphere rows [lo, hi) packed for the matrix-product sweep
-    (``intersect_pallas._sweep_sphere_mxu``): the range centroid ``m`` and
-    per sphere c' = c - m and k' = |c'|^2 - r^2."""
+    (``intersect_pallas._sweep_sphere_mxu``): the range centroid ``m``, per
+    sphere c' = c - m, k' = |c'|^2 - r^2 and -2c', and the tensor cores'
+    side of the kernel (``csrc/sweep_mxu.cu``): per sphere the bounds |c'|
+    and |k'| of its margin and, per lane of each 8-sphere tile, the split
+    operands of the two products."""
 
     lo: int
     hi: int
     m: tuple              # (mx, my, mz) python floats of the float32 values
-    tab: torch.Tensor     # (hi - lo, 4) float32: c'x, c'y, c'z, k'
+    tab: torch.Tensor     # (n, 8): c'x, c'y, c'z, k', -2c'x, -2c'y, -2c'z, 0
+    frag: torch.Tensor    # (ceil(n / 8), 32, 8), see mxu_pack
+    bound: torch.Tensor   # (n, 2): U = |c'|, W = |k'|
+    frag2: torch.Tensor   # (ceil(n / 64), 32, 8): frag of the tile spheres
+
+
+# the kernel's discriminant margin, per a ((|o'| + U)^2 + W), and the tile
+# spheres' slack, the square root of the plain twin's rounding bound
+MXU_MARGIN, MXU_SLACK = 2.0 ** -13, 2.0 ** -9
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero: PTX ``cvt.rna.tf32.f32``), as a float32 with the low 13 bits 0."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) = (tf32(x), tf32(x - hi)): the three-way split's operands."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _mxu_frag(cs, k, y2, y3) -> torch.Tensor:
+    """(ceil(n / 8), 32, 8) operands of the kernel's products for n spheres
+    (c' = ``cs``, k' = ``k``), laid out per lane (see :func:`mxu_pack`);
+    ``y2`` and ``y3`` (n,) are the margin's columns."""
+    n = cs.shape[0]
+    G = -(-n // 8)
+    zp = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 8 * G - n))
+    col = lambda v: v[:, None]
+    U, W = cs.norm(dim=1), k.abs()
+    q = zp(torch.cat([-2.0 * cs, col(k - MXU_MARGIN * (U * U + W))], dim=1))
+    e = zp(torch.cat([cs, col(torch.full_like(k, -1.0))], dim=1))
+    one = torch.ones_like(k)
+    y = zp(torch.stack([one, one, y2, y3], dim=1))
+    qh, ql = tf32_split(q)                                      # (8G, 4)
+    eh, el = tf32_split(e)
+    z = torch.zeros_like(qh)
+    return torch.stack([qh, ql, y, z, eh, el, z, z], dim=-1) \
+        .reshape(G, 32, 8).contiguous()
 
 
 def mxu_pack(geo: torch.Tensor, lo: int, hi: int) -> MxuPack:
     """Pack sphere rows [lo, hi) of the prim table (reads the centroid back
-    to the host, so a render packs once)."""
+    to the host, so a render packs once).
+
+    ``frag[g, L]``, for lane L of the kernel's warp and sphere s = 8g + L // 4
+    (zero past the range), component t = L % 4: the TF32 (hi, lo) of q_t,
+    q = (-2c', k' - MXU_MARGIN (U^2 + W)); Y_t = (1, 1, -MXU_MARGIN,
+    tf32(-2 MXU_MARGIN U))[t]; 0; the (hi, lo) of e_t, e = (c', -1); 0, 0.
+    U and W are the sphere's ``bound``.  The kernel's products are then a cc
+    less its margin, and c'.d - o'.d = -b (``csrc/sweep_mxu.cu``).
+
+    ``frag2`` is the same layout for the bounding spheres of the 8-sphere
+    tiles, eight tiles to a row (:func:`mxu_tile_spheres`): its margin
+    columns also hold the slack that makes the tile test pass wherever the
+    plain twin's discriminant of a member sphere is > 0."""
     if not 0 <= lo < hi <= geo.shape[0]:
         raise ValueError(f"mxu_pack: empty or out-of-range rows [{lo}, {hi})")
     c = geo[lo:hi, 0:3]
     m = c.mean(dim=0)
     cs = c - m
     k = (cs * cs).sum(dim=1) - geo[lo:hi, 7]
-    return MxuPack(lo, hi, tuple(m.tolist()),
-                   torch.cat([cs, k[:, None]], dim=1).contiguous())
+    col = lambda v: v[:, None]
+    tab = torch.cat([cs, col(k), -2.0 * cs, col(torch.zeros_like(k))], dim=1)
+    bound = torch.stack([cs.norm(dim=1), k.abs()], dim=1)
+    frag = _mxu_frag(cs, k, torch.full_like(k, -MXU_MARGIN),
+                     tf32_round(-2.0 * MXU_MARGIN * bound[:, 0]))
+    cg, rho = mxu_tile_spheres(cs, geo[lo:hi, 7], bound)
+    kg = (cg * cg).sum(dim=1) - rho * rho
+    frag2 = _mxu_frag(
+        cg, kg, torch.full_like(kg, -(MXU_MARGIN + MXU_SLACK ** 2)),
+        tf32_round(-2.0 * (MXU_MARGIN * cg.norm(dim=1) + MXU_SLACK * rho)))
+    return MxuPack(lo, hi, tuple(m.tolist()), tab.contiguous(), frag,
+                   bound.contiguous(), frag2)
+
+
+def mxu_tile_spheres(cs, r2, bound):
+    """Bounding spheres of the 8-sphere tiles: (G, 3) centers c'_g (the mean
+    of the members') and (G,) radii rho_g = max over the members of |c' -
+    c'_g| + r + MXU_SLACK (U + sqrt W), taken in float64 and rounded up:
+    where the plain twin's discriminant of a member is > 0 (its rounding is
+    below 2^-19 a ((|o'| + U)^2 + W)), the ray passes the tile's center
+    closer than rho_g + MXU_SLACK |o'|."""
+    n = cs.shape[0]
+    G = -(-n // 8)
+    idx = torch.arange(n, device=cs.device) // 8
+    cg = torch.zeros((G, 3), dtype=cs.dtype, device=cs.device) \
+        .index_add_(0, idx, cs) / torch.bincount(idx, minlength=G)[:, None]
+    d = cs.double() - cg.double()[idx]
+    reach = d.norm(dim=1) + r2.double().sqrt() + MXU_SLACK * (
+        bound[:, 0].double() + bound[:, 1].double().sqrt())
+    rho = torch.zeros(G, dtype=torch.float64, device=cs.device) \
+        .scatter_reduce_(0, idx, reach, "amax")
+    return cg, (rho * (1.0 + 2.0 ** -20)).float()
 
 
 def _check_mxu(rays, geo, lo, hi, pack):
     _check(rays, geo)
     if pack is None:
         pack = mxu_pack(geo, lo, hi)
-    if (pack.lo, pack.hi) != (lo, hi) or pack.tab.device != rays.device \
-            or tuple(pack.tab.shape) != (hi - lo, 4) \
-            or pack.tab.dtype != torch.float32 \
-            or not pack.tab.is_contiguous():
-        raise ValueError("matrix-product sweep: the pack is not a contiguous "
-                         f"({hi - lo}, 4) float32 of rows [{lo}, {hi}) on the "
-                         "rays' device")
+    G = -(-(hi - lo) // 8)
+    for x, shape in ((pack.tab, (hi - lo, 8)), (pack.frag, (G, 32, 8)),
+                     (pack.bound, (hi - lo, 2)),
+                     (pack.frag2, (-(-G // 8), 32, 8))):
+        if (pack.lo, pack.hi) != (lo, hi) or x.device != rays.device \
+                or tuple(x.shape) != shape or x.dtype != torch.float32 \
+                or not x.is_contiguous():
+            raise ValueError("matrix-product sweep: the pack is not "
+                             f"mxu_pack's of rows [{lo}, {hi}) on the rays' "
+                             "device")
     return pack
 
 
 def sweep_sphere_mxu_plain(rays, geo, lo: int, hi: int, t_min: float,
                            pack: MxuPack | None = None):
     """Plain-PyTorch matrix-product sweep over static-sphere rows [lo, hi):
-    (best_t, best_i), the kernel's operations in the kernel's order."""
+    (best_t, best_i), fp32 products and sums in the order of the TPU
+    kernel's packing, -2c' and k' from the pack."""
     pack = _check_mxu(rays, geo, lo, hi, pack)
     sweep_sphere_mxu_plain.calls += 1
     R = rays.shape[1]
     t_min = float(np.float32(t_min))
     best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
     best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
-    c = pack.tab.T[:, None, :]                                # (4, 1, n)
+    c = pack.tab.T[:, None, :]                                # (8, 1, n)
     for r0 in range(0, R, RAY_CHUNK):
         blk = rays[:, r0:r0 + RAY_CHUNK]
         dx, dy, dz = (blk[3 + i][:, None] for i in range(3))
@@ -668,8 +890,7 @@ def sweep_sphere_mxu_plain(rays, geo, lo: int, hi: int, t_min: float,
         od = ox * dx + oy * dy + oz * dz
         oo = ox * ox + oy * oy + oz * oz
         cd = dx * c[0] + dy * c[1] + dz * c[2]
-        ccp = ox * (-2.0 * c[0]) + oy * (-2.0 * c[1]) + oz * (-2.0 * c[2]) \
-            + c[3]
+        ccp = ox * c[4] + oy * c[5] + oz * c[6] + c[3]
         b = od - cd
         cc = oo + ccp
         disc = b * b - a * cc
@@ -690,23 +911,32 @@ sweep_sphere_mxu_plain.calls = 0
 
 
 def sweep_sphere_mxu(rays, geo, lo: int, hi: int, t_min: float,
-                     pack: MxuPack | None = None):
+                     pack: MxuPack | None = None, stats=None):
     """Closest hit over static-sphere rows [lo, hi) in the matrix-product
-    form: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.  ``pack``: :func:`mxu_pack` of the same rows (made here when
-    omitted).  Returns (best_t, best_i); best_i is 0 where nothing is hit."""
+    form: the CUDA kernel (tensor cores) for CUDA tensors, the plain version
+    for CPU tensors.  ``pack``: :func:`mxu_pack` of the same rows (made here
+    when omitted).  ``stats``: an optional (1,) int64 CUDA tensor the kernel
+    adds the pairs it retested in scalar to.  Returns (best_t, best_i);
+    best_i is 0 where nothing is hit."""
     if not rays.is_cuda:
         return sweep_sphere_mxu_plain(rays, geo, lo, hi, t_min, pack)
     pack = _check_mxu(rays, geo, lo, hi, pack)
+    if stats is not None and (tuple(stats.shape) != (1,)
+                              or stats.dtype != torch.int64
+                              or stats.device != rays.device):
+        raise ValueError("stats must be a (1,) int64 on the rays' device")
     fn = load_fn("sweep_mxu", "tr_sweep_mxu", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     R = rays.shape[1]
     best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
     best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
-    err = fn(rays.data_ptr(), R, pack.tab.data_ptr(), hi - lo, lo, *pack.m,
+    err = fn(rays.data_ptr(), R, pack.tab.data_ptr(), pack.frag.data_ptr(),
+             pack.frag2.data_ptr(), hi - lo, lo, *pack.m,
              float(np.float32(t_min)), best_t.data_ptr(), best_i.data_ptr(),
+             None if stats is None else stats.data_ptr(),
              torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
         raise RuntimeError("matrix-product sweep kernel launch failed "

@@ -70,6 +70,7 @@ def main(argv=None) -> int:
               engine=args.engine)
     render(scene, cam, args.width, args.height, args.spp, **kw)   # warm-up
     counters = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
+                "list_pass": sweep.list_pass,
                 "sweep_masked": sweep.sweep_masked,
                 "sweep_sphere_mxu": sweep.sweep_sphere_mxu,
                 "pool_step": shade.pool_step,
