@@ -9,8 +9,11 @@ unless every phase passes:
 2. build the five sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build seconds, the register use and the count of
    tensor-core (HMMA) instructions in the matrix-product sweep's SASS;
-3. each kernel against its plain PyTorch version at main-path shapes
-   (1M-lane pools), with kernel and plain times from CUDA events: the
+3. ``torch.sqrt`` on the card correctly rounded (``core.vec.sqrt_rn`` takes
+   it there as it is); each kernel against its plain PyTorch version at
+   main-path shapes (1M-lane pools), with kernel and plain times from CUDA
+   events (kernels from a CUDA graph's replay, the step and ``hit_scatter``
+   also launched one by one from the host): the
    dense sweep (also on the first 240k, 60k, 3k and 1 of book1-final's
    bounce-1 rays, the partly filled pools of the pool path; each size with
    the rays per thread the wrapper picks, every instantiation held
@@ -35,10 +38,12 @@ unless every phase passes:
    waves of phase 5 with its lane-iterations, its warp-iterations and its
    operation bound, each wave launched persistent and at one thread per
    slot (the two bit-equal, with both times, shares and the registers);
-   the mask-gated sweep on next-week-final's sorted rays
-   against its plain version and bit-equal to the dense kernel, with the
-   card's mask (equal to its plain twin) and its time, and the skipped
-   share; the tensor-core matrix-product sphere sweep on book1-final
+   the mask-gated sweep on next-week-final's sorted rays at each
+   rays-per-thread build, in the list pass's tile order and in natural
+   order, bit-equal to its plain version and to the dense kernel, with the
+   list pass's mask and order (against their plain twins) and its time, the
+   needed share and the share the cull skipped, and the whole sorted masked
+   sweep's time; the tensor-core matrix-product sphere sweep on book1-final
    against its plain version (bit-equal) and against the dense kernel, with
    the share of pairs it retested and its bound beside the scalar form's;
 4. the eight non-strict golden configs rendered on the card (the image
@@ -80,7 +85,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device")
 
-from tpu_ray_torch.core import rng  # noqa: E402
+from tpu_ray_torch.core import rng, vec  # noqa: E402
 from tpu_ray_torch.core.film import to_rgb8  # noqa: E402
 from tpu_ray_torch.integrator import (SceneKernels, _queue_init,  # noqa: E402
                                       _to_i32_bits, init_pool_state,
@@ -387,15 +392,19 @@ def compare_step(what, cfg, xy, slot, fstate, istate, bt, bi, ks):
         f"lanes out of tol {n_float}, max abs err {worst:.3e}")
     if n_disc > 1e-4 * R or n_float > 1e-4 * R:
         raise AssertionError(f"pool-step kernel disagrees with plain on {what}")
-    ms = cuda_ms(lambda: shade.pool_step(*args), 20)
+    step = lambda: shade.pool_step(*args)
+    ms = kernel_ms(step)
+    events_ms = cuda_ms(step, 20)
     plain_ms = cuda_ms(lambda: shade.pool_step_plain(*args), 3)
     nbytes = R * shade.BYTES_PER_LANE + cfg.tab.numel() * 4
     ops = R * shade.OPS_PER_LANE
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
-    log(f"step {what}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+    log(f"step {what}: kernel {ms:.4f} ms (launched from the host one by one "
+        f"{events_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=worst)
 
@@ -431,15 +440,19 @@ def check_hit_scatter(name, width, height, spp, iters):
     if n_disc > 1e-4 * R or n_float > 1e-4 * R or int(cont.sum()) < R // 10:
         raise AssertionError(f"hit_scatter kernel disagrees with plain on "
                              f"{name}")
-    ms = cuda_ms(lambda: hit_scatter.hit_scatter(*args), 20)
+    scatter = lambda: hit_scatter.hit_scatter(*args)
+    ms = kernel_ms(scatter)
+    events_ms = cuda_ms(scatter, 20)
     plain_ms = cuda_ms(lambda: hit_scatter.hit_scatter_plain(*args), 3)
     nbytes = R * hit_scatter.BYTES_PER_LANE + cfg.tab.numel() * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = R * hit_scatter.OPS_PER_LANE / FP32_FLOPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
-    log(f"hit_scatter {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    log(f"hit_scatter {name}: kernel {ms:.4f} ms (launched from the host one "
+        f"by one {events_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms")
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=worst)
 
@@ -472,21 +485,28 @@ def hold_sorted_sweep(what, name, R, dense, got, plain):
     return max_abs
 
 
-def listed_flops(scene, blocks, cnt, lst, R) -> float:
+def listed_flops(blocks, cnt, lst, R) -> float:
     """Operations of the dense sweep's pair tests over the (tile, block)
-    pairs the lists name, the rays of a short last tile counted as they
-    are."""
+    pairs the lists name."""
     T, B = lst.shape
     listed = torch.zeros((T, B), dtype=torch.bool, device=lst.device)
     ranks = torch.arange(B, device=lst.device)[None, :] < cnt[:, None]
     listed.scatter_(1, lst.long(), ranks)
-    rays = torch.full((T,), float(sweep.TILE_R), device=lst.device)
+    return pair_flops(blocks, listed, R)
+
+
+def pair_flops(blocks, listed, R) -> float:
+    """Operations of the dense sweep's pair tests over the (tile, block)
+    pairs where ``listed`` (T, B) is set, the rays of a short last tile
+    counted as they are."""
+    T = listed.shape[0]
+    rays = torch.full((T,), float(sweep.TILE_R), device=listed.device)
     rays[-1] = R - (T - 1) * sweep.TILE_R
     per_block = (listed.float() * rays[:, None]).sum(0)          # (B,)
     desc = blocks.desc.long()
     flops = torch.tensor([sweep.FLOPS_PER_PAIR[sweep.KINDS[k]]
                           for k in desc[:, 2].tolist()],
-                         dtype=torch.float32, device=lst.device)
+                         dtype=torch.float32, device=listed.device)
     return float((per_block * desc[:, 1].float() * flops).sum())
 
 
@@ -560,7 +580,7 @@ def check_sweep_compact(name, width, height, spp, iters):
     dense_bound_ms, _ = sweep_bound(scene, kern.geo, R)
     t_bytes = (R * (7 * 4 + 8 + 8) + kern.geo.numel() * 4
                + lst.numel() * 4) / HBM_BYTES_PER_S
-    t_ops = listed_flops(scene, blocks, cnt, lst, R) / FP32_FLOPS_PER_S
+    t_ops = listed_flops(blocks, cnt, lst, R) / FP32_FLOPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
     # the list pass: 24 B in per ray, cnt, lst and the order out; ~20
     # operations per (ray, block) slab test
@@ -590,9 +610,14 @@ def check_sweep_compact(name, width, height, spp, iters):
 
 
 def check_sweep_masked(name, width, height, spp, iters):
-    """The mask-gated sweep on one full-width pool's sorted rays: bit-equal
-    to the dense sweep kernel, held against its plain version, with the
-    mask's build time beside the kernel's."""
+    """The mask-gated sweep on one full-width pool's sorted rays: the list
+    pass in mask mode against its plain twins (the mask equal, the order a
+    permutation of the tiles by non-increasing count of needed blocks), the
+    kernel at each rays-per-thread build, in the list pass's tile order and
+    in natural order, bit-equal to the dense sweep kernel and to its plain
+    version, the share of needed pairs the cull skipped, and the list
+    pass's and the whole sorted masked sweep's times beside the kernel's;
+    two bounds: the dense sweep's and that of the needed pairs."""
     scene, _, kern, st, _, _ = pool_after(name, width, height, spp, iters)
     rays = st.fstate[:7].contiguous()
     ranges = sweep._ranges(scene)
@@ -602,44 +627,91 @@ def check_sweep_masked(name, width, height, spp, iters):
     perm = torch.sort(sweep.sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
     box = (srays, blocks.blo, blocks.bhi, t_min)
-    build_mask = lambda: sweep.needed_mask(*box)
-    mask = build_mask()
-    if not torch.equal(mask, sweep.needed_mask_plain(*box)):
-        raise AssertionError(f"the list pass's mask differs from its plain "
-                             f"twin on {name}")
-    skip = 1.0 - float(mask.sum()) / mask.numel()
+    build_mask = lambda: sweep.tile_mask(*box)
+    mask, order = build_mask()
+    T = mask.shape[0]
+    natural = torch.arange(T, dtype=torch.int32, device=DEV)
+    need = mask.sum(1)[order.long()]
+    if not (torch.equal(mask, sweep.needed_mask_plain(*box))
+            and torch.equal(torch.sort(order).values, natural)
+            and bool((need[:-1] >= need[1:]).all())):
+        raise AssertionError(f"the list pass's mask or tile order differs "
+                             f"from its plain twins on {name}")
+    needed_share = float(mask.sum()) / mask.numel()
+    rpt = sweep.pick_rpt_compact(R, sweep.sm_count(DEV))
     dt, di = sweep.sweep(rays, kern.geo, ranges, t_min)
-    mt, mi = sweep.sweep_masked(srays, kern.geo, blocks, mask, t_min, perm)
-    pt, pi = sweep.sweep_masked_plain(srays, kern.geo, blocks, mask, t_min,
-                                      perm)
+    stats = torch.zeros(2, dtype=torch.int64, device=DEV)
+    run = lambda k=None, o=order, s=None: sweep.sweep_masked(
+        srays, kern.geo, blocks, mask, o, t_min, perm, k, s)
+    mt, mi = run(s=stats)
+    pt, pi = sweep.sweep_masked_plain(srays, kern.geo, blocks, mask, order,
+                                      t_min, perm)
     torch.cuda.synchronize()
+    needed, skipped = stats.tolist()
     log(f"sweep_masked {name} iters={iters}: {blocks.n_blocks} blocks, "
-        f"skipped (tile, block) pairs {skip:.4f}")
+        f"needed (tile, block) pairs {needed_share:.4f}, of them skipped by "
+        f"the cull {skipped / max(needed, 1):.4f}; {rpt} rays/thread")
     max_abs = hold_sorted_sweep("sweep_masked", name, R, (dt, di), (mt, mi),
                                 (pt, pi))
-    ms = cuda_ms(lambda: sweep.sweep_masked(srays, kern.geo, blocks, mask,
-                                            t_min, perm), 20)
-    dense_ms = cuda_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min), 20)
+    if needed != int(mask.sum()) or not (torch.equal(mt, pt)
+                                         and torch.equal(mi, pi)):
+        raise AssertionError(f"sweep_masked is not bit-equal to its plain "
+                             f"twin on {name}, or counted {needed} needed "
+                             f"pairs for the mask's {int(mask.sum())}")
+    for k in (1, 2):              # every build, either order: the same bits
+        for o in (order, natural):
+            t, i = run(k, o)
+            if not (torch.equal(t, mt) and torch.equal(i, mi)):
+                raise AssertionError(f"sweep_masked at {k} rays per thread "
+                                     f"differs on {name}")
+    ms = kernel_ms(run)
+    by_rpt = {k: kernel_ms(lambda: run(k)) for k in (1, 2)}
+    natural_ms = kernel_ms(lambda: run(None, natural))
+    dense_ms = kernel_ms(lambda: sweep.sweep(rays, kern.geo, ranges, t_min))
     plain_ms = cuda_ms(lambda: sweep.sweep_masked_plain(
-        srays, kern.geo, blocks, mask, t_min, perm), 2)
+        srays, kern.geo, blocks, mask, order, t_min, perm), 2)
     mask_ms = kernel_ms(build_mask)
     mask_plain_ms = cuda_ms(lambda: sweep.needed_mask_plain(*box), 10)
     whole_ms = cuda_ms(lambda: sweep.sweep_sorted(rays, kern.geo, blocks,
                                                   t_min, masked=True), 10)
-    nbytes = R * (7 * 4 + 8) + kern.geo.numel() * 4 + mask.numel() * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sweep_flops(scene, R) / FP32_FLOPS_PER_S
+    dense_bound_ms, _ = sweep_bound(scene, kern.geo, R)
+    t_bytes = (R * (7 * 4 + 8 + 8) + kern.geo.numel() * 4
+               + mask.numel() * 4) / HBM_BYTES_PER_S
+    t_ops = pair_flops(blocks, mask > 0, R) / FP32_FLOPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
-    log(f"sweep_masked {name}: kernel {ms:.4f} ms (un-permute in its "
-        f"stores), dense kernel {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"needed mask from the list pass {mask_ms:.4f} ms (plain "
-        f"{mask_plain_ms:.4f} ms), whole sorted masked sweep "
-        f"{whole_ms:.4f} ms, dense bound {bound_ms:.4f} ms")
+    log(f"sweep_masked {name}: kernel {ms:.4f} ms at {rpt} rays/thread in "
+        f"the list pass's order (1, 2 rays/thread: {by_rpt[1]:.4f}, "
+        f"{by_rpt[2]:.4f} ms; natural order {natural_ms:.4f} ms), dense "
+        f"kernel {dense_ms:.4f} ms, plain {plain_ms:.3f} ms, list pass in "
+        f"mask mode {mask_ms:.4f} ms (plain mask {mask_plain_ms:.4f} ms), "
+        f"whole sorted masked sweep {whole_ms:.4f} ms; bound of the needed "
+        f"pairs {bound_ms:.4f} ms, dense bound {dense_bound_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=max_abs, dense_ms=dense_ms, mask_ms=mask_ms,
-                mask_plain_ms=mask_plain_ms, whole_sorted_ms=whole_ms,
-                skip_share=skip)
+                dense_bound_ms=dense_bound_ms, max_abs_err=max_abs, rpt=rpt,
+                ms_by_rpt=by_rpt, natural_ms=natural_ms, dense_ms=dense_ms,
+                mask_ms=mask_ms, mask_plain_ms=mask_plain_ms,
+                whole_sorted_ms=whole_ms, needed_share=needed_share,
+                skip_share=1.0 - needed_share,
+                cull_skip_share=skipped / max(needed, 1))
+
+
+def check_sqrt():
+    """``core.vec.sqrt_rn`` takes ``torch.sqrt`` as it is on the card: it
+    must be the correctly rounded root there, the float64 root rounded to
+    float32, on 2^24 random non-negative finite bit patterns (every
+    magnitude, subnormals included)."""
+    bits = torch.randint(0, 0x7F800000, (1 << 24,), dtype=torch.int32,
+                         device=DEV, generator=torch.Generator(DEV)
+                         .manual_seed(SEED))
+    x = bits.view(torch.float32)
+    got = vec.sqrt_rn(x)
+    want = torch.sqrt(x.double()).float()
+    n_bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    log(f"sqrt_rn on the card: {n_bad} of {x.numel()} roots differ from the "
+        f"correctly rounded ones")
+    if n_bad:
+        raise AssertionError("torch.sqrt on the card is not correctly rounded")
 
 
 def hmma_count() -> int:
@@ -984,6 +1056,7 @@ def main() -> int:
                              "instruction")
 
     log("phase 3: kernels vs plain versions at main-path shapes")
+    check_sqrt()
     sw = check_sweep("cornell", 500, 500, 64, 0)
     check_sweep("cornell", 500, 500, 64, 1)
     check_sweep("book1-final", 600, 400, 16, 0)
@@ -1149,7 +1222,7 @@ def main() -> int:
              launches=launches["megakernel"],
              launches_by_path=by_path["megakernel"], library_ms=None, **mg),
         dict(name="sweep_masked", route="cuda",
-             source="tpu_ray_torch/csrc/sweep.cu",
+             source="tpu_ray_torch/csrc/sweep_compact.cu",
              replaces="tpu_ray/ops/intersect_pallas.py:59, :309, :256 "
                       "(cull=True with _needed_mask :401)",
              launches=launches["sweep_masked"],

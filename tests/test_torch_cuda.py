@@ -224,9 +224,12 @@ def _scattered_and_coherent_rays(card, n):
         ro, rd, r.random(n).astype(np.float32))))
 
 
-@pytest.mark.parametrize("n", [1 << 16, 1000])
+@pytest.mark.parametrize("n", [1 << 16, 1000, 77])
 def test_sweep_masked_kernel_bit_equal_to_dense(card, n):
-    """All four kinds, coherent and scattered rays, a ragged last tile."""
+    """All four kinds, coherent and scattered rays, a ragged last tile: each
+    rays-per-thread build, tiles in natural (identity) order and in the list
+    pass's order, gives the dense kernel's and the plain twin's (t, i) bit
+    for bit, and the cull tests no more blocks than the mask names."""
     ps = _mixed_scene().to(card)
     rays = _scattered_and_coherent_rays(card, n)
     geo, ranges, blocks = sw.sweep_table(ps), sw._ranges(ps), \
@@ -234,21 +237,38 @@ def test_sweep_masked_kernel_bit_equal_to_dense(card, n):
     dt, di = sw.sweep(rays, geo, ranges, ps.t_min)
     perm = torch.sort(sw.sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
-    mask = sw.needed_mask(srays, blocks.blo, blocks.bhi, ps.t_min)
+    box = (srays, blocks.blo, blocks.bhi, ps.t_min)
+    mask, order = sw.tile_mask(*box)
+    assert torch.equal(mask, sw.needed_mask_plain(*box))
+    T = mask.shape[0]
+    identity = torch.arange(T, dtype=torch.int32, device=card)
+    assert torch.equal(torch.sort(order).values, identity)
+    needed = mask.sum(1)[order.long()]
+    assert bool((needed[:-1] >= needed[1:]).all())
     if n > 1000:
         assert int(mask.sum()) < mask.numel()
-    launches = sw.sweep_masked.launches
-    mt, mi = sw.sweep_masked(srays, geo, blocks, mask, ps.t_min, perm)
-    assert sw.sweep_masked.launches == launches + 1
-    pt, pi = sw.sweep_masked_plain(srays, geo, blocks, mask, ps.t_min, perm)
+    pt, pi = sw.sweep_masked_plain(srays, geo, blocks, mask, order, ps.t_min,
+                                   perm)
     hit = torch.isfinite(dt)
     assert int(hit.sum()) > n // 8
-    assert torch.equal(mt, dt) and torch.equal(mi[hit], di[hit])
-    assert torch.equal(torch.isfinite(pt), hit) and torch.equal(pi[hit],
-                                                                di[hit])
-    torch.testing.assert_close(pt[hit], dt[hit], rtol=2e-5, atol=0)
+    assert torch.equal(pt, dt) and torch.equal(pi[hit], di[hit])
+    for rpt in (1, 2):
+        for o in (identity, order):
+            stats = torch.zeros(2, dtype=torch.int64, device=card)
+            launches = sw.sweep_masked.launches
+            mt, mi = sw.sweep_masked(srays, geo, blocks, mask, o, ps.t_min,
+                                     perm, rpt, stats)
+            assert sw.sweep_masked.launches == launches + 1
+            assert torch.equal(mt, dt) and torch.equal(mi[hit], di[hit])
+            assert torch.equal(mt, pt) and torch.equal(mi, pi)
+            listed, skipped = stats.tolist()
+            assert listed == int(mask.sum()) and 0 <= skipped <= listed
+    mt, mi = sw.sweep_masked(srays, geo, blocks, mask, order, ps.t_min, perm)
+    assert torch.equal(mt, dt) and torch.equal(mi, pi)
     st, si = sw.sweep_sorted(rays, geo, blocks, ps.t_min, masked=True)
     assert torch.equal(st, dt) and torch.equal(si[hit], di[hit])
+    with pytest.raises(ValueError):
+        sw.sweep_masked(srays, geo, blocks, mask, order, ps.t_min, perm, 4)
 
 
 @pytest.mark.parametrize("n", [1, 255, 257, 4097, 65537])

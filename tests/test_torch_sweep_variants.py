@@ -123,14 +123,14 @@ def test_sweep_masked_all_kinds_any_ray_count(n):
     geo, blocks = sw.sweep_table(ps), sw.sweep_blocks(ps)
     dt, di = sw.sweep_plain(rays, geo, sw._ranges(ps), ps.t_min)
     perm, srays = _sorted(blocks, rays)
-    mask = sw.needed_mask(srays, blocks.blo, blocks.bhi, ps.t_min)
+    mask, order = sw.tile_mask(srays, blocks.blo, blocks.bhi, ps.t_min)
     cnt = sw.tile_lists(srays, blocks.blo, blocks.bhi, ps.t_min)[0]
     np.testing.assert_array_equal(mask.sum(1).numpy(), cnt.numpy())
     if n >= sw.TILE_R:
         assert int(mask.sum()) < mask.numel()              # some skipped
-    st, si = sw.sweep_masked(srays, geo, blocks, mask, ps.t_min)
+    st, si = sw.sweep_masked(srays, geo, blocks, mask, order, ps.t_min)
     assert torch.equal(st, dt[perm]) and torch.equal(si, di[perm])
-    ut, ui = sw.sweep_masked(srays, geo, blocks, mask, ps.t_min, perm)
+    ut, ui = sw.sweep_masked(srays, geo, blocks, mask, order, ps.t_min, perm)
     assert torch.equal(ut, dt) and torch.equal(ui, di)
     assert int(torch.isfinite(dt).sum()) > n // 8
 
@@ -139,15 +139,95 @@ def test_sweep_masked_wrapper_checks_its_inputs():
     ps = mixed_scene()
     rays = _cone_rays(300)
     geo, blocks = sw.sweep_table(ps), sw.sweep_blocks(ps)
-    mask = sw.needed_mask(rays, blocks.blo, blocks.bhi, ps.t_min)
-    sw.sweep_masked(rays, geo, blocks, mask, ps.t_min)
+    mask, order = sw.tile_mask(rays, blocks.blo, blocks.bhi, ps.t_min)
+    sw.sweep_masked(rays, geo, blocks, mask, order, ps.t_min)
     with pytest.raises(ValueError):
-        sw.sweep_masked(rays, geo, blocks, mask[:1], ps.t_min)
+        sw.sweep_masked(rays, geo, blocks, mask[:1], order, ps.t_min)
     with pytest.raises(ValueError):
-        sw.sweep_masked(rays, geo, blocks, mask.long(), ps.t_min)
+        sw.sweep_masked(rays, geo, blocks, mask.long(), order, ps.t_min)
     with pytest.raises(ValueError):
-        sw.sweep_masked(rays, geo, blocks, mask, ps.t_min,
+        sw.sweep_masked(rays, geo, blocks, mask, order, ps.t_min,
                         torch.arange(300, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n", [77, 1000, 4096])
+def test_tile_mask_order_is_a_permutation_by_needed_count(n):
+    """The mask-mode list pass's plain twin: the mask is needed_mask's and
+    the launch order lists every tile once, by non-increasing count of
+    needed blocks (the card's ties may come in any order, so this is what
+    its tests hold)."""
+    ps = mixed_scene()
+    rays = _cone_rays(n)
+    blocks = sw.sweep_blocks(ps)
+    _, srays = _sorted(blocks, rays)
+    box = (srays, blocks.blo, blocks.bhi, ps.t_min)
+    mask, order = sw.tile_mask(*box)
+    assert torch.equal(mask, sw.needed_mask(*box))
+    T = -(-n // sw.TILE_R)
+    assert order.dtype == torch.int32 and order.shape == (T,)
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(T, dtype=torch.int32))
+    cnt = mask.sum(1)
+    assert bool((cnt[order.long()].diff() <= 0).all())
+    assert torch.equal(order, sw.tile_order_plain(cnt.to(torch.int32)))
+    # any launch order gives the same bits
+    dt, di = sw.sweep_masked(srays, sw.sweep_table(ps), blocks, mask, order,
+                             ps.t_min)
+    ot, oi = sw.sweep_masked(srays, sw.sweep_table(ps), blocks, mask,
+                             order.flip(0), ps.t_min)
+    assert torch.equal(dt, ot) and torch.equal(di, oi)
+
+
+def test_sweep_masked_rejects_a_bad_order_and_cpu_tensors_for_the_kernel():
+    ps = mixed_scene()
+    rays = _cone_rays(600)
+    geo, blocks = sw.sweep_table(ps), sw.sweep_blocks(ps)
+    mask, order = sw.tile_mask(rays, blocks.blo, blocks.bhi, ps.t_min)
+    sw.sweep_masked(rays, geo, blocks, mask, order, ps.t_min)
+    for bad in (order[:-1], order.long(), order[None],
+                torch.empty(order.shape, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError):
+            sw.sweep_masked(rays, geo, blocks, mask, bad, ps.t_min)
+    launches = sw.sweep_masked.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        sw.sweep_masked_launch(rays, geo, blocks, mask, order, ps.t_min)
+    assert sw.sweep_masked.launches == launches
+
+
+def test_sweep_masked_wrapper_picks_rpt_compact(monkeypatch):
+    """The masked kernel's wrapper takes its rays per thread from
+    pick_rpt_compact (the compacted sweep's rule: it is the same kernel),
+    and hands the kernel the order, the mask and its mode.  The launch is
+    recorded instead of made; the tensors stay on the CPU."""
+    ps = mixed_scene()
+    geo, blocks = sw.sweep_table(ps), sw.sweep_blocks(ps)
+    sms = 132
+    seen = []
+
+    def entry(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(sw, "_require_cuda", lambda what, *xs: None)
+    monkeypatch.setattr(sw, "sm_count", lambda device: sms)
+    monkeypatch.setattr(sw, "load_fn", lambda name, symbol, argtypes: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    for R in (1000, 2 * sw.FILL_THREADS * sms, 4 * sw.FILL_THREADS * sms):
+        rays = torch.zeros((7, R))
+        rays[3:6] = 1.0
+        T = -(-R // sw.TILE_R)
+        mask = torch.ones((T, blocks.n_blocks), dtype=torch.int32)
+        order = torch.arange(T, dtype=torch.int32)
+        launches = sw.sweep_masked.launches
+        sw.sweep_masked_launch(rays, geo, blocks, mask, order, ps.t_min)
+        assert sw.sweep_masked.launches == launches + 1
+        args = seen[-1]
+        assert args[14] == sw.pick_rpt_compact(R, sms)      # rays per thread
+        assert args[15] == 1                                 # mask mode
+        assert args[6] is None and args[7] == mask.data_ptr()
+        assert args[8] == order.data_ptr()
+    assert [a[14] for a in seen] == [1, 2, 2]     # dense: pick_rpt's 4
 
 
 def test_sweep_sphere_mxu_plain_matches_jax_and_the_dense_sweep():
@@ -242,7 +322,7 @@ def test_mxu_pack_is_the_jax_packing_and_is_checked():
     cc = ox * ox + oy * oy + oz * oz + (ox * (-2.0 * c[0]) + oy * (
         -2.0 * c[1]) + oz * (-2.0 * c[2]) + c[3])
     disc = b * b - a * cc
-    sd = torch.sqrt(torch.clamp(disc, min=0.0))
+    sd = sw.sqrt_rn(torch.clamp(disc, min=0.0))
     t1, t2 = (-b - sd) * (1.0 / a), (-b + sd) * (1.0 / a)
     tt = torch.where((disc > 0) & (t1 > ps.t_min), t1, torch.where(
         (disc > 0) & (t2 > ps.t_min), t2, float("inf")))

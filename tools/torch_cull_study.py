@@ -29,7 +29,7 @@ import torch  # noqa: E402
 from tpu_ray_torch.ops import build, sweep as sw  # noqa: E402
 
 VOTE = "if (__syncthreads_or(want)) {"
-ENTRY = ("sweep_compact", "tr_sweep_compact")
+ENTRY = ("sweep_compact", "tr_sweep_tiles")
 
 
 def build_without_cull():
@@ -45,7 +45,7 @@ def build_without_cull():
     so = os.path.join(d, "libsweep_compact_nocull.so")
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", build.CSRC,
                     "-o", so, path], check=True, capture_output=True)
-    fn = ctypes.CDLL(so).tr_sweep_compact
+    fn = ctypes.CDLL(so).tr_sweep_tiles
     fn.argtypes = build._fns[ENTRY].argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .vec import sqrt_rn
+
 
 @dataclass(frozen=True)
 class Camera:
@@ -87,7 +89,7 @@ class Camera:
                            u3: torch.Tensor):
         """``getRay`` from 3 pre-drawn uniforms per ray (lens disk r/phi,
         shutter time).  Returns (origin (R,3), direction (R,3), time (R,))."""
-        r = self.lens_radius * torch.sqrt(u3[..., 0])
+        r = self.lens_radius * sqrt_rn(u3[..., 0])
         phi = float(np.float32(2.0 * np.pi)) * u3[..., 1]
         offset = ((r * torch.cos(phi))[..., None] * self.u
                   + (r * torch.sin(phi))[..., None] * self.v)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "sqrt_rn",
     "dot",
     "cross",
     "length",
@@ -22,6 +23,21 @@ __all__ = [
     "onb_local",
     "take_rows",
 ]
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE square root of a float32 tensor, rounded to nearest, as
+    ``jnp.sqrt`` and the CUDA kernels' ``sqrtf`` give it.  ``torch.sqrt`` on
+    the CPU calls a vector library whose float32 result is not correctly
+    rounded (1 ulp off on ~0.6% of inputs); the float64 root rounded to
+    float32 is the correctly rounded float32 root (the double rounding of a
+    square root is harmless).  On the card ``torch.sqrt`` is already
+    correctly rounded (``sqrt.rn.f32``; ``chip_smoke.py`` holds the two
+    equal) and is taken as is, so no conversion launches are added there.
+    Other dtypes take ``torch.sqrt``."""
+    if x.dtype != torch.float32 or x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,13 +58,13 @@ def squared_length(a: torch.Tensor) -> torch.Tensor:
 
 
 def length(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(squared_length(a))
+    return sqrt_rn(squared_length(a))
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:
     """Unit vector; zero vectors map to zero instead of NaN."""
     n2 = squared_length(a)
-    inv = torch.where(n2 > 0.0, 1.0 / torch.sqrt(torch.clamp(n2, min=1e-30)),
+    inv = torch.where(n2 > 0.0, 1.0 / sqrt_rn(torch.clamp(n2, min=1e-30)),
                       torch.zeros_like(n2))
     return a * inv[..., None]
 
@@ -67,7 +83,7 @@ def refract(uv: torch.Tensor, n: torch.Tensor, ratio: torch.Tensor) -> torch.Ten
     cos_theta = dot(-uv, n)
     r_par = ratio[..., None] * (uv + cos_theta[..., None] * n)
     k = torch.clamp(1.0 - squared_length(r_par), min=0.0)
-    return r_par + (-torch.sqrt(k))[..., None] * n
+    return r_par + (-sqrt_rn(k))[..., None] * n
 
 
 def onb_from_w(n: torch.Tensor):

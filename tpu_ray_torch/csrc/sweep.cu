@@ -1,5 +1,6 @@
-// Closest-hit sweeps over the solid primitives: the dense sweep, several rays
-// per thread, and the mask-gated sweep of sorted rays below it.
+// The dense closest-hit sweep over the solid primitives, several rays per
+// thread.  (The sorted sweeps, compacted-list and mask-gated, are in
+// sweep_compact.cu.)
 //
 // Replaces the TPU kernels tpu_ray/ops/intersect_pallas.py::_sphere_kernel,
 // _box_kernel and _quad_kernel (launched per kind range by _sweep_range from
@@ -30,8 +31,8 @@
 // exists, so the TPU kernels' padding hazards (r^2 = 0 spheres, degenerate
 // boxes, n = 0 quads) do not arise; NaN still fails every comparison, which
 // needs IEEE arithmetic (built without fast math, with --fmad=false).  The
-// per-pair math lives in sweep_pairs.cuh, shared with the compacted-list
-// sweep and the megakernel, which keeps the three bit-equal.  The wrapper
+// per-pair math lives in sweep_pairs.cuh, shared with the sorted sweeps and
+// the megakernel, which keeps them all bit-equal.  The wrapper
 // (tpu_ray_torch/ops/sweep.py::pick_rpt) takes RPT > 1 only where the grid
 // still fills every SM (the pool path launches most sweeps on partly
 // filled pools, where one ray per thread keeps more warps in flight), and
@@ -56,8 +57,6 @@
 
 #define CHUNK 256
 #define THREADS 128
-#define PBLK 128
-#define TILE_R 256
 
 template <int RPT>
 __global__ void __launch_bounds__(THREADS)
@@ -141,72 +140,5 @@ extern "C" int tr_sweep(const float* rays, long long R, const float* geo,
         rays, R, geo, n_ss, n_s, n_sb, n_solid, t_min, out_t, out_i);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-// Mask-gated sweep: one thread block per 256-ray tile of sorted rays.
-//
-// Replaces the cull=True mode of the same three TPU kernels (_sphere_kernel,
-// _box_kernel, _quad_kernel with the needed mask of
-// intersect_pallas._needed_mask, wired in _sweep_range): a block of at most
-// 128 prim rows is swept for a tile only where mask[tile, block] is not 0,
-// that is where some ray of the tile can enter the block's box
-// (tpu_ray_torch/ops/sweep.py::needed_mask).  Skipping is exact, so (t, i)
-// equals the dense sweep's bit for bit.  The blocks are the compacted
-// sweep's (unpadded runs of one kind with a (B, 3) descriptor: first row, row
-// count, kind), visited in table order; a visited block's rows are staged in
-// shared memory (8 KB) and merged with a strict '<', which in ascending
-// order keeps the first row of the minimum as the dense sweep does.  The
-// mask word is the same for the whole thread block, so the skip costs one
-// broadcast load and no divergence.  With ``perm`` the results are written
-// to out[perm[ray]], un-permuting the sorted rays in the same pass.  Its
-// bound is the dense sweep's for the same rays and prims.
-__global__ void __launch_bounds__(TILE_R)
-sweep_masked_kernel(const float* __restrict__ rays, long long R,
-                    const float* __restrict__ geo,
-                    const int* __restrict__ desc,
-                    const int* __restrict__ mask, int n_blocks, float t_min,
-                    const long long* __restrict__ perm,
-                    float* __restrict__ out_t, int* __restrict__ out_i) {
-  __shared__ __align__(16) float sg[PBLK * ROW];
-  const long long tile = blockIdx.x;
-  const long long i = tile * TILE_R + threadIdx.x;
-  const bool live = i < R;
-  const Ray r = load_ray(rays, R, live ? i : 0);
-  float bt = __int_as_float(0x7f800000);
-  int bi = 0;
-
-  const int* mine = mask + tile * n_blocks;
-  for (int b = 0; b < n_blocks; ++b) {
-    if (mine[b] == 0) continue;
-    const int start = desc[3 * b], rows = desc[3 * b + 1];
-    __syncthreads();
-    for (int q = threadIdx.x; q < rows * ROW; q += TILE_R)
-      sg[q] = geo[(long long)start * ROW + q];
-    __syncthreads();
-    float lt;
-    int li;
-    block_min(sg, r, start, rows, desc[3 * b + 2], t_min, lt, li);
-    if (lt < bt) { bt = lt; bi = li; }
-  }
-  if (live) {
-    const long long o = perm ? perm[i] : i;
-    out_t[o] = bt;
-    out_i[o] = bi;
-  }
-}
-
-// rays (7, R) f32 (sorted), geo (n_solid, 16) f32, desc (B, 3) i32, mask
-// (T, B) i32 with T = ceil(R / 256), perm (R) i64 or null, out_t / out_i
-// (R).  Returns the launch's cudaError_t (0 = launched).
-extern "C" int tr_sweep_masked(const float* rays, long long R,
-                               const float* geo, const int* desc,
-                               const int* mask, int n_blocks, float t_min,
-                               const long long* perm, float* out_t,
-                               int* out_i, void* stream) {
-  if (R <= 0) return 0;
-  const long long tiles = (R + TILE_R - 1) / TILE_R;
-  sweep_masked_kernel<<<(unsigned)tiles, TILE_R, 0, (cudaStream_t)stream>>>(
-      rays, R, geo, desc, mask, n_blocks, t_min, perm, out_t, out_i);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,15 @@
-// The sorted, compacted-list sweep: the tile-list pass and the sweep over the
-// lists, one thread block per 256-ray tile of sorted rays.
+// The sorted sweeps: the tile-list pass, and one sweep over a per-tile list
+// of blocks that serves both the compacted-list sweep and the mask-gated
+// sweep, one thread block per 256-ray tile of sorted rays.
 //
 // Replaces the TPU kernel tpu_ray/ops/intersect_pallas.py::_compact_kernel
 // (launched per kind range by _sweep_range_compact when
 // intersect_solids_pallas runs with sort=True) and the XLA block lists it
-// takes (_tile_lists; the same pass also writes _needed_mask's (T, B) mask
-// for the mask-gated kernel of sweep.cu).  Rays arrive sorted by direction
-// octant and origin Morton code, so the rays of a tile are coherent and most
-// 128-prim blocks can be culled for the whole tile.
+// takes (_tile_lists), and the cull=True mode of _sphere_kernel, _box_kernel
+// and _quad_kernel (wired in _sweep_range) with the (T, B) needed mask of
+// _needed_mask, which the same list pass writes.  Rays arrive sorted by
+// direction octant and origin Morton code, so the rays of a tile are coherent
+// and most 128-prim blocks can be culled for the whole tile.
 //
 // The list pass (tile_lists_kernel).  One thread per ray slab-tests its ray
 // against every block box with tpu_ray_torch/ops/sweep.py::_slab_need's rule
@@ -20,36 +22,39 @@
 // the float order); one shared atomic per warp and block merges the eight
 // warps.  Then thread b ranks block b by (key, block id) - the order of
 // torch.argsort(stable=True) over keys that are +inf for unneeded blocks -
-// and writes lst[tile, rank] = b, cnt[tile] and, when asked, mask[tile, b].
-// With the lists, the block that finishes last (one atomic counter) also
-// writes the tile order: the tiles by descending cnt.  The sweep runs them
-// in that order, so the tiles with long lists start first and the grid's
-// tail stays short.
+// and writes lst[tile, rank] = b or, in mask mode, mask[tile, b], and
+// cnt[tile].  The block that finishes last (one atomic counter) also writes
+// the tile order: the tiles by descending cnt.  The sweeps run them in that
+// order, so the tiles with long lists start first and the grid's tail stays
+// short.
 //
-// The sweep (sweep_compact_kernel<RPT>).  The tile's list, with each listed
-// block's descriptor (first row, row count <= 128, kind) and box, is read
-// into shared memory once.  Each thread holds RPT of the tile's rays (1 or
-// 2: runs of 256 / RPT consecutive rays, coalesced), each with its own
-// running (t, prim).  Listed blocks are staged double-buffered: the rows of
-// block j + 1 are copied with cp.async while block j is tested.  Before
-// testing a block the tile votes (__syncthreads_or): a live ray wants the
-// block only where its own slab test needs it and its entry distance, less
-// the slack, is <= its best t so far.  A hit inside the block lies past
-// tn - slack, so a block no ray wants can neither win nor tie: the lists run
-// near to far, and far blocks of a tile whose rays have all hit something
-// nearer are skipped without changing a bit.  Pair tests are the dense
-// sweep's (sweep_pairs.cuh: the two-pass sphere sweep, the slab and quad
-// tests), in ascending row order with a strict '<'; blocks merge with the
-// lower-prim-id tie-break closer = (t < best) | (t == best & i < best_i),
-// which makes (t, i) independent of the list order and bit-equal to the
-// dense sweep.  With ``perm`` the results go to out[perm[ray]], which
-// un-permutes the sorted rays in the same pass.
+// The sweep (sweep_tiles_kernel<RPT, MASKED>).  The tile's list, with each
+// listed block's descriptor (first row, row count <= 128, kind) and box, is
+// read into shared memory once: for the compacted sweep lst[tile, :cnt], near
+// to far; for the mask-gated sweep the blocks of the tile's mask row, in
+// table order (a block-wide scan of warp ballots).  Each thread holds RPT of
+// the tile's rays (1 or 2: runs of 256 / RPT consecutive rays, coalesced),
+// each with its own running (t, prim).  Listed blocks are staged
+// double-buffered: the rows of block j + 1 are copied with cp.async while
+// block j is tested.  Before testing a block the tile votes
+// (__syncthreads_or): a live ray wants the block only where its own slab test
+// needs it and its entry distance, less the slack, is <= its best t so far.
+// A hit inside the block lies past tn - slack, so a block no ray wants can
+// neither win nor tie: blocks of a tile whose rays have all hit something
+// nearer are skipped without changing a bit (near-to-far lists skip more of
+// them than table order does).  Pair tests are the dense sweep's
+// (sweep_pairs.cuh: the two-pass sphere sweep, the slab and quad tests), in
+// ascending row order with a strict '<'; blocks merge with the lower-prim-id
+// tie-break closer = (t < best) | (t == best & i < best_i), which makes (t, i)
+// independent of the list order and bit-equal to the dense sweep.  With
+// ``perm`` the results go to out[perm[ray]], which un-permutes the sorted
+// rays in the same pass.
 //
 // Bound.  The dense sweep's operations over the (tile, block) pairs the
-// lists name (next-week-final, 1M sorted bounce-1 rays: 27% of the pairs,
-// 0.134 ms at 67 TFLOP/s; chip_smoke.py::listed_flops); the list pass is
-// bound by its bytes (24 in per ray, the lists out: 0.007 ms there) and
-// does ~20 operations per (ray, block).
+// lists or the mask name (next-week-final, 1M sorted bounce-1 rays: 27% of
+// the pairs, 0.134 ms at 67 TFLOP/s; chip_smoke.py::listed_flops); the list
+// pass is bound by its bytes (24 in per ray, the lists out: 0.007 ms there)
+// and does ~20 operations per (ray, block).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,25 +147,24 @@ tile_lists_kernel(const float* __restrict__ rays, long long R,
   __syncthreads();
 
   for (int b = threadIdx.x; b < n_blocks; b += TILE_R) {
-    const unsigned kb = s_need[b] ? s_key[b] : 0x7f800000u;
-    int rank = 0;
-    for (int j = 0; j < n_blocks; ++j) {
-      const unsigned kj = s_need[j] ? s_key[j] : 0x7f800000u;
-      rank += (kj < kb) || (kj == kb && j < b);
+    if (lst) {
+      const unsigned kb = s_need[b] ? s_key[b] : 0x7f800000u;
+      int rank = 0;
+      for (int j = 0; j < n_blocks; ++j) {
+        const unsigned kj = s_need[j] ? s_key[j] : 0x7f800000u;
+        rank += (kj < kb) || (kj == kb && j < b);
+      }
+      lst[tile * n_blocks + rank] = b;
     }
-    if (lst) lst[tile * n_blocks + rank] = b;
     if (mask) mask[tile * n_blocks + b] = (int)s_need[b];
     if (s_need[b]) atomicAdd(&s_cnt, 1);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     cnt[tile] = s_cnt;
-    if (order) {
-      __threadfence();                   // cnt[tile] before the count
-      s_last = atomicAdd(done, 1u) == gridDim.x - 1;
-    }
+    __threadfence();                     // cnt[tile] before the count
+    s_last = atomicAdd(done, 1u) == gridDim.x - 1;
   }
-  if (!order) return;
   __syncthreads();
   if (!s_last) return;
   // the last block orders the tiles by descending list length (a counting
@@ -212,35 +216,90 @@ __device__ __forceinline__ void stage_rows(float* dst,
   cp_async_commit();
 }
 
-template <int RPT>
+// list entry j <- block b: its descriptor and box
+__device__ __forceinline__ void list_block(int j, int b,
+                                           const int* __restrict__ desc,
+                                           const float* __restrict__ blo,
+                                           const float* __restrict__ bhi,
+                                           int* s_desc, float* s_box) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    s_desc[3 * j + q] = desc[3 * b + q];
+    s_box[6 * j + q] = blo[3 * b + q];
+    s_box[6 * j + 3 + q] = bhi[3 * b + q];
+  }
+}
+
+// The tile's list of blocks in shared memory, returning its length.  From
+// the list pass's lists (MASKED false): lst[tile, :cnt[tile]], near to far.
+// From the needed mask (MASKED true): the blocks whose mask word is set, in
+// table order, by a block-wide scan of warp ballots (NT / 32 counts in
+// s_wc).
+template <int NT, bool MASKED>
+__device__ __forceinline__ int tile_list(long long tile,
+                                         const int* __restrict__ cnt,
+                                         const int* __restrict__ sel,
+                                         int n_blocks,
+                                         const int* __restrict__ desc,
+                                         const float* __restrict__ blo,
+                                         const float* __restrict__ bhi,
+                                         int* s_desc, float* s_box,
+                                         int* s_wc) {
+  const int* mine = sel + tile * n_blocks;
+  if (!MASKED) {
+    const int n = cnt[tile];
+    for (int j = threadIdx.x; j < n; j += NT)
+      list_block(j, mine[j], desc, blo, bhi, s_desc, s_box);
+    return n;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int n = 0;
+  for (int b0 = 0; b0 < n_blocks; b0 += NT) {
+    const int b = b0 + threadIdx.x;
+    const bool on = b < n_blocks && mine[b] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) s_wc[warp] = __popc(bal);
+    __syncthreads();
+    int j = n + __popc(bal & ((1u << lane) - 1u));
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      j += w < warp ? s_wc[w] : 0;
+      total += s_wc[w];
+    }
+    if (on) list_block(j, b, desc, blo, bhi, s_desc, s_box);
+    n += total;
+    __syncthreads();                           // s_wc is written again
+  }
+  return n;
+}
+
+// One thread block per 256-ray tile of sorted rays, in ``order``, RPT rays
+// a thread: the compacted-list sweep (MASKED false, sel = lst) and the
+// mask-gated sweep (MASKED true, sel = mask) share this loop and differ only
+// in where the tile's list comes from.
+template <int RPT, bool MASKED>
 __global__ void __launch_bounds__(TILE_R / RPT)
-sweep_compact_kernel(const float* __restrict__ rays, long long R,
-                     const float* __restrict__ geo,
-                     const int* __restrict__ desc,
-                     const float* __restrict__ blo,
-                     const float* __restrict__ bhi,
-                     const int* __restrict__ cnt,
-                     const int* __restrict__ lst, int n_blocks, float t_min,
-                     const long long* __restrict__ perm,
-                     float* __restrict__ out_t, int* __restrict__ out_i,
-                     unsigned long long* __restrict__ stats,
-                     const int* __restrict__ order) {
+sweep_tiles_kernel(const float* __restrict__ rays, long long R,
+                   const float* __restrict__ geo,
+                   const int* __restrict__ desc,
+                   const float* __restrict__ blo,
+                   const float* __restrict__ bhi,
+                   const int* __restrict__ cnt,
+                   const int* __restrict__ sel, int n_blocks, float t_min,
+                   const long long* __restrict__ perm,
+                   float* __restrict__ out_t, int* __restrict__ out_i,
+                   unsigned long long* __restrict__ stats,
+                   const int* __restrict__ order) {
   constexpr int NT = TILE_R / RPT;
   extern __shared__ float4 smem4[];
+  __shared__ int s_wc[NT / 32];
   float* smem = reinterpret_cast<float*>(smem4);        // 2 row buffers
   int* s_desc = (int*)(smem + 2 * PBLK * ROW);          // (n, 3) listed
   float* s_box = (float*)(s_desc + 3 * n_blocks);       // (n, 6) listed
   const long long tile = order[blockIdx.x];
-  const int n = cnt[tile];
-  for (int j = threadIdx.x; j < n; j += NT) {
-    const int b = lst[tile * n_blocks + j];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      s_desc[3 * j + q] = desc[3 * b + q];
-      s_box[6 * j + q] = blo[3 * b + q];
-      s_box[6 * j + 3 + q] = bhi[3 * b + q];
-    }
-  }
+  const int n = tile_list<NT, MASKED>(tile, cnt, sel, n_blocks, desc, blo,
+                                      bhi, s_desc, s_box, s_wc);
 
   Ray r[RPT];
   float o[RPT][3], v[RPT][3];
@@ -268,7 +327,7 @@ sweep_compact_kernel(const float* __restrict__ rays, long long R,
     } else {
       cp_async_wait<0>();
     }
-    // front-to-back cull: does any live ray still want block j?
+    // the cull: does any live ray still want block j?
     int want = 0;
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
@@ -280,41 +339,10 @@ sweep_compact_kernel(const float* __restrict__ rays, long long R,
     // (the barrier also makes every thread's copy of block j visible)
     if (__syncthreads_or(want)) {
       ++tested;
-      const float* sg = smem + (j & 1) * PBLK * ROW;
-      const int start = s_desc[3 * j], rows = s_desc[3 * j + 1];
-      const int kind = s_desc[3 * j + 2];
       float lt[RPT];
       int li[RPT];
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        lt[k] = __int_as_float(0x7f800000);
-        li[k] = 0;
-      }
-      if (kind == 0) {
-        sphere_sweep<RPT, false>(sg, 0, rows, r, t_min, start, lt, li);
-      } else if (kind == 1) {
-        sphere_sweep<RPT, true>(sg, 0, rows, r, t_min, start, lt, li);
-      } else if (kind == 2) {
-        for (int q = 0; q < rows; ++q) {
-          const float4* g = row(sg, q);
-          const float4 a = g[0], b = g[1];
-#pragma unroll
-          for (int k = 0; k < RPT; ++k) {
-            const float t = hit_box(a, b, r[k], t_min);
-            if (t < lt[k]) { lt[k] = t; li[k] = start + q; }
-          }
-        }
-      } else {
-        for (int q = 0; q < rows; ++q) {
-          const float4* g = row(sg, q);
-          const float4 a = g[0], b = g[1], c = g[2], d = g[3];
-#pragma unroll
-          for (int k = 0; k < RPT; ++k) {
-            const float t = hit_quad(a, b, c, d, r[k], t_min);
-            if (t < lt[k]) { lt[k] = t; li[k] = start + q; }
-          }
-        }
-      }
+      block_sweep<RPT>(smem + (j & 1) * PBLK * ROW, s_desc[3 * j],
+                       s_desc[3 * j + 1], s_desc[3 * j + 2], r, t_min, lt, li);
 #pragma unroll
       for (int k = 0; k < RPT; ++k)
         if (lt[k] < bt[k] || (lt[k] == bt[k] && li[k] < bi[k])) {
@@ -354,14 +382,15 @@ static int allow_smem(K kernel, size_t bytes) {
 }
 
 // rays (7, R) f32 (sorted); blo / bhi (B, 3) f32 block boxes.  Writes cnt
-// (T) with T = ceil(R / 256) and, where not null, lst (T, B), mask (T, B)
-// and order (T), the tiles by descending cnt; ``done``, one zeroed u32,
-// must be given with ``order``.  Returns the launch's cudaError_t.
+// (T) with T = ceil(R / 256), order (T), the tiles by descending cnt, and
+// lst (T, B) or mask (T, B), whichever is not null; ``done`` is one zeroed
+// u32.  Returns the launch's cudaError_t.
 extern "C" int tr_tile_lists(const float* rays, long long R, const float* blo,
                              const float* bhi, int n_blocks, float t_min,
                              int* cnt, int* lst, int* mask, int* order,
                              unsigned* done, void* stream) {
   if (R <= 0 || n_blocks <= 0) return 0;
+  if (!order || !done || !lst == !mask) return (int)cudaErrorInvalidValue;
   const long long tiles = (R + TILE_R - 1) / TILE_R;
   const size_t bytes = list_smem(n_blocks);
   int err = allow_smem(tile_lists_kernel, bytes);
@@ -371,45 +400,50 @@ extern "C" int tr_tile_lists(const float* rays, long long R, const float* blo,
   return (int)cudaGetLastError();
 }
 
-template <int RPT>
-static int launch_compact(const float* rays, long long R, const float* geo,
-                          const int* desc, const float* blo, const float* bhi,
-                          const int* cnt, const int* lst, int n_blocks,
-                          float t_min, const long long* perm, float* out_t,
-                          int* out_i, unsigned long long* stats,
-                          const int* order, cudaStream_t st) {
+template <int RPT, bool MASKED>
+static int launch_tiles(const float* rays, long long R, const float* geo,
+                        const int* desc, const float* blo, const float* bhi,
+                        const int* cnt, const int* sel, int n_blocks,
+                        float t_min, const long long* perm, float* out_t,
+                        int* out_i, unsigned long long* stats,
+                        const int* order, cudaStream_t st) {
   const long long tiles = (R + TILE_R - 1) / TILE_R;
   const size_t bytes = sweep_smem(n_blocks);
-  int err = allow_smem(sweep_compact_kernel<RPT>, bytes);
+  int err = allow_smem(sweep_tiles_kernel<RPT, MASKED>, bytes);
   if (err) return err;
-  sweep_compact_kernel<RPT><<<(unsigned)tiles, TILE_R / RPT, bytes, st>>>(
-      rays, R, geo, desc, blo, bhi, cnt, lst, n_blocks, t_min, perm, out_t,
+  sweep_tiles_kernel<RPT, MASKED><<<(unsigned)tiles, TILE_R / RPT, bytes,
+                                    st>>>(
+      rays, R, geo, desc, blo, bhi, cnt, sel, n_blocks, t_min, perm, out_t,
       out_i, stats, order);
   return (int)cudaGetLastError();
 }
 
 // rays (7, R) f32 (sorted), geo (n_solid, 16) f32 (16-byte aligned), desc
-// (B, 3) i32, blo / bhi (B, 3) f32, cnt (T) i32 with T = ceil(R / 256), lst
-// (T, B) i32, order (T) i32 (the tiles in launch order: a permutation; all
-// give the same bits), perm (R) i64 or null, out_t / out_i (R), rpt 1 or 2
-// (both give the same bits), stats (2) u64 or null: listed and skipped
-// (tile, block) pairs are added to it.  Returns the launch's cudaError_t.
-extern "C" int tr_sweep_compact(const float* rays, long long R,
-                                const float* geo, const int* desc,
-                                const float* blo, const float* bhi,
-                                const int* cnt, const int* lst,
-                                const int* order, int n_blocks, float t_min,
-                                const long long* perm, float* out_t,
-                                int* out_i, int rpt,
-                                unsigned long long* stats, void* stream) {
+// (B, 3) i32, blo / bhi (B, 3) f32; with ``masked`` 0 the lists: cnt (T) i32
+// with T = ceil(R / 256) and sel = lst (T, B) i32; with ``masked`` 1 sel =
+// the needed mask (T, B) i32 (cnt unread, may be null).  order (T) i32: the
+// tiles in launch order, a permutation (all give the same bits); perm (R)
+// i64 or null, out_t / out_i (R), rpt 1 or 2 (both give the same bits),
+// stats (2) u64 or null: listed (needed) and skipped (tile, block) pairs
+// are added to it.  Returns the launch's cudaError_t.
+extern "C" int tr_sweep_tiles(const float* rays, long long R, const float* geo,
+                              const int* desc, const float* blo,
+                              const float* bhi, const int* cnt, const int* sel,
+                              const int* order, int n_blocks, float t_min,
+                              const long long* perm, float* out_t, int* out_i,
+                              int rpt, int masked, unsigned long long* stats,
+                              void* stream) {
   if (R <= 0) return 0;
-  if (!order) return (int)cudaErrorInvalidValue;
+  if (!order || (!masked && !cnt)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (rpt == 2)
-    return launch_compact<2>(rays, R, geo, desc, blo, bhi, cnt, lst, n_blocks,
-                             t_min, perm, out_t, out_i, stats, order, st);
-  if (rpt == 1)
-    return launch_compact<1>(rays, R, geo, desc, blo, bhi, cnt, lst, n_blocks,
-                             t_min, perm, out_t, out_i, stats, order, st);
+#define TR_LAUNCH(K, M)                                                    \
+  return launch_tiles<K, M>(rays, R, geo, desc, blo, bhi, cnt, sel,         \
+                            n_blocks, t_min, perm, out_t, out_i, stats,     \
+                            order, st)
+  if (rpt == 2 && masked) TR_LAUNCH(2, true);
+  if (rpt == 1 && masked) TR_LAUNCH(1, true);
+  if (rpt == 2) TR_LAUNCH(2, false);
+  if (rpt == 1) TR_LAUNCH(1, false);
+#undef TR_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-// Per-(ray, prim) hit distances shared by the dense and the mask-gated sweep
-// (sweep.cu), the compacted-list sweep (sweep_compact.cu) and the whole-wave
+// Per-(ray, prim) hit distances shared by the dense sweep (sweep.cu), the
+// compacted-list and mask-gated sweeps (sweep_compact.cu) and the whole-wave
 // megakernel (megakernel.cu): the kernels must return the same t bit for bit,
 // so they run this one copy of the math.  Each function returns the hit
 // distance of one prim row (16 floats, layout in tpu_ray_torch/ops/sweep.py)
@@ -203,37 +203,42 @@ __device__ __forceinline__ float hit_quad(float4 a, float4 b, float4 c,
   return ok ? tq : INF;
 }
 
-// closest hit (lt, li) of a ray over ``rows`` staged prim rows of one kind
-// (0 static sphere, 1 moving sphere, 2 box, 3 quad; table rows start..), in
-// ascending row order with a strict '<': the first row of the minimum
-__device__ __forceinline__ void block_min(const float* sg, const Ray& r,
-                                          int start, int rows, int kind,
-                                          float t_min, float& lt, int& li) {
-  lt = __int_as_float(0x7f800000);
-  li = 0;
+// closest hits (lt, li) of RPT rays over ``rows`` staged prim rows of one
+// kind (0 static sphere, 1 moving sphere, 2 box, 3 quad; table rows
+// start..), each from +inf, in ascending row order with a strict '<': the
+// first row of the minimum
+template <int RPT>
+__device__ __forceinline__ void block_sweep(const float* sg, int start,
+                                            int rows, int kind, const Ray* r,
+                                            float t_min, float* lt, int* li) {
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    lt[k] = __int_as_float(0x7f800000);
+    li[k] = 0;
+  }
   if (kind == 0) {
-    for (int k = 0; k < rows; ++k) {
-      const float4* g = row(sg, k);
-      const float t = hit_sphere(g[0], g[1], r, t_min);
-      if (t < lt) { lt = t; li = start + k; }
-    }
+    sphere_sweep<RPT, false>(sg, 0, rows, r, t_min, start, lt, li);
   } else if (kind == 1) {
-    for (int k = 0; k < rows; ++k) {
-      const float4* g = row(sg, k);
-      const float t = hit_moving(g[0], g[1], r, t_min);
-      if (t < lt) { lt = t; li = start + k; }
-    }
+    sphere_sweep<RPT, true>(sg, 0, rows, r, t_min, start, lt, li);
   } else if (kind == 2) {
-    for (int k = 0; k < rows; ++k) {
-      const float4* g = row(sg, k);
-      const float t = hit_box(g[0], g[1], r, t_min);
-      if (t < lt) { lt = t; li = start + k; }
+    for (int q = 0; q < rows; ++q) {
+      const float4* g = row(sg, q);
+      const float4 a = g[0], b = g[1];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const float t = hit_box(a, b, r[k], t_min);
+        if (t < lt[k]) { lt[k] = t; li[k] = start + q; }
+      }
     }
   } else {
-    for (int k = 0; k < rows; ++k) {
-      const float4* g = row(sg, k);
-      const float t = hit_quad(g[0], g[1], g[2], g[3], r, t_min);
-      if (t < lt) { lt = t; li = start + k; }
+    for (int q = 0; q < rows; ++q) {
+      const float4* g = row(sg, q);
+      const float4 a = g[0], b = g[1], c = g[2], d = g[3];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const float t = hit_quad(a, b, c, d, r[k], t_min);
+        if (t < lt[k]) { lt[k] = t; li[k] = start + q; }
+      }
     }
   }
 }

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from .core import rng
+from .core.vec import sqrt_rn
 from .models.scene_data import SceneData
 from .ops.hit_scatter import hit_scatter
 from .ops.intersect import intersect_ti, media_rows
@@ -334,7 +335,7 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     sx = ((pix % width).to(torch.float32) + u0) * cfg.inv_w
     sy = ((height - 1 - pix // width).to(torch.float32) + u1) * cfg.inv_h
     cam = [float(c) for c in cfg.cam]
-    r = cam[18] * torch.sqrt(u2)
+    r = cam[18] * sqrt_rn(u2)
     phi = rng.TWO_PI * u3
     rc, rs = r * torch.cos(phi), r * torch.sin(phi)
     off = [rc * cam[12 + a] + rs * cam[15 + a] for a in range(3)]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..core.vec import sqrt_rn
 from ..models.scene_data import PRIM_MEDIUM_SPHERE, SceneData
 from .sweep import MxuPack, SweepBlocks, _ranges, sweep_solids, sweep_table
 
@@ -58,7 +59,7 @@ def _media_t(scene: SceneData, rays: torch.Tensor, kd, lane_ids, media):
     t_min = float(np.float32(scene.t_min))
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
-    dlen = torch.sqrt(a)
+    dlen = sqrt_rn(a)
     u_med = rng.lane_uniforms(kd, lane_ids, scene.n_media)
     out = []
     for m in media:
@@ -68,7 +69,7 @@ def _media_t(scene: SceneData, rays: torch.Tensor, kd, lane_ids, media):
             b = ocx * dx + ocy * dy + ocz * dz
             cq = ocx * ocx + ocy * ocy + ocz * ocz - m["r2"]
             disc = b * b - a * cq
-            sd = torch.sqrt(torch.clamp(disc, min=0.0))
+            sd = sqrt_rn(torch.clamp(disc, min=0.0))
             te = (-b - sd) * inv_a
             tx = (-b + sd) * inv_a
             exists = disc > 0.0

@@ -37,6 +37,7 @@ import torch
 
 from ..core import rng
 from ..core.rng import M32, as_u32, fmix, hash_col
+from ..core.vec import sqrt_rn
 from ..models.scene_data import (
     LIGHT_QUAD,
     MAT_DIELECTRIC,
@@ -203,7 +204,7 @@ def _where3(m, a, b):
 
 def _normalize(a):
     n2 = _dot(a, a)
-    inv = torch.where(n2 > 0.0, 1.0 / torch.sqrt(torch.clamp(n2, min=1e-30)),
+    inv = torch.where(n2 > 0.0, 1.0 / sqrt_rn(torch.clamp(n2, min=1e-30)),
                       0.0)
     return (a[0] * inv, a[1] * inv, a[2] * inv)
 
@@ -216,7 +217,7 @@ def _reflect(v, n):
 def _refract(uv, n, ratio):
     cos_theta = _dot((-uv[0], -uv[1], -uv[2]), n)
     rp = tuple(ratio * (uv[i] + cos_theta * n[i]) for i in range(3))
-    s = -torch.sqrt(torch.clamp(1.0 - _dot(rp, rp), min=0.0))
+    s = -sqrt_rn(torch.clamp(1.0 - _dot(rp, rp), min=0.0))
     return tuple(rp[i] + s * n[i] for i in range(3))
 
 
@@ -237,23 +238,23 @@ def _onb_local(uvw, x):
 def _unit_vector_from(u0, u1):
     a = TWO_PI * u0
     z = 2.0 * u1 - 1.0
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = sqrt_rn(torch.clamp(1.0 - z * z, min=0.0))
     return (r * torch.cos(a), r * torch.sin(a), z)
 
 
 def _cosine_direction_from(u0, u1):
-    z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    z = sqrt_rn(torch.clamp(1.0 - u1, min=0.0))
     phi = TWO_PI * u0
-    sq = torch.sqrt(u1)
+    sq = sqrt_rn(u1)
     return (torch.cos(phi) * sq, torch.sin(phi) * sq, z)
 
 
 def _to_sphere_from(u0, u1, radius, dist_squared):
-    ctm = torch.sqrt(torch.clamp(1.0 - radius * radius / dist_squared,
+    ctm = sqrt_rn(torch.clamp(1.0 - radius * radius / dist_squared,
                                  min=0.0))
     z = 1.0 + u1 * (ctm - 1.0)
     phi = TWO_PI * u0
-    sq = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    sq = sqrt_rn(torch.clamp(1.0 - z * z, min=0.0))
     return (torch.cos(phi) * sq, torch.sin(phi) * sq, z)
 
 
@@ -479,10 +480,10 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
                 oc2 = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2]
                 r2 = float(f32(lr(12)) * f32(lr(12)))
                 disc_ = bq * bq - (oc2 - r2)
-                sd_ = torch.sqrt(torch.clamp(disc_, min=0.0))
+                sd_ = sqrt_rn(torch.clamp(disc_, min=0.0))
                 hit_s = (disc_ > 0.0) & ((-bq - sd_ > t_min)
                                          | (-bq + sd_ > t_min))
-                ctm = torch.sqrt(torch.clamp(
+                ctm = sqrt_rn(torch.clamp(
                     1.0 - r2 / torch.clamp(oc2, min=1e-12), min=0.0))
                 solid = TWO_PI * (1.0 - ctm)
                 pdf_s = torch.where(hit_s,
@@ -508,7 +509,7 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
         ratio = torch.where(front, 1.0 / ri, ri)
         cos_theta = torch.clamp(
             _dot((-unit_d[0], -unit_d[1], -unit_d[2]), n_vec), max=1.0)
-        sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
+        sin_theta = sqrt_rn(torch.clamp(1.0 - cos_theta * cos_theta,
                                            min=0.0))
         q = (1.0 - ratio) / (1.0 + ratio)
         r0 = q * q
@@ -589,7 +590,7 @@ def pool_step_plain(cfg: StepConfig, xy, slot, fstate, istate, best_t,
     u0, u1, u2, u3, u4 = (hash_col(base, i) for i in range(5))
     sx = xs + u0 * cfg.inv_w
     sy = ys + u1 * cfg.inv_h
-    r = cam[18] * torch.sqrt(u2)
+    r = cam[18] * sqrt_rn(u2)
     phi = TWO_PI * u3
     rc, rs = r * torch.cos(phi), r * torch.sin(phi)
     off = tuple(rc * cam[12 + i] + rs * cam[15 + i] for i in range(3))

@@ -28,14 +28,16 @@ list pass of the same source, :func:`list_pass`; its plain twin
 lies inside its block's box - and a lower-prim-id tie-break makes ``(t,
 i)`` bit-equal to the dense sweep's.
 
-Two more sweeps compute the same function.  The mask-gated sweep (a second
-kernel in ``csrc/sweep.cu``, replacing the ``cull=True`` mode of the three
-TPU kernels) takes the same sorted rays and blocks with a (tiles, blocks)
-mask from :func:`needed_mask` instead of lists: :func:`sweep_masked` /
-:func:`sweep_masked_plain`, bit-equal to the dense sweep too.  The
-matrix-product sphere sweep (``csrc/sweep_mxu.cu``, replacing
-``intersect_pallas.py::_sphere_mxu_kernel``) covers the static-sphere range
-with the quadratic expanded around the range centroid:
+Two more sweeps compute the same function.  The mask-gated sweep (the same
+kernel of ``csrc/sweep_compact.cu`` in its mask mode, replacing the
+``cull=True`` mode of the three TPU kernels) takes the same sorted rays and
+blocks with a (tiles, blocks) mask from :func:`needed_mask` instead of lists
+(each tile's list is the needed blocks in table order; :func:`tile_mask`
+gives the mask and the tiles' launch order in one list-pass launch):
+:func:`sweep_masked` / :func:`sweep_masked_plain`, bit-equal to the dense
+sweep too.  The matrix-product sphere sweep (``csrc/sweep_mxu.cu``,
+replacing ``intersect_pallas.py::_sphere_mxu_kernel``) covers the
+static-sphere range with the quadratic expanded around the range centroid:
 :func:`sweep_sphere_mxu` / :func:`sweep_sphere_mxu_plain`; it reassociates
 the arithmetic, so it agrees with the dense sweep to ~1e-5 relative, not bit
 for bit (the kernel, on the tensor cores, gives its plain twin's bits).
@@ -50,6 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.vec import sqrt_rn
 from ..models.scene_data import SceneData
 from .build import load_fn
 
@@ -113,17 +116,6 @@ def _check(rays: torch.Tensor, geo: torch.Tensor):
     if geo.dtype != torch.float32 or not geo.is_contiguous() \
             or geo.dim() != 2 or geo.shape[1] != ROW:
         raise ValueError("prim table must be a contiguous (n, 16) float32")
-
-
-def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """The IEEE square root of a float32 tensor, rounded to nearest, as
-    the CUDA kernels' ``sqrtf``.  ``torch.sqrt`` on the CPU calls MKL's
-    vector library, whose float32 result is not correctly rounded (it
-    differs from IEEE in the last bit on ~0.7% of inputs) and follows its
-    run-time code path; the float64 root rounded to float32 is the
-    correctly rounded float32 root (the double rounding of a square root
-    is harmless), on any device."""
-    return torch.sqrt(x.double()).float()
 
 
 def _block_t(rays, geo, lo, hi, kind, t_min):
@@ -229,11 +221,11 @@ def pick_rpt(R: int, sms: int, n_solid: int) -> int:
 
 
 def pick_rpt_compact(R: int, sms: int) -> int:
-    """Rays per thread of the compacted sweep for R sorted rays on a card of
-    ``sms`` SMs: 2 where the grid still gives every SM ``FILL_THREADS``
-    threads at 2, else 1 (the kernel has no build for 4: four rays a thread
-    cost 124 registers and were slower at next-week-final).  Both choices
-    give the same bits."""
+    """Rays per thread of the sorted sweeps (compacted and mask-gated: one
+    kernel) for R sorted rays on a card of ``sms`` SMs: 2 where the grid
+    still gives every SM ``FILL_THREADS`` threads at 2, else 1 (the kernel
+    has no build for 4: four rays a thread cost 124 registers and were
+    slower at next-week-final).  Both choices give the same bits."""
     return 2 if R >= 2 * FILL_THREADS * sms else 1
 
 
@@ -452,12 +444,19 @@ def tile_lists_plain(rays: torch.Tensor, blo: torch.Tensor,
         .reshape(T, TILE_R, B).min(1).values
     lst = torch.argsort(torch.where(need_t, key_t, INF), dim=1, stable=True)
     cnt = need_t.sum(1, dtype=torch.int32)
-    order = torch.argsort(cnt, descending=True, stable=True)
     return (cnt.contiguous(), lst.to(torch.int32).contiguous(),
-            order.to(torch.int32).contiguous())
+            tile_order_plain(cnt))
 
 
 tile_lists_plain.calls = 0
+
+
+def tile_order_plain(cnt: torch.Tensor) -> torch.Tensor:
+    """(T,) int32 launch order of the sorted sweeps' tiles from their (T,)
+    counts of listed or needed blocks: by descending count, ties in tile
+    order (the card's list pass leaves ties in any order)."""
+    return torch.argsort(cnt, descending=True, stable=True) \
+        .to(torch.int32).contiguous()
 
 
 def needed_mask_plain(rays: torch.Tensor, blo: torch.Tensor,
@@ -477,20 +476,32 @@ needed_mask_plain.calls = 0
 def _check_boxes(what, rays, blo, bhi):
     B = blo.shape[0]
     for x in (blo, bhi):
-        if not x.is_cuda or x.device != rays.device \
+        if x.device != rays.device \
                 or x.dtype != torch.float32 or not x.is_contiguous() \
                 or tuple(x.shape) != (B, 3) or B == 0:
             raise ValueError(f"{what}: block boxes must be contiguous (B, 3) "
-                             "float32 on the rays' CUDA device, B > 0")
+                             "float32 on the rays' device, B > 0")
+
+
+def _require_cuda(what, *xs):
+    """The card's entry points take CUDA tensors on one device, and have no
+    plain fallback."""
+    dev = xs[0].device
+    if any(not x.is_cuda or x.device != dev for x in xs):
+        raise ValueError(f"the {what} kernel takes CUDA tensors on one "
+                         "device")
 
 
 def list_pass(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
               t_min: float, mask: bool = False):
     """The card's list pass (``csrc/sweep_compact.cu::tile_lists_kernel``) on
     CUDA tensors, one launch: (cnt, lst, order) as :func:`tile_lists_plain`
-    gives them or, with ``mask``, only the (T, B) needed mask of
-    :func:`needed_mask_plain`.  Counts into ``list_pass.launches``."""
+    gives them or, with ``mask``, (mask, order): the (T, B) needed mask of
+    :func:`needed_mask_plain` and the tiles by descending count of needed
+    blocks (:func:`tile_order_plain` of ``mask.sum(1)``, ties in any order).
+    Counts into ``list_pass.launches``."""
     _check_rays(rays)
+    _require_cuda("list pass", rays, blo, bhi)
     _check_boxes("list pass", rays, blo, bhi)
     B = blo.shape[0]
     fn = load_fn("sweep_compact", "tr_tile_lists", [
@@ -501,20 +512,18 @@ def list_pass(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
     T = -(-R // TILE_R)
     dev = rays.device
     i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
-    cnt = i32(T)
-    if mask:
-        msk, lst, order, done = i32(T, B), None, None, None
-    else:
-        msk, lst, order = None, i32(T, B), i32(T)
-        done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cnt, order, sel = i32(T), i32(T), i32(T, B)
+    done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    msk, lst = (sel, None) if mask else (None, sel)
     ptr = lambda x: None if x is None else x.data_ptr()
     err = fn(rays.data_ptr(), R, blo.data_ptr(), bhi.data_ptr(), B,
              float(np.float32(t_min)), cnt.data_ptr(), ptr(lst), ptr(msk),
-             ptr(order), ptr(done), torch.cuda.current_stream(dev).cuda_stream)
+             order.data_ptr(), done.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"list pass launch failed (cudaError {err})")
     list_pass.launches += 1
-    return msk if mask else (cnt, lst, order)
+    return (msk, order) if mask else (cnt, lst, order)
 
 
 list_pass.launches = 0
@@ -532,12 +541,22 @@ def tile_lists(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
 
 def needed_mask(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
                 t_min: float) -> torch.Tensor:
-    """(T, B) int32 needed mask of 256-ray tiles against block boxes: the
-    card's list pass for CUDA tensors, :func:`needed_mask_plain` for CPU
+    """(T, B) int32 needed mask of 256-ray tiles against block boxes
+    (``intersect_pallas._needed_mask``): :func:`tile_mask`'s mask."""
+    return tile_mask(rays, blo, bhi, t_min)[0]
+
+
+def tile_mask(rays: torch.Tensor, blo: torch.Tensor, bhi: torch.Tensor,
+              t_min: float):
+    """The mask-gated sweep's inputs, (mask (T, B) int32, order (T,)
+    int32): the needed mask of :func:`needed_mask` and the tiles by
+    descending count of needed blocks.  One list-pass launch for CUDA
+    tensors; :func:`needed_mask_plain` and :func:`tile_order_plain` for CPU
     tensors."""
-    if not rays.is_cuda:
-        return needed_mask_plain(rays, blo, bhi, t_min)
-    return list_pass(rays, blo, bhi, t_min, mask=True)
+    if rays.is_cuda:
+        return list_pass(rays, blo, bhi, t_min, mask=True)
+    mask = needed_mask_plain(rays, blo, bhi, t_min)
+    return mask, tile_order_plain(mask.sum(1, dtype=torch.int32))
 
 
 def _check_tiles(what, rays, blocks, tables, perm):
@@ -563,6 +582,11 @@ def _check_tiles(what, rays, blocks, tables, perm):
 def _check_lists(rays, blocks, cnt, lst, order, perm):
     _check_tiles("compacted sweep", rays, blocks,
                  [(cnt, ()), (lst, (blocks.n_blocks,)), (order, ())], perm)
+
+
+def _check_mask(rays, blocks, mask, order, perm):
+    _check_tiles("masked sweep", rays, blocks,
+                 [(mask, (blocks.n_blocks,)), (order, ())], perm)
 
 
 def _sweep_listed_plain(rays, geo, blocks: SweepBlocks, listed, t_min, perm):
@@ -632,10 +656,27 @@ def sweep_compact(rays, geo, blocks: SweepBlocks, cnt, lst, order,
                                    perm)
     _check(rays, geo)
     _check_lists(rays, blocks, cnt, lst, order, perm)
-    _check_boxes("compacted sweep", rays, blocks.blo, blocks.bhi)
-    if not geo.is_cuda or geo.data_ptr() % 16:
-        raise ValueError("prim table must be 16-byte aligned on the rays' "
-                         "device")
+    out = _launch_tiles("compacted sweep", rays, geo, blocks, cnt, lst, order,
+                        t_min, perm, rpt, stats, masked=False)
+    sweep_compact.launches += 1
+    return out
+
+
+sweep_compact.launches = 0
+
+
+def _launch_tiles(what, rays, geo, blocks: SweepBlocks, cnt, sel, order,
+                  t_min, perm, rpt, stats, masked: bool):
+    """One launch of ``csrc/sweep_compact.cu::sweep_tiles_kernel``: the
+    compacted sweep (``sel`` the lists ``lst``, with ``cnt``) or the
+    mask-gated sweep (``sel`` the needed mask; ``cnt`` None), tiles in
+    ``order``, ``rpt`` rays per thread (by :func:`pick_rpt_compact` when
+    None).  Returns (best_t, best_i)."""
+    _require_cuda(what, rays, geo, blocks.desc, blocks.blo, blocks.bhi, sel,
+                  order, *(x for x in (cnt, perm) if x is not None))
+    _check_boxes(what, rays, blocks.blo, blocks.bhi)
+    if geo.data_ptr() % 16:
+        raise ValueError("prim table must be 16-byte aligned")
     R = rays.shape[1]
     if rpt is None:
         rpt = pick_rpt_compact(R, sm_count(rays.device))
@@ -645,42 +686,37 @@ def sweep_compact(rays, geo, blocks: SweepBlocks, cnt, lst, order,
                               or stats.dtype != torch.int64
                               or stats.device != rays.device):
         raise ValueError("stats must be a (2,) int64 on the rays' device")
-    fn = load_fn("sweep_compact", "tr_sweep_compact", [
+    fn = load_fn("sweep_compact", "tr_sweep_tiles", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p])
     best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
     best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
+    ptr = lambda x: None if x is None else x.data_ptr()
     err = fn(rays.data_ptr(), R, geo.data_ptr(), blocks.desc.data_ptr(),
-             blocks.blo.data_ptr(), blocks.bhi.data_ptr(), cnt.data_ptr(),
-             lst.data_ptr(), order.data_ptr(), blocks.n_blocks,
-             float(np.float32(t_min)),
-             None if perm is None else perm.data_ptr(), best_t.data_ptr(),
-             best_i.data_ptr(), rpt,
-             None if stats is None else stats.data_ptr(),
+             blocks.blo.data_ptr(), blocks.bhi.data_ptr(), ptr(cnt),
+             sel.data_ptr(), order.data_ptr(), blocks.n_blocks,
+             float(np.float32(t_min)), ptr(perm), best_t.data_ptr(),
+             best_i.data_ptr(), rpt, int(masked), ptr(stats),
              torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:
-        raise RuntimeError("compacted sweep kernel launch failed (cudaError "
-                           f"{err})")
-    sweep_compact.launches += 1
+        raise RuntimeError(f"{what} kernel launch failed (cudaError {err})")
     return best_t, best_i
-
-
-sweep_compact.launches = 0
 
 
 # --- the mask-gated sweep ----------------------------------------------------
 
-def sweep_masked_plain(rays, geo, blocks: SweepBlocks, mask, t_min: float,
-                       perm=None):
+def sweep_masked_plain(rays, geo, blocks: SweepBlocks, mask, order,
+                       t_min: float, perm=None):
     """Plain-PyTorch mask-gated sweep of sorted ``rays``: block b is swept
-    for tile t only where ``mask[t, b]`` is not 0.  Returns (best_t,
-    best_i), written to position ``perm[ray]`` when ``perm`` is given."""
+    for tile t only where ``mask[t, b]`` is not 0, and blocks merge with the
+    lower-prim-id tie-break, so the tile ``order`` changes nothing.  Returns
+    (best_t, best_i), written to position ``perm[ray]`` when ``perm`` is
+    given."""
     _check(rays, geo)
-    _check_tiles("masked sweep", rays, blocks,
-                 [(mask, (blocks.n_blocks,))], perm)
+    _check_mask(rays, blocks, mask, order, perm)
     sweep_masked_plain.calls += 1
     return _sweep_listed_plain(rays, geo, blocks, mask > 0, t_min, perm)
 
@@ -688,53 +724,52 @@ def sweep_masked_plain(rays, geo, blocks: SweepBlocks, mask, t_min: float,
 sweep_masked_plain.calls = 0
 
 
-def sweep_masked(rays, geo, blocks: SweepBlocks, mask, t_min: float,
-                 perm=None):
-    """Closest solid hit of sorted ``rays`` under the (tiles, blocks) mask of
-    :func:`needed_mask`: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  With ``perm`` the results land at the rays' unsorted
-    positions."""
+def sweep_masked(rays, geo, blocks: SweepBlocks, mask, order, t_min: float,
+                 perm=None, rpt: int | None = None, stats=None):
+    """Closest solid hit of sorted ``rays`` under the (tiles, blocks) mask
+    and tile order of :func:`tile_mask`: the CUDA kernel for CUDA tensors
+    (:func:`sweep_masked_launch`), the plain version for CPU tensors.  With
+    ``perm`` the results land at the rays' unsorted positions; ``rpt`` and
+    ``stats`` are the kernel's (see there)."""
     if not rays.is_cuda:
-        return sweep_masked_plain(rays, geo, blocks, mask, t_min, perm)
-    _check(rays, geo)
-    _check_tiles("masked sweep", rays, blocks,
-                 [(mask, (blocks.n_blocks,))], perm)
-    if not geo.is_cuda:
-        raise ValueError("prim table must be on the rays' device")
-    fn = load_fn("sweep", "tr_sweep_masked", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    R = rays.shape[1]
-    best_t = torch.empty((R,), dtype=torch.float32, device=rays.device)
-    best_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
-    err = fn(rays.data_ptr(), R, geo.data_ptr(), blocks.desc.data_ptr(),
-             mask.data_ptr(), blocks.n_blocks, float(np.float32(t_min)),
-             None if perm is None else perm.data_ptr(), best_t.data_ptr(),
-             best_i.data_ptr(),
-             torch.cuda.current_stream(rays.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"masked sweep kernel launch failed (cudaError "
-                           f"{err})")
-    sweep_masked.launches += 1
-    return best_t, best_i
+        return sweep_masked_plain(rays, geo, blocks, mask, order, t_min, perm)
+    return sweep_masked_launch(rays, geo, blocks, mask, order, t_min, perm,
+                               rpt, stats)
 
 
 sweep_masked.launches = 0
+
+
+def sweep_masked_launch(rays, geo, blocks: SweepBlocks, mask, order,
+                        t_min: float, perm=None, rpt: int | None = None,
+                        stats=None):
+    """The mask-gated sweep kernel on CUDA tensors (no plain fallback): the
+    tiles launched in ``order`` (a permutation; :func:`tile_mask`'s puts
+    the tiles with the most needed blocks first) at ``rpt`` rays per thread
+    (1 or 2, by :func:`pick_rpt_compact` when omitted; every order and
+    choice gives the same bits).  ``stats``: an optional (2,) int64 CUDA
+    tensor the kernel adds its needed and its culled (tile, block) pairs
+    to.  Counts into ``sweep_masked.launches``; returns (best_t, best_i)."""
+    _check(rays, geo)
+    _check_mask(rays, blocks, mask, order, perm)
+    out = _launch_tiles("masked sweep", rays, geo, blocks, None, mask, order,
+                        t_min, perm, rpt, stats, masked=True)
+    sweep_masked.launches += 1
+    return out
 
 
 def sweep_sorted(rays, geo, blocks: SweepBlocks, t_min: float,
                  masked: bool = False):
     """The whole sorted sweep of unsorted ``rays``: key, stable sort, ray
     gather, then the tile lists (with the tiles' launch order) and the
-    compacted sweep or, with ``masked``, the needed mask and the
-    mask-gated sweep; the un-permute is folded into the kernel's stores.
-    Same (best_t, best_i) as :func:`sweep`."""
+    compacted sweep or, with ``masked``, the needed mask (with the same
+    order) and the mask-gated sweep; the un-permute is folded into the
+    kernel's stores.  Same (best_t, best_i) as :func:`sweep`."""
     perm = torch.sort(sort_key(blocks, rays), stable=True).indices
     srays = rays[:, perm].contiguous()
     if masked:
-        mask = needed_mask(srays, blocks.blo, blocks.bhi, t_min)
-        return sweep_masked(srays, geo, blocks, mask, t_min, perm)
+        mask, order = tile_mask(srays, blocks.blo, blocks.bhi, t_min)
+        return sweep_masked(srays, geo, blocks, mask, order, t_min, perm)
     cnt, lst, order = tile_lists(srays, blocks.blo, blocks.bhi, t_min)
     return sweep_compact(srays, geo, blocks, cnt, lst, order, t_min, perm)
 
@@ -895,7 +930,7 @@ def sweep_sphere_mxu_plain(rays, geo, lo: int, hi: int, t_min: float,
         cc = oo + ccp
         disc = b * b - a * cc
         ok = disc > 0.0
-        sd = torch.sqrt(torch.clamp(disc, min=0.0))
+        sd = sqrt_rn(torch.clamp(disc, min=0.0))
         t1 = (-b - sd) * inv_a
         t2 = (-b + sd) * inv_a
         t = torch.where(ok & (t1 > t_min), t1,
