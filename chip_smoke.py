@@ -46,12 +46,21 @@ unless every phase passes:
    sweep's time; the tensor-core matrix-product sphere sweep on book1-final
    against its plain version (bit-equal) and against the dense kernel, with
    the share of pairs it retested and its bound beside the scalar form's;
+   the step kernel again with the Sobol' camera (cornell) and with the
+   strict estimator (two-perlin-spheres and perlin-sky: table noise;
+   cornell-smoke: the isotropic phase), ``hit_scatter`` strict (perlin-sky,
+   cornell-smoke) and the megakernel with the Sobol' camera (cornell), each
+   timed by graph replay beside its uniform, fixed case;
 4. the eight non-strict golden configs rendered on the card (the image
    scenes with the cyan stand-in they were made with), held to the
    cross-engine criterion against ``tests/goldens/<name>.npy``, and an
    image scene with a seeded image rendered on the card against the same
    render on the CPU; the six goldens the megakernel covers again with
-   ``engine="mega"``;
+   ``engine="mega"``; the four strict goldens at their configs (cornell-smoke
+   and simple-light against the golden; book1-final and perlin-sky, whose
+   goldens rest on the JAX package's compiled-loop rounding, against the
+   CPU's render and the golden's mean), each with its strict-vs-fixed
+   margin;
 5. full width, launch counts set to 0 before each path and read after it:
    pool - cornell 500x500 depth 50 at 64 spp (a 1M-lane pool) and
    book1-final 600x400 at 16 spp; queue - next-week-final (1409 prims)
@@ -63,7 +72,14 @@ unless every phase passes:
    pool-step launch), each beside the wavefront pool render of the same
    call; a next-week-final queue render with the mask-gated sweep (bit-equal
    to the unsorted one) and a book1-final pool render with the
-   matrix-product sphere sweep;
+   matrix-product sphere sweep; with the Sobol' camera, cornell 500x500 64
+   spp on the pool and the megakernel (held together, and to the uniform
+   image's mean) and next-week-final 400x400 16 spp on the queue; with the
+   strict estimator, book1-final 600x400 16 spp, cornell-smoke 500x500 64
+   spp, two-perlin-spheres 500x500 16 spp and perlin-sky 600x400 16 spp on
+   the pool, cornell-smoke in wave mode and with ``engine="mega"`` (which
+   falls back to the wavefront pool); a small sobol queue render and a
+   small strict pool render on the card against the CPU;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -119,6 +135,20 @@ DEV = torch.device("cuda")
 # the megakernel's full-width renders: (scene, width, height, spp), depth 50
 MEGA_FULL = (("cornell", 500, 500, 64), ("book1-final", 600, 400, 16),
              ("cornell-smoke", 500, 500, 64))
+# the strict estimator's full-width pool renders: no lights (book1-final),
+# media (cornell-smoke), table-noise marble (two-perlin-spheres is black:
+# no emitter, black sky; perlin-sky lights the same spheres)
+STRICT_FULL = (("book1-final", 600, 400, 16), ("cornell-smoke", 500, 500, 64),
+               ("two-perlin-spheres", 500, 500, 16),
+               ("perlin-sky", 600, 400, 16))
+# tests/test_torch_strict.py STRICT_GOLDENS: (spp, depth, width, height,
+# strict-vs-fixed margin (None: the two perlin-sky goldens'), reference)
+STRICT_GOLDENS = {
+    "book1-final": (8, 8, 32, 24, 0.120133, "cpu"),
+    "cornell-smoke": (16, 8, 24, 16, 0.019782, "golden"),
+    "simple-light": (16, 8, 24, 16, 0.001433, "golden"),
+    "perlin-sky": (8, 6, 24, 16, None, "cpu"),
+}
 
 
 def log(*a):
@@ -180,20 +210,45 @@ def seeded_image():
     return np.random.default_rng(3).integers(0, 256, (32, 64, 3), np.uint8)
 
 
-def scene_and_camera(name: str, width: int, height: int, earth=None):
+def perlin_sky():
+    """tests/test_perlin_strict.py's perlin-sky scene: two-perlin-spheres'
+    marble spheres under a sky, the scene of the perlin-sky goldens."""
+    per = ob.Noise(scale=1.5, seed=SEED)
+    return build_scene([ob.Sphere((0, -1000, 0), 1000, ob.Lambertian(per)),
+                        ob.Sphere((0, 2, 0), 2, ob.Lambertian(per))],
+                       background=(0.7, 0.8, 0.9))
+
+
+def scene_and_camera(name: str, width: int, height: int, earth=None,
+                     sampler="uniform", strict=False):
+    """A scene on the card and its camera: ``sampler`` the camera sampler,
+    ``strict`` the strict reference estimator."""
     if name == "box-grid":
-        return (box_grid().to(DEV),
-                SCENES["next-week-final"].camera(width, height))
-    spec = SCENES[name]
-    return (spec.build(seed=SEED, earth=earth).to(DEV),
-            spec.camera(width, height))
+        scene, cam = box_grid(), SCENES["next-week-final"].camera(width,
+                                                                  height)
+    elif name == "perlin-sky":
+        scene = perlin_sky()
+        cam = SCENES["two-perlin-spheres"].camera(width, height)
+    else:
+        spec = SCENES[name]
+        scene, cam = (spec.build(seed=SEED, earth=earth),
+                      spec.camera(width, height))
+    return (scene.replace(strict=strict).to(DEV),
+            cam.replace(sampler=sampler))
+
+
+def variant(sampler="uniform", strict=False) -> str:
+    """The label of a render's options: " sobol", " strict", ..."""
+    return ((f" {sampler}" if sampler != "uniform" else "")
+            + (" strict" if strict else ""))
 
 
 def pool_after(name: str, width: int, height: int, spp: int, iters: int,
-               earth=None):
+               earth=None, sampler="uniform", strict=False):
     """A full-width pool of ``name`` advanced ``iters`` iterations through
     the kernels; returns what the next iteration's two kernels take."""
-    scene, cam = scene_and_camera(name, width, height, earth)
+    scene, cam = scene_and_camera(name, width, height, earth, sampler,
+                                  strict)
     k_pool = pick_samples_per_wave(width, height, spp, 1 << 20)
     cfg = shade.StepConfig.create(scene, cam, width, height, 50,
                                   n_samples=spp // k_pool, cam_salt=SEED)
@@ -333,13 +388,15 @@ def queue_after(name: str, width: int, height: int, iters: int, earth=None):
     return scene, cfg, kern, st, ki, ks, xy, sid
 
 
-def check_step(name, width, height, spp, iters, earth=None):
+def check_step(name, width, height, spp, iters, earth=None,
+               sampler="uniform", strict=False):
     """Pool-step kernel vs pool_step_plain on a full-width pool state."""
     scene, cfg, kern, st, ki, ks = pool_after(name, width, height, spp, iters,
-                                              earth)
+                                              earth, sampler, strict)
     bt, bi = intersect_ti(scene, st.fstate[:7], ki, st.slot, kern.geo,
                           kern.media)
-    what = f"{name}{' with a seeded image' if earth is not None else ''}"
+    what = (f"{name}{' with a seeded image' if earth is not None else ''}"
+            f"{variant(sampler, strict)}")
     return compare_step(f"{what} iters={iters}", cfg, st.xy, st.slot,
                         st.fstate, st.istate, bt, bi, ks)
 
@@ -396,7 +453,10 @@ def compare_step(what, cfg, xy, slot, fstate, istate, bt, bi, ks):
     ms = kernel_ms(step)
     events_ms = cuda_ms(step, 20)
     plain_ms = cuda_ms(lambda: shade.pool_step_plain(*args), 3)
-    nbytes = R * shade.BYTES_PER_LANE + cfg.tab.numel() * 4
+    # the strict mode's noise tables are read from the cache: each byte of
+    # them counts once
+    nbytes = R * shade.BYTES_PER_LANE + cfg.tab.numel() * 4 + (
+        (cfg.perm.numel() + cfg.ranvec.numel()) * 4 if cfg.strict else 0)
     ops = R * shade.OPS_PER_LANE
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
@@ -409,10 +469,12 @@ def compare_step(what, cfg, xy, slot, fstate, istate, bt, bi, ks):
                 max_abs_err=worst)
 
 
-def check_hit_scatter(name, width, height, spp, iters):
+def check_hit_scatter(name, width, height, spp, iters, strict=False):
     """hit_scatter kernel vs hit_scatter_plain on a full-width pool's rays
     and sweep results."""
-    scene, cfg, kern, st, ki, ks = pool_after(name, width, height, spp, iters)
+    scene, cfg, kern, st, ki, ks = pool_after(name, width, height, spp, iters,
+                                              strict=strict)
+    name = f"{name}{variant(strict=strict)}"
     rays = st.fstate[:7].contiguous()
     bt, bi = kern.intersect(scene, rays, ki, st.slot)
     args = (cfg, rays, bt, bi, ks, st.slot)
@@ -809,11 +871,11 @@ def check_sweep_mxu(name, width, height, spp, iters):
                 worst_rel_err_vs_dense=worst_rel)
 
 
-def mega_wave(name, width, height, spp, depth, plan=None):
+def mega_wave(name, width, height, spp, depth, plan=None, sampler="uniform"):
     """The first wave of a pool render of ``name``: what ``trace_pool_mega``
     takes.  ``plan``: (slots per pixel, samples per slot); as ``render``
     plans ``spp`` samples when omitted."""
-    scene, cam = scene_and_camera(name, width, height)
+    scene, cam = scene_and_camera(name, width, height, sampler=sampler)
     k_pool, s_wave = plan or plan_pool(scene, width, height, spp)[:2]
     cfg = shade.StepConfig.create(scene, cam, width, height, depth,
                                   n_samples=s_wave, cam_salt=SEED)
@@ -887,17 +949,19 @@ def mega_schedules(what, args):
     return out, res
 
 
-def check_mega(name, width, height, depth):
+def check_mega(name, width, height, depth, sampler="uniform"):
     """The megakernel against its plain version on one wave of 4 slots per
     pixel and 2 samples per slot: equal sample
     counts; at most 3% of lanes diverged (a coin flipped at an ulp moves a
     whole path; in the media ``logf`` differs from ``torch.log`` by ulps),
     the rest within rtol 2e-4 / atol 1e-4.  The persistent launch and one
     thread per slot are held bit-equal first."""
-    args = mega_wave(name, width, height, 8, depth, plan=(4, 2))
+    args = mega_wave(name, width, height, 8, depth, plan=(4, 2),
+                     sampler=sampler)
     cfg, slot = args[1], args[3]
     R = slot.shape[0]
-    what = f"{name} {cfg.n_samples} samples/slot depth {depth}"
+    what = (f"{name}{variant(sampler)} {cfg.n_samples} samples/slot depth "
+            f"{depth}")
     out, (a, a_ns) = mega_schedules(what, args)
     t0 = time.perf_counter()
     b, b_ns = megakernel.trace_pool_mega_plain(*args)
@@ -953,6 +1017,43 @@ def check_golden(name, engine="auto"):
                  spp=spp, max_depth=depth, seed=SEED, engine=engine)
     cross_engine(np.load(os.path.join(GOLDEN_DIR, f"{name}.npy")), img,
                  f"golden {name} engine={engine}")
+
+
+def check_strict_golden(name):
+    """A strict golden rendered on the card at its golden config.  Held to
+    the golden by the cross-engine criterion, except where the golden rests
+    on the JAX package's compiled-loop rounding of grazing rays
+    (tests/test_torch_strict.py: book1-final, perlin-sky), which are held
+    to the same render on the CPU (the port's twins, which equal the JAX
+    package's op-by-op render) and to the golden's mean within 1%.  Every
+    one differs from its fixed-estimator render by the strict-vs-fixed
+    margin of the tests within 25%."""
+    spp, depth, w, h, margin, ref = STRICT_GOLDENS[name]
+    scene, cam = scene_and_camera(name, w, h, strict=True)
+    kw = dict(spp=spp, max_depth=depth, seed=SEED)
+    img = render(scene, cam, w, h, **kw)
+    fixed = render(scene.replace(strict=False), cam, w, h, **kw)
+    golden = np.load(os.path.join(GOLDEN_DIR, f"{name}-strict.npy"))
+    if margin is None:
+        margin = float(np.abs(golden - np.load(os.path.join(
+            GOLDEN_DIR, f"{name}.npy"))).mean())
+    if ref == "golden":
+        cross_engine(golden, img, f"strict golden {name}")
+    else:
+        cpu = render(scene.to("cpu"), cam, w, h, device="cpu", **kw)
+        cross_engine(cpu, img, f"strict golden {name} card vs cpu")
+        rel = abs(float(img.mean()) - float(golden.mean())) / float(
+            golden.mean())
+        log(f"strict golden {name}: image mean {float(img.mean()):.6f}, "
+            f"golden's {float(golden.mean()):.6f}")
+        if rel > 0.01:
+            raise AssertionError(f"strict golden {name}: the mean moved")
+    got = float(np.abs(img - fixed).mean())
+    log(f"strict golden {name}: |strict - fixed| mean {got:.6f}, margin "
+        f"{margin:.6f}")
+    if abs(got - margin) >= 0.25 * margin:
+        raise AssertionError(f"strict golden {name}: strict-vs-fixed margin "
+                             f"{got:.6f} is not {margin:.6f} within 25%")
 
 
 def check_card_vs_cpu(what, scene, cam, w, h, **kw):
@@ -1015,10 +1116,10 @@ def with_env(env, fn):
                 os.environ[k] = v
 
 
-def full_width(name, width, height, spp, **kw):
-    spec = SCENES[name]
-    scene = spec.build(seed=SEED, earth=None)
-    cam = spec.camera(width, height)
+def full_width(name, width, height, spp, sampler="uniform", strict=False,
+               **kw):
+    scene, cam = scene_and_camera(name, width, height, sampler=sampler,
+                                  strict=strict)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = render(scene, cam, width, height, spp, max_depth=50, seed=SEED,
@@ -1027,7 +1128,8 @@ def full_width(name, width, height, spp, **kw):
     if img.shape != (height, width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{name}: bad image {img.shape}")
     bright = float(to_rgb8(img).mean())
-    log(f"render {name} {width}x{height} {spp} spp depth 50 {kw}: wall "
+    log(f"render {name}{variant(sampler, strict)} {width}x{height} {spp} spp "
+        f"depth 50 {kw}: wall "
         f"{wall:.3f} s, {width * height * spp / wall:.4g} samples/s, mean "
         f"8-bit {bright:.2f}")
     return img, wall, bright
@@ -1069,12 +1171,21 @@ def main() -> int:
     check_step("cornell-smoke", 500, 500, 64, 3)
     check_step("two-spheres", 500, 500, 64, 3)
     check_step("two-perlin-spheres", 500, 500, 64, 2)
+    st_sobol = check_step("cornell", 500, 500, 64, 3, sampler="sobol")
+    st_strict_perlin = check_step("two-perlin-spheres", 500, 500, 64, 2,
+                                  strict=True)
+    st_strict_sky = check_step("perlin-sky", 500, 500, 64, 2, strict=True)
+    st_strict_media = check_step("cornell-smoke", 500, 500, 64, 3,
+                                 strict=True)
     st_nw = check_step("next-week-final", 1000, 1000, 1, 2)
     check_step("earth", 500, 500, 64, 2, earth=seeded_image())
     st_queue = check_step_queue("next-week-final", 1000, 1000, 6)
     check_step_queue("earth", 1000, 1000, 4, earth=seeded_image())
     hsc = check_hit_scatter("cornell", 500, 500, 64, 3)
     hsc_perlin = check_hit_scatter("two-perlin-spheres", 500, 500, 64, 2)
+    hsc_strict = check_hit_scatter("perlin-sky", 500, 500, 64, 2, strict=True)
+    hsc_strict_media = check_hit_scatter("cornell-smoke", 500, 500, 64, 3,
+                                         strict=True)
     sc_nw = check_sweep_compact("next-week-final", 1000, 1000, 1, 1)
     sc_book1 = check_sweep_compact("book1-final", 600, 400, 16, 1)
     sc_box = check_sweep_compact("box-grid", 1000, 1000, 1, 1)
@@ -1082,6 +1193,7 @@ def main() -> int:
     mg_smoke = check_mega("cornell-smoke", 250, 250, 8)
     mg_perlin = check_mega("two-perlin-spheres", 250, 250, 8)
     mg_book1 = check_mega("book1-final", 300, 200, 8)
+    mg_sobol = check_mega("cornell", 500, 500, 8, sampler="sobol")
     mg_full = {name: mega_schedules(f"{name} {w}x{h} {spp} spp depth 50",
                                     mega_wave(name, w, h, spp, 50))[0]
                for name, w, h, spp in MEGA_FULL}
@@ -1098,10 +1210,12 @@ def main() -> int:
     for name in GOLDENS:
         if megakernel.supported(SCENES[name].build(seed=SEED, earth=None)):
             check_golden(name, engine="mega")
+    for name in STRICT_GOLDENS:
+        check_strict_golden(name)
 
     log("phase 5: full-width renders through the kernels")
     reset_counts()
-    _, _, bright = full_width("cornell", 500, 500, 64)
+    img_c, _, bright = full_width("cornell", 500, 500, 64)
     full_width("book1-final", 600, 400, 16)
     n_pool = read_counts("pool", ("sweep", "pool_step"))
     if not 48.0 <= bright <= 80.0:
@@ -1175,9 +1289,45 @@ def main() -> int:
     if abs(mean_b - mean_x) > 1e-4:
         raise AssertionError("the matrix-product render's mean moved")
     log(f"  matrix-product pool wall {wall_x:.3f} s")
+    reset_counts()
+    img_sp, _, _ = full_width("cornell", 500, 500, 64, sampler="sobol")
+    n_sobol_pool = read_counts("sobol pool", ("sweep", "pool_step"))
+    reset_counts()
+    img_sm, _, _ = full_width("cornell", 500, 500, 64, sampler="sobol",
+                              engine="mega")
+    n_sobol_mega = read_counts("sobol megakernel", ("megakernel",),
+                               ("sweep", "pool_step"))
+    cross_engine(img_sp, img_sm, "cornell sobol megakernel vs wavefront pool")
+    # another sample set: every pixel's noise differs, the mean must not
+    same_estimator(img_c, img_sp, "cornell sobol vs uniform", share_cap=1.0)
+    reset_counts()
+    full_width("next-week-final", 400, 400, 16, sampler="sobol",
+               mode="queue", sort=False)
+    n_sobol_queue = read_counts("sobol queue", ("sweep", "pool_step"))
+    reset_counts()
+    for name, w, h, spp in STRICT_FULL:
+        full_width(name, w, h, spp, strict=True)
+    n_strict = read_counts("strict pool", ("sweep", "pool_step"))
+    reset_counts()
+    full_width("cornell-smoke", 500, 500, 64, strict=True, mode="wave")
+    n_strict_wave = read_counts("strict wave", ("sweep", "hit_scatter"))
+    reset_counts()
+    full_width("cornell-smoke", 250, 250, 16, strict=True, engine="mega")
+    n_strict_mega = read_counts("strict with engine=mega (falls back)",
+                                ("sweep", "pool_step"), ("megakernel",))
+    check_card_vs_cpu("cornell 48x48 sobol queue",
+                      *scene_and_camera("cornell", 48, 48, sampler="sobol"),
+                      48, 48, spp=8, max_depth=8, seed=SEED, mode="queue")
+    check_card_vs_cpu("cornell-smoke 48x32 strict pool",
+                      *scene_and_camera("cornell-smoke", 48, 32,
+                                        strict=True),
+                      48, 32, spp=8, max_depth=8, seed=SEED)
     paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
              "wave": n_wave, "mega_pool": n_mega, "masked_queue": n_masked,
-             "mxu_pool": n_mxu}
+             "mxu_pool": n_mxu, "sobol_pool": n_sobol_pool,
+             "sobol_mega_pool": n_sobol_mega, "sobol_queue": n_sobol_queue,
+             "strict_pool": n_strict, "strict_wave": n_strict_wave,
+             "strict_mega_fallback": n_strict_mega}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -1204,12 +1354,18 @@ def main() -> int:
              source="tpu_ray_torch/csrc/pool_step.cu",
              replaces="tpu_ray/ops/shade_pallas.py:401 (_step_kernel)",
              launches=launches["pool_step"],
-             launches_by_path=by_path["pool_step"], library_ms=None, **st),
+             launches_by_path=by_path["pool_step"], library_ms=None,
+             variants={"sobol cornell": st_sobol,
+                       "strict two-perlin-spheres": st_strict_perlin,
+                       "strict perlin-sky": st_strict_sky,
+                       "strict cornell-smoke": st_strict_media}, **st),
         dict(name="hit_scatter", route="cuda",
              source="tpu_ray_torch/csrc/pool_step.cu",
              replaces="tpu_ray/ops/shade_pallas.py:370 (_shade_kernel)",
              launches=launches["hit_scatter"],
-             launches_by_path=by_path["hit_scatter"], library_ms=None, **hsc),
+             launches_by_path=by_path["hit_scatter"], library_ms=None,
+             variants={"strict perlin-sky": hsc_strict,
+                       "strict cornell-smoke": hsc_strict_media}, **hsc),
         dict(name="sweep_compact", route="cuda",
              source="tpu_ray_torch/csrc/sweep_compact.cu",
              replaces="tpu_ray/ops/intersect_pallas.py:505 (_compact_kernel)",
@@ -1220,7 +1376,8 @@ def main() -> int:
              source="tpu_ray_torch/csrc/megakernel.cu",
              replaces="tpu_ray/ops/megakernel.py:316 (_kernel)",
              launches=launches["megakernel"],
-             launches_by_path=by_path["megakernel"], library_ms=None, **mg),
+             launches_by_path=by_path["megakernel"], library_ms=None,
+             variants={"sobol cornell": mg_sobol}, **mg),
         dict(name="sweep_masked", route="cuda",
              source="tpu_ray_torch/csrc/sweep_compact.cu",
              replaces="tpu_ray/ops/intersect_pallas.py:59, :309, :256 "

@@ -1,0 +1,96 @@
+"""The port's command line: the flags it shares with the JAX CLI parse with
+the JAX CLI's defaults and choices and reach ``render()`` (a stand-in
+records the call), and a tiny CPU render through ``--sampler sobol
+--estimator reference`` writes a well-formed PPM."""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from tpu_ray.utils.cli import build_parser as jax_parser
+from tpu_ray_torch import renderer
+from tpu_ray_torch.utils import assets, cli
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHARED = ("earthmap", "rays_per_wave", "samples_per_wave", "estimator",
+          "sampler", "scene", "width", "height", "spp", "max_depth", "seed",
+          "out", "rr_depth", "mode", "engine")
+
+
+def test_shared_flags_have_the_jax_defaults_and_choices():
+    ours = {a.dest: a for a in cli.build_parser()._actions}
+    theirs = {a.dest: a for a in jax_parser()._actions}
+    for dest in SHARED:
+        assert ours[dest].default == theirs[dest].default, dest
+        assert ours[dest].choices == theirs[dest].choices, dest
+        assert ours[dest].type == theirs[dest].type, dest
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    """Stand-ins for the earth loader and ``render``: record what the CLI
+    passes them, return a black image."""
+    seen = {}
+
+    def fake_render(scene, camera, width, height, spp, **kw):
+        seen.update(scene=scene, camera=camera, size=(width, height),
+                    spp=spp, **kw)
+        return np.zeros((height, width, 3), np.float32)
+
+    def fake_earth(path=None):
+        seen["earthmap"] = path
+        return None
+
+    monkeypatch.setattr(renderer, "render", fake_render)
+    monkeypatch.setattr(assets, "load_earth_image", fake_earth)
+    return seen
+
+
+def test_new_flags_reach_render(calls, tmp_path):
+    out = str(tmp_path / "x.ppm")
+    rc = cli.main(["--device", "cpu", "--scene", "cornell", "--width", "6",
+                   "--height", "4", "--spp", "2", "--max-depth", "3",
+                   "--earthmap", "maps/earth.jpg", "--rays-per-wave", "4096",
+                   "--samples-per-wave", "2", "--estimator", "reference",
+                   "--sampler", "sobol-b0", "--out", out])
+    assert rc == 0 and os.path.exists(out)
+    assert calls["earthmap"] == "maps/earth.jpg"
+    assert calls["rays_per_wave"] == 4096 and calls["samples_per_wave"] == 2
+    assert calls["scene"].strict and calls["camera"].sampler == "sobol-b0"
+    assert calls["size"] == (6, 4) and calls["spp"] == 2
+
+
+def test_defaults_reach_render(calls, tmp_path):
+    rc = cli.main(["--device", "cpu", "--width", "6", "--height", "4",
+                   "--spp", "2", "--out", str(tmp_path / "y.ppm")])
+    assert rc == 0 and calls["earthmap"] is None
+    assert calls["rays_per_wave"] == 1 << 20
+    assert calls["samples_per_wave"] == 64
+    assert not calls["scene"].strict and calls["camera"].sampler == "uniform"
+
+
+@pytest.mark.parametrize("flag,value", [("--estimator", "exact"),
+                                        ("--sampler", "halton")])
+def test_unknown_choices_are_refused(flag, value):
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args([flag, value])
+
+
+def test_cli_renders_sobol_strict_ppm():
+    """``python -m tpu_ray_torch`` end to end on the CPU: P3 header and
+    w*h*3 + 4 words."""
+    w, h = 8, 6
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_ray_torch", "--device", "cpu", "--scene",
+         "cornell-smoke", "--width", str(w), "--height", str(h), "--spp", "2",
+         "--max-depth", "4", "--sampler", "sobol", "--estimator",
+         "reference"], cwd=ROOT, capture_output=True, text=True, check=True,
+        timeout=300)
+    words = out.stdout.split()
+    assert words[:4] == ["P3", str(w), str(h), "255"]
+    assert len(words) == w * h * 3 + 4
+    assert "Done." in out.stderr

@@ -81,10 +81,14 @@ def test_sweep_kernel_matches_plain(card):
 
 
 def _build(name, card):
-    """A library scene on the card; "earth-image" carries a seeded image."""
+    """A library scene on the card; "earth-image" carries a seeded image,
+    a "strict " prefix asks for the strict reference estimator."""
     if name == "earth-image":
         img = np.random.default_rng(3).integers(0, 256, (32, 64, 3), np.uint8)
         return SCENES["earth"], SCENES["earth"].build(earth=img).to(card)
+    if name.startswith("strict "):
+        spec, ps = _build(name[len("strict "):], card)
+        return spec, ps.replace(strict=True)
     return SCENES[name], SCENES[name].build(seed=1024, earth=None).to(card)
 
 
@@ -92,17 +96,40 @@ def _build(name, card):
                                   "two-perlin-spheres", "simple-light",
                                   "earth-image"])
 def test_pool_step_kernel_matches_plain(card, name):
+    _hold_pool_step(card, name)
+
+
+@pytest.mark.parametrize("name,sampler", [
+    ("cornell", "sobol"), ("two-perlin-spheres", "sobol"),
+    ("strict two-perlin-spheres", "uniform"),
+    ("strict cornell-smoke", "uniform"), ("strict book1-final", "sobol")])
+def test_pool_step_kernel_sobol_and_strict_match_plain(card, name, sampler):
+    """The Sobol' regeneration and the strict branches.  The first camera
+    sample's shutter time is time0 + (time1 - time0) u4, exact: bit-equal
+    in every scene; on cornell (no lens) the whole sample is, its
+    direction taking the pixel jitter u0, u1 in exact operations."""
+    f0, fp0 = _hold_pool_step(card, name, sampler)
+    assert torch.equal(f0[6], fp0[6]) and int(torch.unique(f0[6]).numel()) > 1
+    if name == "cornell":
+        assert torch.equal(f0, fp0)
+
+
+def _hold_pool_step(card, name, sampler="uniform"):
+    """The step kernel against its twin over a pool's first iterations;
+    returns both first camera samples (the init launches' float state)."""
     W, H, K = 64, 32, 4
     spec, ps = _build(name, card)
-    cfg = shade.StepConfig.create(ps, spec.camera(W, H), W, H, 8,
-                                  rr_depth=2, n_samples=3, cam_salt=7)
+    cam = spec.camera(W, H).replace(sampler=sampler)
+    cfg = shade.StepConfig.create(ps, cam, W, H, 8, rr_depth=2, n_samples=3,
+                                  cam_salt=7)
     st = init_pool_state(pixel_grid(W, H, K, card), slot_ids(W, H, K, card))
     R = st.slot.shape[0]
     none = (torch.empty(R, device=card),
             torch.zeros(R, dtype=torch.int32, device=card))
-    st.fstate, st.istate = shade.pool_step(cfg, st.xy, st.slot, st.fstate,
-                                           st.istate, *none, (0, 0),
-                                           init=True)
+    init = (cfg, st.xy, st.slot, st.fstate, st.istate, *none, (0, 0))
+    fp0, _ = shade.pool_step_plain(*init, init=True)
+    st.fstate, st.istate = shade.pool_step(*init, init=True)
+    f0 = st.fstate
     kern = SceneKernels.create(ps)
     for it in range(4):
         bt, bi = intersect_ti(ps, st.fstate[:7], (it, 1), st.slot, kern.geo,
@@ -115,6 +142,7 @@ def test_pool_step_kernel_matches_plain(card, name):
         torch.testing.assert_close(fk[:, same], fp[:, same], rtol=2e-4,
                                    atol=1e-3)
         st.fstate, st.istate = fk, ik
+    return f0, fp0
 
 
 @pytest.mark.parametrize("name", ["cornell", "cornell-smoke",
@@ -122,6 +150,18 @@ def test_pool_step_kernel_matches_plain(card, name):
                                   "earth-image"])
 def test_hit_scatter_kernel_matches_plain(card, name):
     """Camera rays, then two rounds of continuation rays."""
+    _hold_hit_scatter(card, name)
+
+
+@pytest.mark.parametrize("name", ["strict cornell-smoke",
+                                  "strict two-perlin-spheres",
+                                  "strict book1-final"])
+def test_hit_scatter_kernel_strict_matches_plain(card, name):
+    """The strict branches of the shared core in the wave path's kernel."""
+    _hold_hit_scatter(card, name)
+
+
+def _hold_hit_scatter(card, name):
     W, H = 96, 64
     spec, ps = _build(name, card)
     cam = spec.camera(W, H).to(card)
@@ -445,10 +485,22 @@ def test_sweep_mxu_kernel_matches_plain_and_dense(card):
 def test_megakernel_matches_plain(card, name):
     """One wave: equal sample counts; at most 3% of lanes diverged
     (|a - b| / (1 + |a|) >= 1e-4), the rest within rtol 2e-4 / atol 1e-4."""
+    _hold_megakernel(card, name)
+
+
+@pytest.mark.parametrize("name", ["cornell", "two-perlin-spheres",
+                                  "cornell-smoke"])
+def test_megakernel_sobol_matches_plain(card, name):
+    """The Sobol' camera through the megakernel's pool iteration."""
+    _hold_megakernel(card, name, "sobol")
+
+
+def _hold_megakernel(card, name, sampler="uniform"):
     W, H, K = 64, 32, 4
     spec, ps = _build(name, card)
-    cfg = shade.StepConfig.create(ps, spec.camera(W, H), W, H, 8, rr_depth=3,
-                                  n_samples=3, sample0=5, cam_salt=7)
+    cfg = shade.StepConfig.create(ps, spec.camera(W, H).replace(
+        sampler=sampler), W, H, 8, rr_depth=3, n_samples=3, sample0=5,
+        cam_salt=7)
     xy, slot = pixel_grid(W, H, K, card), slot_ids(W, H, K, card)
     key = rng.fold_in(rng.prng_key(11), 2)
     launches = mega.trace_pool_mega.launches
@@ -530,6 +582,34 @@ def test_masked_and_mxu_renders_on_the_card(card, monkeypatch):
     launches = sw.sweep_sphere_mxu.launches
     b = render(*args, **kw)
     assert sw.sweep_sphere_mxu.launches > launches
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    close = (err < 1e-4).all(axis=-1)
+    assert 1.0 - close.mean() <= 0.02
+    np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,mode,engine,sampler,strict", [
+    ("cornell", "pool", "auto", "sobol", False),
+    ("cornell", "queue", "auto", "sobol", False),
+    ("cornell", "pool", "mega", "sobol", False),
+    ("cornell-smoke", "pool", "auto", "uniform", True),
+    ("two-perlin-spheres", "wave", "auto", "uniform", True),
+    ("book1-final", "queue", "auto", "sobol-b0", True)])
+def test_sobol_and_strict_renders_on_the_card_match_the_cpu(
+        card, name, mode, engine, sampler, strict):
+    """Cross-engine criterion between the card's kernels and the CPU's
+    plain twins on every path that takes a Sobol' camera or the strict
+    estimator; the kernel that path runs launched."""
+    spec = SCENES[name]
+    scene = spec.build(seed=1024, earth=None).replace(strict=strict)
+    args = (scene, spec.camera(32, 24).replace(sampler=sampler), 32, 24)
+    kw = dict(spp=4, max_depth=6, seed=5, mode=mode, engine=engine)
+    counter = {"wave": hs.hit_scatter, "mega": mega.trace_pool_mega}.get(
+        mode if mode == "wave" else engine, shade.pool_step)
+    launches = counter.launches
+    b = render(*args, device=card, **kw)
+    assert counter.launches > launches
+    a = render(*args, device="cpu", **kw)
     err = np.abs(a - b) / (1.0 + np.abs(a))
     close = (err < 1e-4).all(axis=-1)
     assert 1.0 - close.mean() <= 0.02

@@ -93,8 +93,10 @@ def test_render_without_device_needs_a_card():
         render(spec.build(), spec.camera(8, 6), 8, 6, spp=1, max_depth=2)
 
 
-# what the second slice of the port brought into scope renders now
-NOW_RENDERED = ("next-week-final", "image", "queue")
+# what later slices of the port brought into scope renders now: the queue
+# slice's big scenes, image textures and queue mode, and the strict
+# estimator and the Sobol' sampler of the seventh
+NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol")
 
 
 @pytest.mark.parametrize("what", ["next-week-final", "image", "strict",
@@ -102,9 +104,9 @@ NOW_RENDERED = ("next-week-final", "image", "queue")
                                   "adaptive", "checkpoint", "progressive",
                                   "checker-fancy", "image-on-emissive"])
 def test_out_of_slice_inputs_raise(what):
-    """Inputs outside the port raise NotImplementedError; the three that the
-    queue slice took in (a scene over 512 prims, image textures, queue
-    mode) render a finite image instead."""
+    """Inputs outside the port raise NotImplementedError; the ones later
+    slices took in (a scene over 512 prims, image textures, queue mode, the
+    strict estimator, the Sobol' sampler) render a finite image instead."""
     from tpu_ray_torch.models import objects as ob
     from tpu_ray_torch.models.compile import build_scene
 

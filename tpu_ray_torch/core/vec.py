@@ -11,6 +11,7 @@ import torch
 
 __all__ = [
     "sqrt_rn",
+    "cbrt_rn",
     "dot",
     "cross",
     "length",
@@ -38,6 +39,17 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32 or x.is_cuda:
         return torch.sqrt(x)
     return torch.sqrt(x.double()).float()
+
+
+def cbrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The float32 cube root rounded to nearest: the float64 root rounded
+    once to float32, as the kernels compute it (``(float)cbrt((double)x)``).
+    torch has no ``cbrt``, and a float32 ``pow(x, 1/3)`` is not the cube
+    root (1/3 is not a float32, and ``pow`` rounds on its own), so the root
+    is taken in float64 on either device, where the error of ``1/3`` and of
+    ``pow`` lies far below a float32 ulp."""
+    d = x.double()
+    return (torch.sign(d) * d.abs().pow(1.0 / 3.0)).to(x.dtype)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

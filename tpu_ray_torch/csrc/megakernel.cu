@@ -7,7 +7,11 @@
 // media; hit record; textures; scatter with light MIS; Russian roulette;
 // accumulate; path death; regenerate } until the slot has finished its
 // n_samples samples or the wave's iteration cap is reached; then write the
-// slot's radiance sum and its sample count.  The plain PyTorch twin is
+// slot's radiance sum and its sample count.  The camera sample is hashed
+// or, with the SAMPLER_SOBOL flag bit, the scrambled Sobol' point of the TPU
+// kernel's sobol branch (qmc.cuh, through the shared pool_iteration); the
+// strict estimator stays outside the megakernel, as in the JAX package.
+// The plain PyTorch twin is
 // tpu_ray_torch/ops/megakernel.py::trace_pool_mega_plain.
 //
 // Design.  Not the Pallas kernel block by block: that one works on (8, 128)
@@ -101,6 +105,10 @@ __device__ __forceinline__ void mega_sweep(
   }
 }
 
+// SOBOL_ON: the SAMPLER_SOBOL bit of P.flags (the C entry launches the
+// instantiation it names); strict scenes stay on the wavefront kernels, so
+// the core is compiled without the strict branches
+template <bool SOBOL_ON>
 __global__ void __launch_bounds__(MEGA_THREADS, MEGA_MIN_BLOCKS)
 mega_kernel(const StepParams P, const Tables T,
             const float* __restrict__ geo, int n_ss, int n_s, int n_sb,
@@ -152,7 +160,8 @@ mega_kernel(const StepParams P, const Tables T,
         L.tp = {1.0f, 1.0f, 1.0f};
         L.ac = {0.0f, 0.0f, 0.0f};
         L.bounce = 0; L.sample = 0; L.active = 0;
-        pool_iteration(P, T, xs, ys, slot, 0u, 0u, true, 0.0f, 0, L);
+        pool_iteration<SOBOL_ON, false>(P, T, xs, ys, slot, 0u, 0u, true,
+                                        0.0f, 0, L);
         it = 0;
       }
     }
@@ -167,7 +176,8 @@ mega_kernel(const StepParams P, const Tables T,
       int bi;
       mega_sweep(sg, r, n_ss, n_s, n_sb, n_solid, n_prims, T, slot, kw,
                  any_transform, P.t_min, bt, bi);
-      pool_iteration(P, T, xs, ys, slot, kd0, kd1, false, bt, bi, L);
+      pool_iteration<SOBOL_ON, false>(P, T, xs, ys, slot, kd0, kd1, false,
+                                      bt, bi, L);
       ++it;
       ++lane_iters;
     }
@@ -200,7 +210,9 @@ extern "C" int tr_megakernel(const float* xy, const uint32_t* slot,
                              int iter_cap, const float* tab,
                              const uint32_t* salt, const float* lights,
                              const uint32_t* atlas, const int* img_size,
-                             const void* params, float* acc, int* sample,
+                             const int* perlin_id, const int* perm,
+                             const float* ranvec, const void* params,
+                             float* acc, int* sample,
                              unsigned long long* stats,
                              unsigned long long* next, long long R,
                              long long threads, void* stream) {
@@ -209,25 +221,31 @@ extern "C" int tr_megakernel(const float* xy, const uint32_t* slot,
     return (int)cudaErrorInvalidValue;
   StepParams P;
   memcpy(&P, params, sizeof(StepParams));
-  const Tables T = {tab, salt, lights, atlas, img_size};
+  const Tables T = {tab, salt, lights, atlas, img_size, perlin_id, perm,
+                    ranvec};
   const long long n = threads < R ? threads : R;
   const long long blocks = (n + MEGA_THREADS - 1) / MEGA_THREADS;
-  mega_kernel<<<(unsigned)blocks, MEGA_THREADS, 0, (cudaStream_t)stream>>>(
+  const auto kernel = (P.flags & SAMPLER_SOBOL) ? mega_kernel<true>
+                                                 : mega_kernel<false>;
+  kernel<<<(unsigned)blocks, MEGA_THREADS, 0, (cudaStream_t)stream>>>(
       P, T, geo, n_ss, n_s, n_sb, n_solid, n_prims, keys, iter_cap, xy, slot,
       acc, sample, stats, next, R);
   return (int)cudaGetLastError();
 }
 
 // The persistent launch's thread count on the current device: the blocks of
-// mega_kernel that fit on an SM at once, times the SMs, times the block.
+// mega_kernel that fit on an SM at once (the fewer of its two
+// instantiations'), times the SMs, times the block.
 extern "C" long long tr_megakernel_threads(void) {
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0, per_sm = 0, per_sm_sobol = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_kernel,
-                                                    MEGA_THREADS, 0) !=
-          cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mega_kernel<false>, MEGA_THREADS, 0) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm_sobol, mega_kernel<true>, MEGA_THREADS, 0) != cudaSuccess)
     return -1;
+  if (per_sm_sobol < per_sm) per_sm = per_sm_sobol;
   return (long long)per_sm * sms * MEGA_THREADS;
 }

@@ -6,7 +6,14 @@
 // constant / checker / hash-Perlin / image textures, scatter for the five
 // materials with 50/50 light / cosine MIS, optional Russian roulette,
 // accumulate the estimate, decide path death and regenerate the camera
-// sample.  The plain PyTorch twin is tpu_ray_torch/ops/shade.py::
+// sample (hashed, or the scrambled Sobol' point of the TPU kernel's sobol
+// branch).  The strict reference estimator, which the JAX package shades in
+// XLA outside its kernels, runs through the same core behind the STRICT
+// flag bit (table-noise Perlin, the no-light Lambertian mixture, the
+// ball-radius isotropic phase), so the pool, queue and wave paths render
+// it on the card.  Both kernels are templates on the flag bits, and the C
+// entries launch the instantiation that P.flags names: the uniform, fixed
+// instantiation carries neither branch.  The plain PyTorch twin is tpu_ray_torch/ops/shade.py::
 // pool_step_plain; the two follow the same operations in the same order.
 //
 // hit_scatter_kernel replaces tpu_ray/ops/shade_pallas.py::_shade_kernel
@@ -36,9 +43,12 @@
 // Bound (pool step).  Memory: per lane it reads 84 B (xy 8, slot 4, float state 52, int
 // state 12, best_t 4, best_i 4) and writes 64 B (float state 52, int state
 // 12): ~148 B, so ~46 us per 1M-lane iteration at 3.35 TB/s.  The table rows
-// (<= 512 x 160 B) stay in L1/L2.  Lanes diverge on material and on
-// Perlin textures (7 octaves x 8 corners of hashing); a faster version can sort
-// lanes by material or split the Perlin lanes out.
+// (<= 512 x 160 B) stay in L1/L2, as do the strict mode's noise tables (6 KB
+// per Perlin instance: 6 permutation and 8 gradient-row loads per octave
+// and lane hit cache, so they add no device-memory bytes per lane).  Lanes
+// diverge on material and on Perlin textures (7 octaves x 8 corners of
+// hashing); a faster version can sort lanes by material or split the Perlin
+// lanes out.
 //
 // Bound (hit_scatter).  Memory: 40 B in (7 ray rows, best_t, best_i, lane
 // id) and 75 B out (17 float rows, 3 flag bytes, the material index): 115 B
@@ -49,6 +59,9 @@
 
 #define THREADS 256
 
+// SOBOL_ON / STRICT_ON: the flag bits SAMPLER_SOBOL / STRICT of P.flags,
+// which the C entries turn into the instantiation they launch
+template <bool SOBOL_ON, bool STRICT_ON>
 __global__ void __launch_bounds__(THREADS)
 pool_step_kernel(const StepParams P, const Tables T,
                  const float* __restrict__ xy,
@@ -75,7 +88,8 @@ pool_step_kernel(const StepParams P, const Tables T,
     t = best_t[i];
     idx = best_i[i];
   }
-  pool_iteration(P, T, xs, ys, slot, P.kd0, P.kd1, P.init != 0, t, idx, L);
+  pool_iteration<SOBOL_ON, STRICT_ON>(P, T, xs, ys, slot, P.kd0, P.kd1,
+                                      P.init != 0, t, idx, L);
   const V3 o = L.o, d = L.d, tp = L.tp, ac = L.ac;
   const float tm = L.tm;
   const int bounce = L.bounce, sample = L.sample, active = L.active;
@@ -94,6 +108,7 @@ pool_step_kernel(const StepParams P, const Tables T,
 // index.  Direction and weight mean something only
 // where the lane hit and scattered (an emissive lane keeps its incoming
 // direction and weight 0).
+template <bool STRICT_ON>
 __global__ void __launch_bounds__(THREADS)
 hit_scatter_kernel(const StepParams P, const Tables T,
                    const float* __restrict__ rays,
@@ -109,7 +124,8 @@ hit_scatter_kernel(const StepParams P, const Tables T,
   const V3 d = {rays[3 * R + i], rays[4 * R + i], rays[5 * R + i]};
   const float t = best_t[i];
   const bool hit = isfinite(t);
-  const Shade s = shade_core(P, T, o, d, rays[6 * R + i], hit ? t : 1.0f,
+  const Shade s = shade_core<STRICT_ON>(P, T, o, d, rays[6 * R + i],
+                                        hit ? t : 1.0f,
                              best_i[i], lane_ids[i], P.kd0, P.kd1);
   fout[i] = s.p.x; fout[R + i] = s.p.y; fout[2 * R + i] = s.p.z;
   fout[3 * R + i] = s.n.x; fout[4 * R + i] = s.n.y; fout[5 * R + i] = s.n.z;
@@ -125,44 +141,61 @@ hit_scatter_kernel(const StepParams P, const Tables T,
 
 // xy (2, R) f32, slot (R) u32, fin (13, R) f32, iin (3, R) i32, best_t (R)
 // f32, best_i (R) i32, tab (N, 40) f32, salt (N) u32, lights (L, 25) f32,
-// atlas (I, img_h, img_w) u32, img_size (I, 2) i32, params: host pointer to
-// the StepParams words; fout/iout like fin/iin.  Returns the launch's
+// atlas (I, img_h, img_w) u32, img_size (I, 2) i32, perlin_id (N) i32, perm
+// (P, 3, 256) i32, ranvec (P, 256, 3) f32, params: host pointer to the
+// StepParams words; fout/iout like fin/iin.  Returns the launch's
 // cudaError_t (0 = launched).
 extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
                             const float* fin, const int* iin,
                             const float* best_t, const int* best_i,
                             const float* tab, const uint32_t* salt,
                             const float* lights, const uint32_t* atlas,
-                            const int* img_size, const void* params,
-                            float* fout, int* iout, long long R,
+                            const int* img_size, const int* perlin_id,
+                            const int* perm, const float* ranvec,
+                            const void* params, float* fout, int* iout,
+                            long long R,
                             void* stream) {
   if (R <= 0) return 0;
   StepParams P;
   memcpy(&P, params, sizeof(StepParams));
-  const Tables T = {tab, salt, lights, atlas, img_size};
+  const Tables T = {tab, salt, lights, atlas, img_size, perlin_id, perm,
+                    ranvec};
   const long long blocks = (R + THREADS - 1) / THREADS;
-  pool_step_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const bool sobol = (P.flags & SAMPLER_SOBOL) != 0;
+  const bool strict = (P.flags & STRICT) != 0;
+  const auto kernel =
+      sobol ? (strict ? pool_step_kernel<true, true>
+                      : pool_step_kernel<true, false>)
+            : (strict ? pool_step_kernel<false, true>
+                      : pool_step_kernel<false, false>);
+  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       P, T, xy, slot, fin, iin, best_t, best_i, fout, iout, R);
   return (int)cudaGetLastError();
 }
 
 // rays (7, R) f32 rows origin, direction, time; best_t (R) f32, best_i (R)
 // i32, lane_ids (R) u32; tables and params as tr_pool_step (only the key
-// words, t_min, n_lights, flags and the atlas dims are read); fout (17, R)
+// words, t_min, n_lights, flags and the atlas dims are read; the STRICT bit
+// picks the instantiation); fout (17, R)
 // f32, flags (3, R) bytes, mat (R) i32.  Returns the launch's cudaError_t.
 extern "C" int tr_hit_scatter(const float* rays, const float* best_t,
                               const int* best_i, const uint32_t* lane_ids,
                               const float* tab, const uint32_t* salt,
                               const float* lights, const uint32_t* atlas,
-                              const int* img_size, const void* params,
-                              float* fout, unsigned char* flags, int* mat,
+                              const int* img_size, const int* perlin_id,
+                              const int* perm, const float* ranvec,
+                              const void* params, float* fout,
+                              unsigned char* flags, int* mat,
                               long long R, void* stream) {
   if (R <= 0) return 0;
   StepParams P;
   memcpy(&P, params, sizeof(StepParams));
-  const Tables T = {tab, salt, lights, atlas, img_size};
+  const Tables T = {tab, salt, lights, atlas, img_size, perlin_id, perm,
+                    ranvec};
   const long long blocks = (R + THREADS - 1) / THREADS;
-  hit_scatter_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const auto kernel = (P.flags & STRICT) ? hit_scatter_kernel<true>
+                                         : hit_scatter_kernel<false>;
+  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       P, T, rays, best_t, best_i, lane_ids, fout, flags, mat, R);
   return (int)cudaGetLastError();
 }

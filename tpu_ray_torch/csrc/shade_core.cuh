@@ -2,7 +2,16 @@
 // (pool_step.cu) and the whole-wave megakernel (megakernel.cu): the parameter
 // block, the murmur3 streams, the textures, the shade core (hit record +
 // textures + scatter of one lane) and one pool iteration of a lane (estimator
-// update, Russian roulette, path death, camera regeneration).  The three
+// update, Russian roulette, path death, camera regeneration, hashed or
+// Sobol').  Two bits of ``flags`` select what the JAX package selects by
+// static arguments: SAMPLER_SOBOL the scrambled Sobol' camera sample
+// (qmc.cuh), STRICT the reference estimator (table-noise Perlin octaves, the
+// Lambertian's mixture with an unhittable light in scenes without lights,
+// the ball-radius isotropic phase).  They are template arguments of the
+// core (SOBOL_ON, STRICT_ON), and each kernel's C entry launches the
+// instantiation that the bits name: the uniform, fixed path is compiled
+// without either branch, which, compiled in and skipped, cost the step 2%
+// of its time (one H100, PERF.md).  The three
 // kernels run this one copy, statement for statement in the order of the
 // plain version tpu_ray_torch/ops/shade.py, so a lane's discrete decisions
 // are the same in all of them.  Needs IEEE arithmetic: no fast math,
@@ -13,6 +22,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "qmc.cuh"
 #include "sweep_pairs.cuh"
 
 #define PRIM_COLS 40
@@ -26,7 +36,9 @@ enum {
   HAS_MEDIA = 1 << 3, HAS_CHECKER = 1 << 4, HAS_PERLIN = 1 << 5,
   HAS_EMISSIVE = 1 << 6, HAS_LAMBERTIAN = 1 << 7, HAS_METAL = 1 << 8,
   HAS_DIELECTRIC = 1 << 9, HAS_ISOTROPIC = 1 << 10, HAS_IMAGE = 1 << 11,
-  ANY_TRANSFORM = 1 << 12
+  ANY_TRANSFORM = 1 << 12,
+  // render-wide switches (ops/shade.py::_params), not scene features
+  SAMPLER_SOBOL = 1 << 13, STRICT = 1 << 14
 };
 
 // layout mirrored by tpu_ray_torch/ops/shade.py::_params (32-bit words)
@@ -156,12 +168,68 @@ __device__ float perlin_noise(uint32_t salt, float qx, float qy, float qz) {
   }
   return acc;
 }
-__device__ float marble(uint32_t salt, float scale, float px, float py,
-                        float pz) {
+
+// scene tables shared by the kernels
+struct Tables {
+  const float* __restrict__ tab;          // (N, 40) prim + material rows
+  const uint32_t* __restrict__ salt;      // (N) Perlin salt per prim
+  const float* __restrict__ lights;       // (L, 25)
+  const uint32_t* __restrict__ atlas;     // (I, img_h, img_w) packed RGB
+  const int* __restrict__ img_size;       // (I, 2) width, height
+  const int* __restrict__ perlin_id;      // (N) Perlin instance per prim
+  const int* __restrict__ perm;           // (P, 3, 256) strict-mode tables
+  const float* __restrict__ ranvec;       // (P, 256, 3)
+};
+
+// --- the reference's table-noise octave (strict mode) ----------------------
+// textures.py::_perlin_noise_table: gradient ranvec[permX[(i+di) & 255] ^
+// permY[..] ^ permZ[..]] of Perlin instance pid; & 255 on the int32 lattice
+// coordinate is the mathematical mod for negative ones too.  The tables are
+// 6 KB per instance and stay in L1 / L2.
+__device__ float perlin_noise_table(const Tables& T, int pid, float qx,
+                                    float qy, float qz) {
+  const float ix = floorf(qx), iy = floorf(qy), iz = floorf(qz);
+  const float ux = qx - ix, uy = qy - iy, uz = qz - iz;
+  const float hx_ = ux * ux * (3.0f - 2.0f * ux);
+  const float hy_ = uy * uy * (3.0f - 2.0f * uy);
+  const float hz_ = uz * uz * (3.0f - 2.0f * uz);
+  const int i0 = (int)ix, j0 = (int)iy, k0 = (int)iz;
+  const int* perm = T.perm + pid * 768;
+  const int px[2] = {perm[i0 & 255], perm[(i0 + 1) & 255]};
+  const int py[2] = {perm[256 + (j0 & 255)], perm[256 + ((j0 + 1) & 255)]};
+  const int pz[2] = {perm[512 + (k0 & 255)], perm[512 + ((k0 + 1) & 255)]};
+  const float* rv = T.ranvec + pid * 768;
+  float acc = 0.0f;
+  for (int di = 0; di < 2; ++di) {
+    const float w0 = di ? hx_ : 1.0f - hx_;
+    const float ox = ux - (float)di;
+    for (int dj = 0; dj < 2; ++dj) {
+      const float w1 = dj ? hy_ : 1.0f - hy_;
+      const float oy = uy - (float)dj;
+      for (int dk = 0; dk < 2; ++dk) {
+        const float w2 = dk ? hz_ : 1.0f - hz_;
+        const float oz = uz - (float)dk;
+        const float* g = rv + 3 * (px[di] ^ py[dj] ^ pz[dk]);
+        acc = acc + (w0 * w1 * w2) * (g[0] * ox + g[1] * oy + g[2] * oz);
+      }
+    }
+  }
+  return acc;
+}
+
+// 7-octave turbulence marble of prim idx: the hash-gradient octave, or with
+// TABLE the reference's table octave
+template <bool TABLE>
+__device__ float marble(const Tables& T, int idx, float scale, float px,
+                        float py, float pz) {
+  const uint32_t salt = TABLE ? 0u : T.salt[idx];
+  const int pid = TABLE ? T.perlin_id[idx] : 0;
   float acc = 0.0f, ppx = px, ppy = py, ppz = pz, weight = 1.0f;
   for (int o = 0; o < 7; ++o) {
-    acc = acc + weight * perlin_noise(salt, scale * ppx, scale * ppy,
-                                      scale * ppz);
+    const float qx = scale * ppx, qy = scale * ppy, qz = scale * ppz;
+    const float noise = TABLE ? perlin_noise_table(T, pid, qx, qy, qz)
+                              : perlin_noise(salt, qx, qy, qz);
+    acc = acc + weight * noise;
     ppx = 2.0f * ppx;
     ppy = 2.0f * ppy;
     ppz = 2.0f * ppz;
@@ -169,15 +237,6 @@ __device__ float marble(uint32_t salt, float scale, float px, float py,
   }
   return 0.5f * (1.0f + sinf(pz + 10.0f * fabsf(acc)));
 }
-
-// scene tables shared by both kernels
-struct Tables {
-  const float* __restrict__ tab;          // (N, 40) prim + material rows
-  const uint32_t* __restrict__ salt;      // (N) Perlin salt per prim
-  const float* __restrict__ lights;       // (L, 25)
-  const uint32_t* __restrict__ atlas;     // (I, img_h, img_w) packed RGB
-  const int* __restrict__ img_size;       // (I, 2) width, height
-};
 
 struct Shade {
   V3 p, n, dir, w, emitted;
@@ -190,6 +249,7 @@ struct Shade {
 // Hit record + textures + scatter of one lane whose sweep result is
 // (ts, idx), ts already made finite (ops/shade.py::_shade); (kd0, kd1) are
 // the scatter key's words.
+template <bool STRICT_ON>
 __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
                             float tm, float ts, int idx, uint32_t slot,
                             uint32_t kd0, uint32_t kd1) {
@@ -281,7 +341,7 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
                        : V3{row[26], row[27], row[28]};
   }
   if ((fl & HAS_PERLIN) && tex_kind == TEX_PERLIN) {
-    const float m = marble(T.salt[idx], row[29], p.x, p.y, p.z);
+    const float m = marble<STRICT_ON>(T, idx, row[29], p.x, p.y, p.z);
     att = {m, m, m};
   }
   if ((fl & HAS_IMAGE) && tex_kind == TEX_IMAGE) {
@@ -360,6 +420,14 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
       const float w_mis = pdf_val > 0.0f ? cos_pdf / jmax(pdf_val, 1e-12f)
                                          : 0.0f;
       w = {att.x * w_mis, att.y * w_mis, att.z * w_mis};
+    } else if (STRICT_ON) {
+      // the reference's mixture with an unhittable light: half the draws go
+      // to (1,0,0) at light density 0, so the weight is 2 att above the
+      // surface and its 0/0 sample below it is floored to black
+      const V3 one_x = {1.0f, 0.0f, 0.0f};
+      dir = normalize3(hash_col(base, 0) < 0.5f ? one_x : cos_dir);
+      const float f = dot3(dir, n) > 0.0f ? 2.0f : 0.0f;
+      w = {att.x * f, att.y * f, att.z * f};
     } else {
       dir = normalize3(cos_dir);
       w = att;
@@ -387,6 +455,15 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
   } else if (mkind == MAT_ISOTROPIC && (fl & HAS_ISOTROPIC)) {
     dir = unit_vector_from(hash_col(base, 11), hash_col(base, 12));
     w = att;
+    if (STRICT_ON) {
+      // the reference's non-unit ball direction weighed by cos/pi against
+      // the medium's fixed normal; cbrt in double rounded once to float is
+      // the correctly rounded root (core/vec.py::cbrt_rn)
+      const float rad = (float)cbrt((double)jmax(hash_col(base, 13), 1e-6f));
+      dir = {dir.x * rad, dir.y * rad, dir.z * rad};
+      const float c = jmax(dot3(n, dir), 0.0f) * INV_PI;
+      w = {att.x * c, att.y * c, att.z * c};
+    }
   }
   s.dir = dir;
   s.w = w;
@@ -406,6 +483,7 @@ struct Lane {
 // estimator (integrator.trace_pool body), and regenerate the camera sample
 // where the path died (rng.hash_uniforms2 + camera.rays_from_uniforms).
 // ``init`` runs the regeneration alone, for every lane.
+template <bool SOBOL_ON, bool STRICT_ON>
 __device__ __forceinline__ void pool_iteration(
     const StepParams& P, const Tables& T, float xs, float ys, uint32_t slot,
     uint32_t kd0, uint32_t kd1, bool init, float t, int idx, Lane& L) {
@@ -428,7 +506,8 @@ __device__ __forceinline__ void pool_iteration(
     V3 p = o, emitted = {0.0f, 0.0f, 0.0f}, dir = d, w = {0.0f, 0.0f, 0.0f};
     uint32_t base = 0;
     if (hit) {
-      const Shade s = shade_core(P, T, o, d, tm, t, idx, slot, kd0, kd1);
+      const Shade s = shade_core<STRICT_ON>(P, T, o, d, tm, t, idx, slot, kd0,
+                                            kd1);
       p = s.p;
       emitted = s.emitted;
       dir = s.dir;
@@ -464,13 +543,19 @@ __device__ __forceinline__ void pool_iteration(
     }
   }
 
-  // ---- camera regeneration (rng.hash_uniforms2 + rays_from_uniforms) ----
+  // ---- camera regeneration (rng.hash_uniforms2 or the scrambled Sobol'
+  // point of (slot, plain global sample), + rays_from_uniforms) ----
   const bool want = dead_now && sample < P.n_samples;
   if (want) {
-    const uint32_t b_w = (P.sample0 + (uint32_t)sample) ^ P.cam_salt;
-    const uint32_t cb = fmix(slot + 0x9E3779B9u) ^ (b_w * 0x85EBCA6Bu);
-    const float u0 = hash_col(cb, 0), u1 = hash_col(cb, 1), u2 = hash_col(cb, 2);
-    const float u3 = hash_col(cb, 3), u4 = hash_col(cb, 4);
+    float u[5];
+    if (SOBOL_ON) {
+      sobol_camera(slot, P.sample0 + (uint32_t)sample, P.cam_salt, u);
+    } else {
+      const uint32_t b_w = (P.sample0 + (uint32_t)sample) ^ P.cam_salt;
+      const uint32_t cb = fmix(slot + 0x9E3779B9u) ^ (b_w * 0x85EBCA6Bu);
+      for (int k = 0; k < 5; ++k) u[k] = hash_col(cb, k);
+    }
+    const float u0 = u[0], u1 = u[1], u2 = u[2], u3 = u[3], u4 = u[4];
     const float* c = P.cam;
     const float sx = xs + u0 * P.inv_w;
     const float sy = ys + u1 * P.inv_h;

@@ -59,7 +59,7 @@ from .ops.hit_scatter import hit_scatter
 from .ops.intersect import intersect_ti, media_rows
 from .ops.megakernel import trace_pool_mega  # noqa: F401  (re-exported)
 from .ops.shade import (N_FSTATE, N_ISTATE, RR_COL, RR_PMIN, StepConfig,
-                        pool_step)
+                        camera_uniforms, pool_step)
 from .ops.sweep import (MxuPack, SweepBlocks, mxu_pack, sweep_blocks,
                         sweep_table, use_mask_cull, use_mxu, use_sort)
 
@@ -330,8 +330,11 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     P = width * height
     pix = torch.where(valid, w_new % P, 0)
     gsample = ((work_base // P) + torch.where(valid, w_new // P, 0)) & rng.M32
-    base = rng.hash2_base(pix, gsample ^ (cam_salt & rng.M32))
-    u0, u1, u2, u3, u4 = (rng.hash_col(base, c) for c in range(5))
+    # camera stream keyed by (pixel, global sample), the pool regen's draws
+    # with the pixel id as the slot word (hashed, or the Sobol' point of the
+    # plain global sample)
+    u0, u1, u2, u3, u4 = camera_uniforms(cfg.sobol, pix, gsample,
+                                         cam_salt & rng.M32)
     sx = ((pix % width).to(torch.float32) + u0) * cfg.inv_w
     sy = ((height - 1 - pix // width).to(torch.float32) + u1) * cfg.inv_h
     cam = [float(c) for c in cfg.cam]

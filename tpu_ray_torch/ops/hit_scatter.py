@@ -104,7 +104,7 @@ def hit_scatter(cfg: StepConfig, rays, best_t, best_i, kd, lane_ids):
         return hit_scatter_plain(cfg, rays, best_t, best_i, kd, lane_ids)
     _check(cfg, rays, best_t, best_i, lane_ids)
     fn = load_fn("pool_step", "tr_hit_scatter",
-                 [ctypes.c_void_p] * 13 + [ctypes.c_longlong, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 16 + [ctypes.c_longlong, ctypes.c_void_p])
     R = rays.shape[1]
     f = torch.empty((N_FOUT, R), dtype=torch.float32, device=rays.device)
     flags = torch.empty((3, R), dtype=torch.bool, device=rays.device)

@@ -219,7 +219,7 @@ def launch_mega(scene: SceneData, cfg: StepConfig, xy, slot, k_loop, kern,
     sample = torch.empty((R,), dtype=torch.int32, device=dev)
     fn = load_fn("megakernel", "tr_megakernel",
                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
+                 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13
                  + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
     n_ss, n_s, n_sb, n_solid = _ranges(scene)
     params = _params(cfg, (0, 0), False)

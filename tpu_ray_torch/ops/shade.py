@@ -5,9 +5,15 @@ _step_kernel`` (with ``_shade_core``): one whole pool iteration per lane -
 hit-record rebuild from the sweep's (best_t, best_i), constant / checker /
 hash-Perlin / image textures, scatter for the five materials with 50/50 light /
 cosine MIS, optional Russian roulette, estimator accumulation, path death
-and camera regeneration.  :func:`pool_step` launches it for CUDA tensors;
-:func:`pool_step_plain` is the same step in plain PyTorch (the CPU path and
-the reference the kernel is held to).
+and camera regeneration, hashed or from the scrambled Sobol' point of
+``core/qmc.py`` (``Camera.sampler``).  With ``scene.strict`` it shades the
+strict reference estimator, which the JAX package computes in XLA outside
+its kernels (``ops/scatter.py``, ``ops/textures.py``): the reference's
+table-noise Perlin octaves, the Lambertian's mixture with an unhittable
+light in scenes without lights, and the ball-radius isotropic phase.
+:func:`pool_step` launches it for CUDA tensors; :func:`pool_step_plain` is
+the same step in plain PyTorch (the CPU path and the reference the kernel
+is held to).
 
 Pool state layout (one column per lane, so every access is coalesced):
 
@@ -35,9 +41,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core import rng
+from ..core import qmc, rng
 from ..core.rng import M32, as_u32, fmix, hash_col
-from ..core.vec import sqrt_rn
+from ..core.vec import cbrt_rn, sqrt_rn
 from ..models.scene_data import (
     LIGHT_QUAD,
     MAT_DIELECTRIC,
@@ -88,6 +94,13 @@ FLAG_BITS = ("has_moving", "has_quads", "has_solid_box", "has_media",
              "has_checker", "has_perlin", "has_emissive", "has_lambertian",
              "has_metal", "has_dielectric", "has_isotropic", "has_image",
              "any_transform")
+# the render-wide bits above them (csrc/shade_core.cuh)
+SAMPLER_SOBOL_BIT = 1 << 13
+STRICT_BIT = 1 << 14
+# camera samplers: "sobol-b0" keeps the Sobol' camera dims with hashed
+# scatter draws wherever the fused step runs, which in this port is
+# everywhere (the JAX package's first-bounce override is XLA-only)
+SAMPLERS = ("uniform", "sobol", "sobol-b0")
 
 
 def build_tables(scene: SceneData):
@@ -140,6 +153,14 @@ def build_tables(scene: SceneData):
     return geo, salt.astype(np.uint32), lights
 
 
+def perlin_ids(scene: SceneData) -> np.ndarray:
+    """(N,) int32 Perlin instance of each prim's material texture: the row
+    of the strict mode's noise tables (``textures.marble_from``'s pid)."""
+    n = scene.n_prims
+    mp = scene.mat_payload.cpu().numpy()[scene.prims.mat.cpu().numpy()[:n]]
+    return mp[:, 14].astype(np.int32)
+
+
 @dataclass
 class StepConfig:
     """Everything the pool step reads besides the lane state: scene tables
@@ -153,6 +174,9 @@ class StepConfig:
     flags: dict               # FLAG_BITS -> bool
     atlas: torch.Tensor       # (I, Hmax, Wmax) int32: packed 8-bit RGB texels
     img_size: torch.Tensor    # (I, 2) int32 (width, height)
+    perlin_id: torch.Tensor   # (N,) int32 Perlin instance per prim
+    perm: torch.Tensor        # (P, 3, 256) int32 strict-mode noise tables
+    ranvec: torch.Tensor      # (P, 256, 3) float32
     t_min: float
     background: np.ndarray    # (3,) float32
     cam: np.ndarray           # (21,) float32 (Camera.vec)
@@ -163,13 +187,21 @@ class StepConfig:
     n_samples: int
     sample0: int
     cam_salt: int
+    sobol: bool               # Sobol' camera sample (Camera.sampler)
+    strict: bool              # the strict reference estimator
 
     @classmethod
     def create(cls, scene: SceneData, camera, width: int, height: int,
                max_depth: int, rr_depth: int = 0, n_samples: int = 1,
                sample0: int = 0, cam_salt: int = 0) -> "StepConfig":
+        """The step's configuration for ``scene`` seen through ``camera``:
+        the sampler comes from ``camera.sampler``, the estimator from
+        ``scene.strict``."""
+        if camera.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {camera.sampler!r}")
         geo, salt, lights = build_tables(scene)
         dev = scene.device
+        texs = scene.texs
         return cls(
             tab=torch.from_numpy(geo).to(dev),
             salt=torch.from_numpy(salt.view(np.int32)).to(dev),
@@ -177,14 +209,18 @@ class StepConfig:
             n_lights=int(scene.n_lights),
             flags={k: bool(getattr(scene, k)) for k in FLAG_BITS},
             atlas=torch.from_numpy(np.ascontiguousarray(
-                scene.texs.img_atlas.cpu().numpy()).view(np.int32)).to(dev),
-            img_size=scene.texs.img_size.to(torch.int32).contiguous(),
+                texs.img_atlas.cpu().numpy()).view(np.int32)).to(dev),
+            img_size=texs.img_size.to(torch.int32).contiguous(),
+            perlin_id=torch.from_numpy(perlin_ids(scene)).to(dev),
+            perm=texs.perlin_perm.to(torch.int32).contiguous(),
+            ranvec=texs.perlin_ranvec.to(torch.float32).contiguous(),
             t_min=float(f32(scene.t_min)),
             background=scene.background.cpu().numpy().astype(np.float32),
             cam=camera.vec(), inv_w=float(f32(1.0 / width)),
             inv_h=float(f32(1.0 / height)), max_depth=int(max_depth),
             rr_depth=int(rr_depth), n_samples=int(n_samples),
-            sample0=int(sample0) & M32, cam_salt=int(cam_salt) & M32)
+            sample0=int(sample0) & M32, cam_salt=int(cam_salt) & M32,
+            sobol=camera.sampler != "uniform", strict=bool(scene.strict))
 
 
 # --- plain helpers on component triples (megakernel.py:112-240) -------------
@@ -302,14 +338,48 @@ def _perlin_noise(salt, qx, qy, qz):
     return acc
 
 
-def _marble(salt, scale, px, py, pz):
-    """7-octave turbulence marble, 0.5 * (1 + sin(z + 10 |turb|))."""
+def _perlin_noise_table(cfg: "StepConfig", pid, qx, qy, qz):
+    """The reference's table-noise octave (strict mode,
+    ``textures._perlin_noise_table``): gradient ``ranvec[permX[(i+di) &
+    255] ^ permY[..] ^ permZ[..]]`` of Perlin instance ``pid``; ``& 255`` on
+    the two's-complement lattice coordinate is the mathematical mod."""
+    ix, iy, iz = torch.floor(qx), torch.floor(qy), torch.floor(qz)
+    ux, uy, uz = qx - ix, qy - iy, qz - iz
+    hx_ = ux * ux * (3.0 - 2.0 * ux)
+    hy_ = uy * uy * (3.0 - 2.0 * uy)
+    hz_ = uz * uz * (3.0 - 2.0 * uz)
+    perm = cfg.perm.reshape(-1).to(torch.int64)
+    ranvec = cfg.ranvec.reshape(-1, 3)
+    base = pid.to(torch.int64) * 768
+    i0, j0, k0 = (c.to(torch.int64) for c in (ix, iy, iz))
+    px = [perm[base + ((i0 + d) & 255)] for d in (0, 1)]
+    py = [perm[base + 256 + ((j0 + d) & 255)] for d in (0, 1)]
+    pz = [perm[base + 512 + ((k0 + d) & 255)] for d in (0, 1)]
+    vbase = pid.to(torch.int64) * 256
+    acc = torch.zeros_like(qx)
+    for di in (0, 1):
+        w0 = hx_ if di else 1.0 - hx_
+        ox = ux - di
+        for dj in (0, 1):
+            w1 = hy_ if dj else 1.0 - hy_
+            oy = uy - dj
+            for dk in (0, 1):
+                w2 = hz_ if dk else 1.0 - hz_
+                oz = uz - dk
+                g = ranvec[vbase + (px[di] ^ py[dj] ^ pz[dk])]
+                acc = acc + (w0 * w1 * w2) * (g[:, 0] * ox + g[:, 1] * oy
+                                              + g[:, 2] * oz)
+    return acc
+
+
+def _marble(octave, scale, px, py, pz):
+    """7-octave turbulence marble, 0.5 * (1 + sin(z + 10 |turb|)), with
+    ``octave(qx, qy, qz)`` one octave of noise at the scaled point."""
     acc = torch.zeros_like(px)
     ppx, ppy, ppz = px, py, pz
     weight = 1.0
     for _ in range(7):
-        acc = acc + weight * _perlin_noise(salt, scale * ppx, scale * ppy,
-                                           scale * ppz)
+        acc = acc + weight * octave(scale * ppx, scale * ppy, scale * ppz)
         ppx, ppy, ppz = 2.0 * ppx, 2.0 * ppy, 2.0 * ppz
         weight = weight * 0.5
     return 0.5 * (1.0 + torch.sin(pz + 10.0 * torch.abs(acc)))
@@ -421,8 +491,14 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
                           (pull(26), pull(27), pull(28)))
         att = _where3(tex_kind == TEX_CHECKER, checker, att)
     if fl["has_perlin"]:
-        psalt = as_u32(cfg.salt[idx.to(torch.int64)])
-        m = _marble(psalt, pull(29), px, py, pz)
+        if cfg.strict:
+            pid = cfg.perlin_id[idx.to(torch.int64)]
+            octave = lambda qx, qy, qz: _perlin_noise_table(cfg, pid, qx, qy,
+                                                            qz)
+        else:
+            psalt = as_u32(cfg.salt[idx.to(torch.int64)])
+            octave = lambda qx, qy, qz: _perlin_noise(psalt, qx, qy, qz)
+        m = _marble(octave, pull(29), px, py, pz)
         att = _where3(tex_kind == TEX_PERLIN, (m, m, m), att)
     if fl["has_image"]:
         att = _where3(tex_kind == TEX_IMAGE,
@@ -494,6 +570,14 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
                                 cos_pdf / torch.clamp(pdf_val, min=1e-12),
                                 0.0)
             w_lam = (att[0] * w_mis, att[1] * w_mis, att[2] * w_mis)
+        elif cfg.strict:
+            # the reference's mixture with an unhittable light: (1,0,0) on
+            # half the draws at light density 0, weight 2 att above the
+            # surface, its 0/0 sample below floored to black
+            one_x = (torch.ones_like(zero), zero, zero)
+            dir_lam = _normalize(_where3(u(0) < 0.5, one_x, cos_dir))
+            f = torch.where(_dot(dir_lam, n_vec) > 0.0, 2.0, 0.0)
+            w_lam = (att[0] * f, att[1] * f, att[2] * f)
         else:
             dir_lam = _normalize(cos_dir)
             w_lam = att
@@ -520,8 +604,15 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
         branches.append((MAT_DIELECTRIC, dir_diel,
                          (torch.ones_like(zero),) * 3))
     if fl["has_isotropic"]:
-        branches.append((MAT_ISOTROPIC, _unit_vector_from(u(11), u(12)),
-                         att))
+        dir_iso, w_iso = _unit_vector_from(u(11), u(12)), att
+        if cfg.strict:
+            # the reference's non-unit ball direction, weighed by cos/pi
+            # against the medium's fixed (1,0,0) normal
+            rad = cbrt_rn(torch.clamp(u(13), min=1e-6))
+            dir_iso = tuple(c * rad for c in dir_iso)
+            c = torch.clamp(_dot(n_vec, dir_iso), min=0.0) * INV_PI
+            w_iso = (att[0] * c, att[1] * c, att[2] * c)
+        branches.append((MAT_ISOTROPIC, dir_iso, w_iso))
     if not branches:
         branches.append((MAT_DIFFUSE_LIGHT, unit_d, (zero, zero, zero)))
     _, direction, weight = branches[0]
@@ -582,12 +673,12 @@ def pool_step_plain(cfg: StepConfig, xy, slot, fstate, istate, best_t,
         o = _where3(cont, s["point"], o)
         d = _where3(cont, s["direction"], d)
 
-    # camera regeneration (rng.hash_uniforms2 + camera.rays_from_uniforms)
+    # camera regeneration (rng.hash_uniforms2, or the Sobol' point of the
+    # plain global sample, + camera.rays_from_uniforms)
     cam = [float(c) for c in cfg.cam]
     want = dead_now & (sample < cfg.n_samples)
-    b_w = ((cfg.sample0 + as_u32(sample)) & M32) ^ cfg.cam_salt
-    base = rng.hash2_base(slot, b_w)
-    u0, u1, u2, u3, u4 = (hash_col(base, i) for i in range(5))
+    u0, u1, u2, u3, u4 = camera_uniforms(
+        cfg.sobol, slot, (cfg.sample0 + as_u32(sample)) & M32, cfg.cam_salt)
     sx = xs + u0 * cfg.inv_w
     sy = ys + u1 * cfg.inv_h
     r = cam[18] * sqrt_rn(u2)
@@ -613,6 +704,18 @@ def pool_step_plain(cfg: StepConfig, xy, slot, fstate, istate, best_t,
 
 
 pool_step_plain.calls = 0
+
+
+def camera_uniforms(sobol: bool, slot, gs, salt: int) -> tuple:
+    """The five camera uniforms (pixel jitter x, y, lens radius, lens angle,
+    shutter time) of each slot's global sample ``gs`` (int64 in [0, 2^32))
+    under the camera salt: the murmur3 pair hash of (slot, gs ^ salt), or
+    with a Sobol' sampler the scrambled Sobol' point of (slot, plain gs)."""
+    if sobol:
+        return (qmc.pixel_uniforms(slot, gs, salt)
+                + qmc.lens_time_uniforms(slot, gs, salt))
+    base = rng.hash2_base(slot, gs ^ salt)
+    return tuple(hash_col(base, i) for i in range(5))
 
 
 def _check(cfg, xy, slot, fstate, istate, best_t, best_i):
@@ -644,6 +747,8 @@ def _params(cfg: StepConfig, kd, init: bool) -> np.ndarray:
     w[k + 3:k + 7] = (int(kd[0]) & M32, int(kd[1]) & M32, cfg.sample0,
                       cfg.cam_salt)
     flags = sum(1 << i for i, n in enumerate(FLAG_BITS) if cfg.flags[n])
+    flags |= (SAMPLER_SOBOL_BIT if cfg.sobol else 0) | \
+        (STRICT_BIT if cfg.strict else 0)
     w[k + 7:k + 13] = np.array([cfg.n_samples, cfg.max_depth, cfg.rr_depth,
                                 cfg.n_lights, flags, int(init)],
                                np.int64) & M32
@@ -654,7 +759,9 @@ def _params(cfg: StepConfig, kd, init: bool) -> np.ndarray:
 def table_ptrs(cfg: StepConfig):
     """Device pointers of the scene tables, in the kernels' argument order."""
     return (cfg.tab.data_ptr(), cfg.salt.data_ptr(), cfg.lights_t.data_ptr(),
-            cfg.atlas.data_ptr(), cfg.img_size.data_ptr())
+            cfg.atlas.data_ptr(), cfg.img_size.data_ptr(),
+            cfg.perlin_id.data_ptr(), cfg.perm.data_ptr(),
+            cfg.ranvec.data_ptr())
 
 
 def pool_step(cfg: StepConfig, xy, slot, fstate, istate, best_t, best_i,
@@ -666,7 +773,7 @@ def pool_step(cfg: StepConfig, xy, slot, fstate, istate, best_t, best_i,
                                kd, init)
     _check(cfg, xy, slot, fstate, istate, best_t, best_i)
     fn = load_fn("pool_step", "tr_pool_step",
-                 [ctypes.c_void_p] * 14 + [ctypes.c_longlong, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 17 + [ctypes.c_longlong, ctypes.c_void_p])
     R = fstate.shape[1]
     f_out = torch.empty_like(fstate)
     i_out = torch.empty_like(istate)

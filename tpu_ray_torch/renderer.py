@@ -74,20 +74,14 @@ def pick_samples_per_wave(width: int, height: int, spp: int,
         spp, max(1, rays_per_wave // max(width * height, 1)))
 
 
-def check_supported(scene: SceneData, camera: Camera) -> None:
+def check_supported(scene: SceneData) -> None:
     """Raise ``NotImplementedError`` for scenes outside this port."""
-    if scene.strict:
-        raise NotImplementedError("the strict reference estimator is not "
-                                  "ported yet (a later slice)")
     if scene.checker_fancy:
         raise NotImplementedError("checker textures with non-constant "
                                   "children are not ported yet")
     if scene.image_on_emissive:
         raise NotImplementedError("an image texture on an emissive material "
                                   "is outside the fused shading kernels")
-    if camera.sampler != "uniform":
-        raise NotImplementedError(f"sampler {camera.sampler!r} is not ported "
-                                  "yet (a later slice adds core/qmc.py)")
 
 
 ENGINES = ("auto", "xla", "mxu", "pallas", "mega")
@@ -241,7 +235,14 @@ def _render_wave(scene, camera, width, height, spp, max_depth, seed,
                  rays_per_wave, rr_depth, progress, sort):
     """Plain-wavefront render (``make_wave_fn``): per wave ``k`` samples per
     pixel, camera samples drawn by lane position from ``jax.random``-equal
-    streams of ``split(fold_in(PRNGKey(seed), wave), 3)``."""
+    streams of ``split(fold_in(PRNGKey(seed), wave), 3)``, so it takes the
+    uniform sampler only."""
+    if camera.sampler != "uniform":
+        raise ValueError(
+            "mode='wave' draws camera samples by lane position, not by "
+            "(pixel, sample index), so low-discrepancy samplers do not "
+            "apply; use the pool or queue mode with --sampler "
+            f"{camera.sampler!r}")
     dev = scene.device
     k = pick_samples_per_wave(width, height, spp, rays_per_wave)
     n_waves = spp // k
@@ -287,7 +288,9 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  The remaining
     arguments of the JAX ``render`` (BVH traversal, device meshes, adaptive
     sampling, checkpoints, progressive output) are later slices of the port
-    and raise ``NotImplementedError`` when asked for.
+    and raise ``NotImplementedError`` when asked for.  ``camera.sampler``
+    picks the camera sample ("uniform", "sobol", "sobol-b0"; the pool and
+    queue modes) and ``scene.strict`` the strict reference estimator.
     """
     for name, on in (("bvh", bool(bvh)), ("mesh", mesh is not None),
                      ("adaptive sampling", bool(adaptive)),
@@ -296,9 +299,17 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
         if on:
             raise NotImplementedError(f"{name} is not ported yet (a later "
                                       "slice of the port)")
-    check_supported(scene, camera)
+    check_supported(scene)
     engine = resolve_engine(scene, engine)
     mode = resolve_mode(scene, mode, engine)
+    if camera.sampler == "sobol-b0":
+        # the JAX package's first-bounce override runs on its XLA work queue
+        # only; this port's queue always runs the fused step, so every mode
+        # keeps the Sobol' camera dims with hashed scatter draws, and says so
+        where = f"mode={mode}" if mode != "queue" else "the fused queue kernel"
+        print("tpu_ray_torch: sampler=sobol-b0's bounce-dim override only "
+              f"runs on the XLA work-queue path; {where} keeps the sobol "
+              "camera dims with hashed scatter draws", file=sys.stderr)
     dev = resolve_device(device)
     scene = scene.to(dev)
     if mode == "queue":

@@ -2,8 +2,9 @@
 
 The flags of the JAX CLI that this port covers (``--scene``, ``--width``,
 ``--height``, ``--spp``, ``--max-depth``, ``--seed``, ``--out``,
-``--list-scenes``, ``--rr-depth``, ``--mode``, ``--engine``) with the same
-defaults, plus
+``--earthmap``, ``--rays-per-wave``, ``--samples-per-wave``,
+``--list-scenes``, ``--rr-depth``, ``--mode``, ``--engine``,
+``--estimator``, ``--sampler``) with the same defaults and choices, plus
 ``--device``: the card by default, ``cpu`` for the plain PyTorch versions.
 The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or as
 a P3 PPM to stdout; progress and "Done." go to stderr.
@@ -31,6 +32,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="-",
                    help="output path: .png/.ppm tone-mapped, .pfm/.hdr "
                         "linear radiance; '-' = PPM on stdout")
+    p.add_argument("--earthmap", default=None,
+                   help="path to the earth texture image")
+    p.add_argument("--rays-per-wave", type=int, default=1 << 20)
+    p.add_argument("--samples-per-wave", type=int, default=64,
+                   help="most samples per slot per wave of the pool")
+    p.add_argument("--estimator", default="fixed",
+                   choices=("fixed", "reference"),
+                   help="'reference' reproduces the reference's estimator "
+                        "quirks (the unhittable-light mixture in scenes "
+                        "without lights, cos/pi isotropic weighting, table "
+                        "Perlin noise) instead of the documented fixes")
+    p.add_argument("--sampler", default="uniform",
+                   choices=("uniform", "sobol", "sobol-b0"),
+                   help="camera sample generator: 'uniform' is the "
+                        "reference's per-sample jitter; 'sobol' a scrambled "
+                        "Sobol' point per (pixel, sample); 'sobol-b0' the "
+                        "same here (its first-bounce override is the JAX "
+                        "package's XLA queue only); pool and queue modes")
     p.add_argument("--rr-depth", type=int, default=0, metavar="N",
                    help="Russian-roulette path termination after N bounces "
                         "(0 = off)")
@@ -76,11 +95,17 @@ def main(argv=None) -> int:
     from .assets import load_earth_image
 
     spec = SCENES[args.scene]
-    scene = spec.build(seed=args.seed, earth=load_earth_image())
+    scene = spec.build(seed=args.seed, earth=load_earth_image(args.earthmap))
+    if args.estimator == "reference":
+        scene = scene.replace(strict=True)
     camera = spec.camera(args.width, args.height)
+    if args.sampler != "uniform":
+        camera = camera.replace(sampler=args.sampler)
     t_start = time.perf_counter()
     img = render(scene, camera, args.width, args.height, args.spp,
                  max_depth=args.max_depth, seed=args.seed,
+                 rays_per_wave=args.rays_per_wave,
+                 samples_per_wave=args.samples_per_wave,
                  rr_depth=args.rr_depth, device=args.device, progress=True,
                  mode=args.mode, engine=args.engine)
     elapsed = time.perf_counter() - t_start
