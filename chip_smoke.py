@@ -79,7 +79,19 @@ unless every phase passes:
    spp, two-perlin-spheres 500x500 16 spp and perlin-sky 600x400 16 spp on
    the pool, cornell-smoke in wave mode and with ``engine="mega"`` (which
    falls back to the wavefront pool); a small sobol queue render and a
-   small strict pool render on the card against the CPU;
+   small strict pool render on the card against the CPU; adaptive sampling
+   (``render_adaptive``, tol 0.03, depth 50): cornell 500x500 within a
+   1000-sample budget on the pool backend and with ``engine="mega"`` (the
+   two images under the cross-engine criterion, their count maps apart on
+   at most 2% of pixels) and next-week-final 400x400 within 1000 (992
+   aligned) on the queue backend, each with its wall, rounds, sample
+   counts (within [16, budget], more than one distinct) and image mean
+   (within 8% of the uniform render above, the JAX package's own bound:
+   pixels that stop at the pilot are darker; over the pixels past the
+   pilot within 5%), and the uniform render at the same budget for its
+   wall; two adaptive queue renders of
+   next-week-final 100x100 (budget 256) bit-equal, and an adaptive pool
+   render of cornell 48x48 on the card against the CPU (equal count maps);
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +113,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device")
 
+from tpu_ray_torch import adaptive  # noqa: E402
 from tpu_ray_torch.core import rng, vec  # noqa: E402
 from tpu_ray_torch.core.film import to_rgb8  # noqa: E402
 from tpu_ray_torch.integrator import (SceneKernels, _queue_init,  # noqa: E402
@@ -113,7 +126,8 @@ from tpu_ray_torch.ops import (build, hit_scatter, megakernel, shade,  # noqa: E
                                sweep)
 from tpu_ray_torch.ops.intersect import intersect_ti  # noqa: E402
 from tpu_ray_torch.renderer import (pick_samples_per_wave, pixel_grid,  # noqa: E402
-                                    plan_pool, render, slot_ids)
+                                    plan_pool, render, resolve_mode,
+                                    slot_ids)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, fp32 outside tensor cores
@@ -1135,6 +1149,110 @@ def full_width(name, width, height, spp, sampler="uniform", strict=False,
     return img, wall, bright
 
 
+class RoundLog:
+    """The rounds of the adaptive renders: wraps the seams of
+    ``tpu_ray_torch.adaptive`` (``trace_queue``, one call a round;
+    ``_pool_round``, one call a slab) and records when each round key is
+    first seen."""
+
+    def __init__(self):
+        self.starts = {}
+        for name, at in (("trace_queue", 6), ("_pool_round", 3)):
+            orig = getattr(adaptive, name)
+
+            def wrapped(*a, _orig=orig, _at=at, **kw):
+                key = tuple(int(x) for x in a[_at])
+                self.starts.setdefault(key, time.perf_counter())
+                return _orig(*a, **kw)
+
+            setattr(adaptive, name, wrapped)
+
+    def walls(self, t_end: float) -> list:
+        """Each round's wall since the last call, in order; then forget."""
+        t = sorted(self.starts.values()) + [t_end]
+        self.starts = {}
+        return [b - a for a, b in zip(t, t[1:])]
+
+
+# adaptive against uniform image means: the JAX package's own bound for
+# this comparison (tests/test_adaptive.py, rtol 0.08).  Pixels that stop at
+# the pilot are darker than their uniform mean (their pilot samples missed
+# the light, so their variance looked small): the JAX package's
+# render_adaptive is 5.4% darker than uniform on next-week-final 24x24 at
+# tol 0.03 on the CPU, the port 5.3%.  The pixels past the pilot are held
+# to 5%
+ADAPTIVE_MEAN_RTOL = 0.08
+ADAPTIVE_PAST_PILOT_RTOL = 0.05
+
+
+def adaptive_full(name, width, height, budget, tol, uniform, rounds,
+                  **kw):
+    """A full-width adaptive render (``render_adaptive``, the function
+    behind ``render(adaptive=tol)``) within a per-pixel budget of
+    ``budget`` samples, depth 50: its wall, rounds and sample counts.
+    Every count lies within [pilot, aligned budget] and more than one
+    count occurs; the image mean is within ``ADAPTIVE_MEAN_RTOL`` of
+    ``uniform``'s (a uniform render of the scene), and over the pixels
+    sampled past the pilot within ``ADAPTIVE_PAST_PILOT_RTOL``."""
+    scene, cam = scene_and_camera(name, width, height)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, n = adaptive.render_adaptive(scene, cam, width, height,
+                                      spp_max=budget, tol=tol, max_depth=50,
+                                      seed=SEED, return_spp=True, **kw)
+    t1 = time.perf_counter()
+    per_round = rounds.walls(t1)
+    queue = resolve_mode(scene, kw.get("mode", "auto"),
+                         kw.get("engine", "auto")) == "queue"
+    q = adaptive.WL_QUANT if queue else adaptive.POOL_REPS
+    cap = budget // q * q
+    past = n > 16
+
+    def rel(a, b):
+        return abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+
+    out = dict(wall_s=t1 - t0, rounds=len(per_round),
+               round_walls_s=per_round, spp_min=int(n.min()),
+               spp_mean=float(n.mean()), spp_max=int(n.max()),
+               samples=int(n.sum()), budget_samples=int(cap * n.size),
+               mean=float(img.mean()), uniform_mean=float(uniform.mean()),
+               mean_rel_diff=rel(img, uniform),
+               pilot_share=float(1.0 - past.mean()),
+               past_pilot_rel_diff=rel(img[past], uniform[past]))
+    log(f"adaptive {name} {width}x{height} tol {tol} budget {budget} "
+        f"(aligned {cap}) depth 50 {kw}: wall {out['wall_s']:.3f} s, "
+        f"{len(per_round)} rounds ({', '.join(f'{w:.3f}' for w in per_round)}"
+        f" s), spp {out['spp_min']}/{out['spp_mean']:.2f}/{out['spp_max']} "
+        f"(min/mean/max), {out['samples']} samples of a "
+        f"{out['budget_samples']} budget "
+        f"({out['samples'] / out['budget_samples']:.4f}), image mean "
+        f"{out['mean']:.6f} vs uniform {out['uniform_mean']:.6f} (rel "
+        f"{out['mean_rel_diff']:.4%}); {out['pilot_share']:.4%} of pixels "
+        f"stopped at the pilot, mean over the rest vs uniform rel "
+        f"{out['past_pilot_rel_diff']:.4%}")
+    if img.shape != (height, width, 3) or not np.isfinite(img).all() \
+            or n.min() < 16 or n.max() > cap or len(np.unique(n)) < 2:
+        raise AssertionError(f"adaptive {name}: counts outside [16, {cap}] "
+                             "or one count only")
+    if out["mean_rel_diff"] > ADAPTIVE_MEAN_RTOL \
+            or out["past_pilot_rel_diff"] > ADAPTIVE_PAST_PILOT_RTOL:
+        raise AssertionError(f"adaptive {name}: the image mean moved")
+    return img, n, out
+
+
+def uniform_wall(name, width, height, budget, out, **kw):
+    """The uniform render at the adaptive render's aligned budget, for its
+    wall beside the adaptive one (``out``)."""
+    queue = resolve_mode(SCENES[name].build(seed=SEED, earth=None),
+                         kw.get("mode", "auto"),
+                         kw.get("engine", "auto")) == "queue"
+    q = adaptive.WL_QUANT if queue else adaptive.POOL_REPS
+    _, out["uniform_wall_s"], _ = full_width(name, width, height,
+                                             budget // q * q, **kw)
+    log(f"  {name}: adaptive wall {out['wall_s']:.3f} s, uniform at the "
+        f"same budget {out['uniform_wall_s']:.3f} s")
+
+
 def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1322,12 +1440,69 @@ def main() -> int:
                       *scene_and_camera("cornell-smoke", 48, 32,
                                         strict=True),
                       48, 32, spp=8, max_depth=8, seed=SEED)
+    rounds = RoundLog()
+    reset_counts()
+    img_ap, n_ap, ad_pool = adaptive_full("cornell", 500, 500, 1000, 0.03,
+                                          img_c, rounds, mode="pool")
+    n_adaptive_pool = read_counts("adaptive pool", ("sweep", "pool_step"),
+                                  ("megakernel",))
+    uniform_wall("cornell", 500, 500, 1000, ad_pool)
+    reset_counts()
+    img_am, n_am, ad_mega = adaptive_full("cornell", 500, 500, 1000, 0.03,
+                                          img_c, rounds, mode="pool",
+                                          engine="mega")
+    n_adaptive_mega = read_counts("adaptive megakernel", ("megakernel",),
+                                  ("sweep", "pool_step"))
+    uniform_wall("cornell", 500, 500, 1000, ad_mega, engine="mega")
+    cross_engine(img_ap, img_am, "adaptive cornell megakernel vs wavefront "
+                                 "pool")
+    n_diff = float((n_ap != n_am).mean())
+    log(f"  adaptive cornell: count maps of the megakernel and the "
+        f"wavefront pool differ on {n_diff:.4%} of pixels")
+    if n_diff > 0.02:
+        raise AssertionError("adaptive megakernel and wavefront count maps "
+                             "differ on more than 2% of pixels")
+    reset_counts()
+    _, _, ad_queue = adaptive_full("next-week-final", 400, 400, 1000, 0.03,
+                                   img_q, rounds)
+    n_adaptive_queue = read_counts("adaptive queue", ("sweep", "pool_step"))
+    uniform_wall("next-week-final", 400, 400, 1000, ad_queue, mode="queue")
+    nw_scene, nw_cam = scene_and_camera("next-week-final", 100, 100)
+    twice = [adaptive.render_adaptive(nw_scene, nw_cam, 100, 100,
+                                      spp_max=256, tol=0.03, max_depth=50,
+                                      seed=SEED, return_spp=True)
+             for _ in range(2)]
+    same = all(np.array_equal(a, b) for a, b in zip(*twice))
+    log(f"  adaptive next-week-final 100x100 budget 256, two runs on the "
+        f"card: images and count maps bit-equal {same}; spp "
+        f"{int(twice[0][1].min())}-{int(twice[0][1].max())}")
+    if not same:
+        raise AssertionError("two adaptive queue renders differ")
+    c_scene, c_cam = scene_and_camera("cornell", 48, 48)
+    kw_cpu = dict(spp_max=64, tol=0.05, max_depth=8, seed=SEED, mode="pool",
+                  return_spp=True)
+    a_cpu, n_cpu = adaptive.render_adaptive(c_scene.to("cpu"), c_cam, 48, 48,
+                                            device="cpu", **kw_cpu)
+    a_card, n_card = adaptive.render_adaptive(c_scene, c_cam, 48, 48,
+                                              **kw_cpu)
+    log(f"  adaptive cornell 48x48 pool card vs cpu: count maps equal "
+        f"{np.array_equal(n_cpu, n_card)} (spp {int(n_cpu.min())}-"
+        f"{int(n_cpu.max())})")
+    if not np.array_equal(n_cpu, n_card):
+        raise AssertionError("adaptive card and CPU count maps differ")
+    cross_engine(a_cpu, a_card, "adaptive cornell 48x48 pool card vs cpu")
+    log("adaptive: " + json.dumps(dict(pool=ad_pool, mega=ad_mega,
+                                       queue=ad_queue,
+                                       mega_vs_pool_count_diff=n_diff)))
     paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
              "wave": n_wave, "mega_pool": n_mega, "masked_queue": n_masked,
              "mxu_pool": n_mxu, "sobol_pool": n_sobol_pool,
              "sobol_mega_pool": n_sobol_mega, "sobol_queue": n_sobol_queue,
              "strict_pool": n_strict, "strict_wave": n_strict_wave,
-             "strict_mega_fallback": n_strict_mega}
+             "strict_mega_fallback": n_strict_mega,
+             "adaptive_pool": n_adaptive_pool,
+             "adaptive_mega": n_adaptive_mega,
+             "adaptive_queue": n_adaptive_queue}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}

@@ -1,7 +1,7 @@
 """The port's command line: the flags it shares with the JAX CLI parse with
 the JAX CLI's defaults and choices and reach ``render()`` (a stand-in
-records the call), and a tiny CPU render through ``--sampler sobol
---estimator reference`` writes a well-formed PPM."""
+records the call; ``--adaptive`` too), and a tiny CPU render through
+``--sampler sobol --estimator reference`` writes a well-formed PPM."""
 from __future__ import annotations
 
 import os
@@ -18,7 +18,7 @@ from tpu_ray_torch.utils import assets, cli
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHARED = ("earthmap", "rays_per_wave", "samples_per_wave", "estimator",
           "sampler", "scene", "width", "height", "spp", "max_depth", "seed",
-          "out", "rr_depth", "mode", "engine")
+          "out", "rr_depth", "mode", "engine", "adaptive")
 
 
 def test_shared_flags_have_the_jax_defaults_and_choices():
@@ -71,6 +71,14 @@ def test_defaults_reach_render(calls, tmp_path):
     assert calls["rays_per_wave"] == 1 << 20
     assert calls["samples_per_wave"] == 64
     assert not calls["scene"].strict and calls["camera"].sampler == "uniform"
+
+
+@pytest.mark.parametrize("argv,tol", [([], 0.0),
+                                      (["--adaptive", "0.05"], 0.05)])
+def test_adaptive_flag_reaches_render(calls, tmp_path, argv, tol):
+    rc = cli.main(["--device", "cpu", "--width", "6", "--height", "4",
+                   "--spp", "32", "--out", str(tmp_path / "a.ppm")] + argv)
+    assert rc == 0 and calls["adaptive"] == tol and calls["spp"] == 32
 
 
 @pytest.mark.parametrize("flag,value", [("--estimator", "exact"),

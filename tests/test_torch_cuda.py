@@ -614,3 +614,33 @@ def test_sobol_and_strict_renders_on_the_card_match_the_cpu(
     close = (err < 1e-4).all(axis=-1)
     assert 1.0 - close.mean() <= 0.02
     np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,mode,engine", [
+    ("cornell", "pool", "auto"), ("cornell", "pool", "mega"),
+    ("two-spheres", "queue", "auto"), ("next-week-final", "queue", "auto")])
+def test_adaptive_renders_on_the_card_match_the_cpu(card, name, mode,
+                                                    engine):
+    """Adaptive sampling on the card against the CPU's plain twins: equal
+    count maps, images under the cross-engine criterion, the path's kernel
+    launched; a second card render is bit-equal (the queue's per-pixel
+    reduction has a fixed order)."""
+    from tpu_ray_torch.adaptive import render_adaptive
+
+    spec = SCENES[name]
+    args = (spec.build(seed=1024, earth=None), spec.camera(32, 24), 32, 24)
+    kw = dict(spp_max=64, tol=0.05, max_depth=6, seed=5, mode=mode,
+              engine=engine, return_spp=True)
+    counter = mega.trace_pool_mega if engine == "mega" else shade.pool_step
+    launches = counter.launches
+    b, nb = render_adaptive(*args, device=card, **kw)
+    assert counter.launches > launches
+    c, nc = render_adaptive(*args, device=card, **kw)
+    np.testing.assert_array_equal(b, c)
+    np.testing.assert_array_equal(nb, nc)
+    a, na = render_adaptive(*args, device="cpu", **kw)
+    np.testing.assert_array_equal(na, nb)
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    close = (err < 1e-4).all(axis=-1)
+    assert 1.0 - close.mean() <= 0.02
+    np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)

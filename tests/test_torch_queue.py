@@ -14,7 +14,7 @@ from torch_port_common import cross_engine, jax_scene_arrays
 from tpu_ray import integrator as jinteg
 from tpu_ray.models.scenes import SCENES as JSCENES
 from tpu_ray.renderer import render as jrender
-from tpu_ray_torch import renderer
+from tpu_ray_torch import integrator, renderer
 from tpu_ray_torch.convert import scene_from_jax_arrays
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera
@@ -179,11 +179,33 @@ def test_plan_queue_and_resolve_mode(capsys):
     assert plan_queue(small, 8, 8, 4)[3] == ()
 
 
-def test_queue_worklists_are_refused():
+def test_queue_worklist_padding_is_never_dispatched(monkeypatch):
+    """A worklist padded past ``n_work`` with entries of pixel 0, sample 0:
+    the padding columns of the plane stay zero (no padding item is ever
+    dispatched), and the sums are the unpadded list's, bit for bit."""
+    P, n_work, n_pad = 64, 128, 40
+    w = np.arange(n_work, dtype=np.int64)
+    wl = torch.from_numpy(np.concatenate(
+        [((w % P) << integrator.WL_SAMP_BITS) | (w // P),
+         np.zeros(n_pad, np.int64)]))
+    planes = []
+    planar = integrator.worklist_sums
+
+    def keep_plane(plane, worklist, P):
+        planes.append(plane.clone())
+        return planar(plane, worklist, P)
+
+    monkeypatch.setattr(integrator, "worklist_sums", keep_plane)
     ps = SCENES["cornell"].build()
-    with pytest.raises(NotImplementedError, match="worklist"):
-        trace_queue(ps, SCENES["cornell"].camera(8, 8), 8, 8, 1, 0, KEY, 4,
-                    64, worklist=torch.zeros(64, dtype=torch.int64))
+    run = lambda wl, n: trace_queue(ps, SCENES["cornell"].camera(8, 8), 8, 8,
+                                    0, 0, KEY, 4, 48, epoch_iters=3,
+                                    worklist=wl, n_work=n)
+    padded, exact = run(wl, n_work), run(wl[:n_work], None)
+    assert planes[0].shape == (3, n_work + n_pad + 1)
+    assert not planes[0][:, n_work:n_work + n_pad].any()
+    assert planes[0][:, :n_work].any()
+    for a, b in zip(padded, exact):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_sorted_queue_runs_the_compacted_sweep():

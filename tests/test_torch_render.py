@@ -94,9 +94,10 @@ def test_render_without_device_needs_a_card():
 
 
 # what later slices of the port brought into scope renders now: the queue
-# slice's big scenes, image textures and queue mode, and the strict
-# estimator and the Sobol' sampler of the seventh
-NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol")
+# slice's big scenes, image textures and queue mode, the strict estimator
+# and the Sobol' sampler of the seventh, adaptive sampling of the eighth
+NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol",
+                "adaptive")
 
 
 @pytest.mark.parametrize("what", ["next-week-final", "image", "strict",
@@ -106,7 +107,8 @@ NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol")
 def test_out_of_slice_inputs_raise(what):
     """Inputs outside the port raise NotImplementedError; the ones later
     slices took in (a scene over 512 prims, image textures, queue mode, the
-    strict estimator, the Sobol' sampler) render a finite image instead."""
+    strict estimator, the Sobol' sampler, adaptive sampling) render a
+    finite image instead."""
     from tpu_ray_torch.models import objects as ob
     from tpu_ray_torch.models.compile import build_scene
 

@@ -43,7 +43,10 @@ fixed order.  So the image is bit-identical for any lane count, epoch
 length, drain ladder and sample chunking.  The JAX package's radiance
 log, position map and lagged counter reads served a TPU's slow scatters
 and a remote worker's round trip; here the plane is written directly and
-the counters are read once per epoch.
+the counters are read once per epoch.  In worklist mode (adaptive
+sampling, :mod:`tpu_ray_torch.adaptive`) the work items come from a packed
+list of (pixel, absolute sample) entries, and the plane is reduced per
+pixel into radiance sums and square sums.
 """
 from __future__ import annotations
 
@@ -272,6 +275,15 @@ def trace(scene: SceneData, cfg: StepConfig, rays: torch.Tensor, key,
 
 # --- the work queue ---------------------------------------------------------
 
+# Worklist packing (adaptive sampling): one item per entry, the pixel id in
+# the high bits and the pixel's ABSOLUTE sample index in the low
+# WL_SAMP_BITS, as in the JAX package.  Entries are uint32 values held in
+# int64, because CPU torch has no ``>>`` for uint32.  The adaptive loop
+# checks the bounds: at most 2^18 pixels and 2^14 - 1 samples a pixel.
+WL_SAMP_BITS = 14
+WL_SAMP_MASK = (1 << WL_SAMP_BITS) - 1
+
+
 @dataclass
 class QueueState:
     """The queue's lanes (pool-state layout: ``fstate`` rows 10:13 hold the
@@ -281,20 +293,24 @@ class QueueState:
     istate: torch.Tensor    # (3, m) int32: bounce, 0, active
     work: torch.Tensor      # (m,) int64 chunk-local work item id
     frontier: torch.Tensor  # () int64 next unissued work item
-    plane: torch.Tensor     # (3, total + 1) float32; column ``total`` takes
+    plane: torch.Tensor     # (3, pad + 1) float32; the last column takes
     #                         the writes of lanes that did not die
 
 
-def _queue_init(R: int, total: int, dev) -> QueueState:
+def _queue_init(R: int, total: int, dev, pad: int | None = None
+                ) -> QueueState:
+    """Fresh lanes and a zero plane of ``pad`` columns (default ``total``)
+    plus the sentinel column; columns past ``total`` are never written."""
+    pad = total if pad is None else pad
     f = torch.zeros((N_FSTATE, R), dtype=torch.float32, device=dev)
     f[3:6] = 1.0
     f[7:10] = 1.0
     return QueueState(
         fstate=f,
         istate=torch.zeros((N_ISTATE, R), dtype=torch.int32, device=dev),
-        work=torch.full((R,), total, dtype=torch.int64, device=dev),
+        work=torch.full((R,), pad, dtype=torch.int64, device=dev),
         frontier=torch.zeros((), dtype=torch.int64, device=dev),
-        plane=torch.zeros((3, total + 1), dtype=torch.float32, device=dev))
+        plane=torch.zeros((3, pad + 1), dtype=torch.float32, device=dev))
 
 
 def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -304,12 +320,16 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
 
 def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
                kern: SceneKernels, k_isect, k_scat, cam_salt: int,
-               work_base: int, total: int, width: int, height: int
-               ) -> QueueState:
+               work_base: int, total: int, width: int, height: int,
+               worklist: torch.Tensor | None = None) -> QueueState:
     """One queue iteration: trace + fused step + flush dead + inject fresh.
 
     ``cfg`` is a step configuration with ``n_samples = 0`` (the step
-    kernel then never regenerates; the queue injects work itself)."""
+    kernel then never regenerates; the queue injects work itself).
+    ``worklist`` ((Wl,) int64 packed entries, Wl >= ``total``) replaces the
+    uniform work map: item w renders pixel ``worklist[w] >> WL_SAMP_BITS``
+    at absolute sample ``worklist[w] & WL_SAMP_MASK``; path ids stay keyed
+    by ``w + work_base``."""
     m = st.work.shape[0]
     dev = st.work.device
     sid = _to_i32_bits(rng.path_ids(st.work + work_base, st.istate[0]))
@@ -320,7 +340,8 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
 
     # flush: each work item dies exactly once, so its radiance is written
     died = was_active & (i[2] == 0)
-    st.plane.index_copy_(1, torch.where(died, st.work, total), f[10:13])
+    st.plane.index_copy_(1, torch.where(died, st.work,
+                                        st.plane.shape[1] - 1), f[10:13])
 
     # inject: free lanes take the next work items off the frontier
     free = i[2] == 0
@@ -328,8 +349,14 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     w_new = st.frontier + torch.where(free, ranks, 0)
     valid = free & (w_new < total)
     P = width * height
-    pix = torch.where(valid, w_new % P, 0)
-    gsample = ((work_base // P) + torch.where(valid, w_new // P, 0)) & rng.M32
+    if worklist is None:
+        pix = torch.where(valid, w_new % P, 0)
+        gsample = ((work_base // P) + torch.where(valid, w_new // P, 0)
+                   ) & rng.M32
+    else:
+        packed = worklist[torch.where(valid, w_new, 0)]
+        pix = torch.where(valid, packed >> WL_SAMP_BITS, 0)
+        gsample = torch.where(valid, packed & WL_SAMP_MASK, 0)
     # camera stream keyed by (pixel, global sample), the pool regen's draws
     # with the pixel id as the slot word (hashed, or the Sobol' point of the
     # plain global sample)
@@ -372,7 +399,7 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
                 cam_salt: int = 0, epoch_iters: int = 8, drain_levels=(),
                 progress_cb=None, rr_depth: int = 0, worklist=None,
                 n_work=None, wl_block_pix=None,
-                kern: SceneKernels | None = None) -> torch.Tensor:
+                kern: SceneKernels | None = None):
     """Render ``width * height * chunk_spp`` camera samples with a work-queue
     pool of ``R`` lanes; returns the (H*W, 3) radiance sum over the chunk's
     samples.
@@ -386,17 +413,35 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
     final drain's compaction.  ``kern`` passes a render's prebuilt tables,
     which also pick the sweep (:meth:`SceneKernels.create`; built from the
     scene when omitted).  The scene must be on the device to
-    render on.  Adaptive worklists (``worklist``, ``n_work``,
-    ``wl_block_pix``) are not ported."""
-    if worklist is not None or n_work is not None or wl_block_pix is not None:
-        raise NotImplementedError("adaptive-sampling worklists are not "
-                                  "ported yet (a later slice)")
+    render on.
+
+    With ``worklist`` ((Wl,) int64 packed (pixel, absolute sample) entries
+    on the scene's device, adaptive sampling) the work map comes from the
+    entries (:func:`queue_body`) and ``chunk_spp`` is ignored.  Only the
+    first ``n_work`` entries are dispatched (default: all); the plane
+    columns of the rest stay zero.  The return value is then the pair
+    (radiance sums, radiance square sums), each (H*W, 3) float32, per
+    pixel over the dispatched items: :func:`worklist_sums_blocked` when
+    ``wl_block_pix`` gives the per-block pixels of a pixel-major,
+    ``WL_QUANT``-blocked list, else :func:`worklist_sums`.  ``chunk_s0``
+    still offsets the path ids, so callers advance it between rounds."""
     P = width * height
-    chunk_spp = int(chunk_spp)
-    total = P * chunk_spp
     dev = scene.device
+    if worklist is not None:
+        pad = int(worklist.shape[0])
+        total = pad if n_work is None else int(n_work)
+        if not 0 <= total <= pad:
+            raise ValueError(f"n_work {total} outside [0, {pad}]")
+        chunk_spp = -(-total // P) or 1    # epoch-cap estimate only
+        worklist = worklist.to(device=dev, dtype=torch.int64)
+    elif n_work is not None or wl_block_pix is not None:
+        raise ValueError("n_work and wl_block_pix need a worklist")
+    else:
+        chunk_spp = int(chunk_spp)
+        total = pad = P * chunk_spp
     if max_depth <= 0:
-        return torch.zeros((P, 3), dtype=torch.float32, device=dev)
+        z = torch.zeros((P, 3), dtype=torch.float32, device=dev)
+        return (z, z.clone()) if worklist is not None else z
     if kern is None:
         kern = SceneKernels.create(scene)
     # n_samples = 0: the step kernel never regenerates a camera ray
@@ -405,7 +450,7 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
     key = np.asarray(key, np.uint32)
     k_isect, k_scat = rng.fold_in(key, 0), rng.fold_in(key, 1)
     work_base = (int(chunk_s0) & rng.M32) * P
-    st = _queue_init(R, total, dev)
+    st = _queue_init(R, total, dev, pad)
     epoch_iters = max(1, int(epoch_iters))
     max_epochs = 21 + (total // max(R, 1) + chunk_spp * cfg.max_depth
                        + 2 * cfg.max_depth) // epoch_iters * 4
@@ -420,12 +465,74 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
                 return st
             for _ in range(epoch_iters):
                 st = queue_body(st, scene, cfg, kern, k_isect, k_scat,
-                                cam_salt, work_base, total, width, height)
+                                cam_salt, work_base, total, width, height,
+                                worklist)
         raise RuntimeError("trace_queue: epoch cap exceeded")
 
     st = run(st, drain_levels[0] if drain_levels else 0)
     for li, m in enumerate(drain_levels):
         st = queue_compact(st, m)
         st = run(st, drain_levels[li + 1] if li + 1 < len(drain_levels) else 0)
+    if worklist is not None:
+        if wl_block_pix is not None:
+            return worklist_sums_blocked(st.plane, wl_block_pix, P)
+        return worklist_sums(st.plane, worklist, P)
     # sample-major reduction in a fixed order, whatever the schedule was
     return st.plane[:, :total].reshape(3, chunk_spp, P).sum(dim=1).T
+
+
+def worklist_sums(plane: torch.Tensor, worklist: torch.Tensor, P: int):
+    """Per-pixel (radiance sum, radiance square sum), each (P, 3), of a
+    worklist's (3, Wl + 1) plane for any worklist (``_worklist_sums``):
+    one scatter-add per item.  Columns never written add 0.  On the card
+    the adds run in no fixed order, so this is the tests' oracle; the
+    adaptive loop reduces with :func:`worklist_sums_blocked`."""
+    pl = plane[:, :worklist.shape[0]]
+    pix = worklist.to(device=plane.device, dtype=torch.int64) >> WL_SAMP_BITS
+    z = torch.zeros((P, 3), dtype=torch.float32, device=plane.device)
+    return z.index_add(0, pix, pl.T), z.index_add(0, pix, (pl * pl).T)
+
+
+# pixels' block sums gathered per pass of the segmented sum: bounds its
+# (pixels, SEGMENT_COLS, 6) float32 intermediate at 100 MB at 2^18 pixels
+SEGMENT_COLS = 16
+
+
+def worklist_sums_blocked(plane: torch.Tensor, block_pix: torch.Tensor,
+                          P: int):
+    """Per-pixel (radiance sum, radiance square sum), each (P, 3), of a
+    PIXEL-MAJOR worklist whose consecutive blocks of Q = Wl / nb items
+    belong to one pixel (``_worklist_sums_blocked``): a dense (nb, Q) row
+    sum per channel, then each pixel's blocks, which are contiguous, summed
+    in block order.  No atomics: the result is the same on every run, which
+    the adaptive loop needs (its sums decide every later round's work
+    ids).  ``block_pix`` (nb,) must not decrease; entries >= P (padding
+    blocks) drop."""
+    dev = plane.device
+    block_pix = block_pix.to(device=dev, dtype=torch.int64)
+    nb = block_pix.shape[0]
+    n_items = plane.shape[1] - 1
+    out = torch.zeros((P, 6), dtype=torch.float32, device=dev)
+    if nb == 0:
+        return out[:, :3], out[:, 3:]
+    if n_items % nb:
+        raise ValueError(f"{n_items} worklist items do not split into {nb} "
+                         "equal blocks")
+    if bool((block_pix[1:] < block_pix[:-1]).any()):
+        raise ValueError("the blocked reduction needs a pixel-major "
+                         "worklist (block pixels in ascending order)")
+    pl = plane[:, :n_items].reshape(3, nb, -1)
+    blocks = torch.cat([pl.sum(dim=2), (pl * pl).sum(dim=2)]).T  # (nb, 6)
+    pix, counts = torch.unique_consecutive(block_pix, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    keep = pix < P
+    pix, counts, starts = pix[keep], counts[keep], starts[keep]
+    acc = torch.zeros((pix.shape[0], 6), dtype=torch.float32, device=dev)
+    c_max = int(counts.max()) if pix.numel() else 0
+    for j0 in range(0, c_max, SEGMENT_COLS):
+        j = torch.arange(j0, min(j0 + SEGMENT_COLS, c_max), device=dev)
+        valid = j[None, :] < counts[:, None]
+        rows = blocks[torch.where(valid, starts[:, None] + j[None, :], 0)]
+        acc = acc + torch.where(valid[..., None], rows, 0.0).sum(dim=1)
+    out[pix] = acc
+    return out[:, :3], out[:, 3:]

@@ -2,7 +2,8 @@
 
 Port of ``tpu_ray/renderer.py``: ``resolve_engine``, ``resolve_mode``,
 ``plan_pool`` / ``plan_queue``, ``_pixel_grid``, ``_slot_ids``,
-``_film_add``, ``make_wave_fn``, ``_render_queue`` and ``render``.
+``_film_add``, ``make_wave_fn``, ``_render_queue`` and ``render``, which
+hands ``adaptive=TOL`` to :func:`tpu_ray_torch.adaptive.render_adaptive`.
 
 * ``mode="pool"`` (``"auto"`` up to 512 prims): the ray pool.
   ``plan_pool`` and its constants are kept identical to the JAX package's
@@ -32,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from .adaptive import render_adaptive
 from .core import rng
 from .core.camera import Camera
 from .integrator import (COMPACT_FLOOR, COMPACT_MIN, SceneKernels, trace,
@@ -285,20 +287,29 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     the wavefront kernels, "mega" for one megakernel launch per pool wave
     (:func:`resolve_engine`).  ``sort`` sends the closest-hit sweep
     through the sorted, compacted-list kernel (the same image bit for bit;
-    ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  The remaining
-    arguments of the JAX ``render`` (BVH traversal, device meshes, adaptive
-    sampling, checkpoints, progressive output) are later slices of the port
-    and raise ``NotImplementedError`` when asked for.  ``camera.sampler``
-    picks the camera sample ("uniform", "sobol", "sobol-b0"; the pool and
-    queue modes) and ``scene.strict`` the strict reference estimator.
+    ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  ``adaptive`` > 0
+    renders with per-pixel adaptive sampling at that tone-mapped standard
+    error (:func:`tpu_ray_torch.adaptive.render_adaptive`): ``spp`` becomes
+    the per-pixel budget cap, and ``mode``, ``samples_per_wave`` and
+    ``sort`` are not read.  The remaining arguments of the JAX ``render``
+    (BVH traversal, device meshes, checkpoints, progressive output) are
+    later slices of the port and raise ``NotImplementedError`` when asked
+    for.  ``camera.sampler`` picks the camera sample ("uniform", "sobol",
+    "sobol-b0"; the pool and queue modes) and ``scene.strict`` the strict
+    reference estimator.
     """
     for name, on in (("bvh", bool(bvh)), ("mesh", mesh is not None),
-                     ("adaptive sampling", bool(adaptive)),
                      ("checkpointing", checkpoint_path is not None),
                      ("progressive output", on_partial is not None)):
         if on:
             raise NotImplementedError(f"{name} is not ported yet (a later "
                                       "slice of the port)")
+    if adaptive and adaptive > 0:
+        return render_adaptive(
+            scene, camera, width, height, spp_max=spp, tol=adaptive,
+            max_depth=max_depth, seed=seed, rays_per_wave=rays_per_wave,
+            engine=engine, rr_depth=rr_depth, progress=progress,
+            device=device)
     check_supported(scene)
     engine = resolve_engine(scene, engine)
     mode = resolve_mode(scene, mode, engine)

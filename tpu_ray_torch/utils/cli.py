@@ -4,7 +4,8 @@ The flags of the JAX CLI that this port covers (``--scene``, ``--width``,
 ``--height``, ``--spp``, ``--max-depth``, ``--seed``, ``--out``,
 ``--earthmap``, ``--rays-per-wave``, ``--samples-per-wave``,
 ``--list-scenes``, ``--rr-depth``, ``--mode``, ``--engine``,
-``--estimator``, ``--sampler``) with the same defaults and choices, plus
+``--estimator``, ``--sampler``, ``--adaptive``) with the same defaults and
+choices, plus
 ``--device``: the card by default, ``cpu`` for the plain PyTorch versions.
 The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or as
 a P3 PPM to stdout; progress and "Done." go to stderr.
@@ -53,6 +54,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rr-depth", type=int, default=0, metavar="N",
                    help="Russian-roulette path termination after N bounces "
                         "(0 = off)")
+    p.add_argument("--adaptive", type=float, default=0.0, metavar="TOL",
+                   help="per-pixel adaptive sampling: stop each pixel once "
+                        "the standard error of its tone-mapped value is "
+                        "below TOL (try 0.01); --spp becomes the per-pixel "
+                        "budget cap.  A different quality contract than the "
+                        "reference's fixed spp (tpu_ray_torch/adaptive.py); "
+                        "single-device only")
     p.add_argument("--mode", default="auto",
                    choices=("auto", "pool", "queue", "wave"),
                    help="integrator: persistent work queue, ray pool with "
@@ -107,7 +115,7 @@ def main(argv=None) -> int:
                  rays_per_wave=args.rays_per_wave,
                  samples_per_wave=args.samples_per_wave,
                  rr_depth=args.rr_depth, device=args.device, progress=True,
-                 mode=args.mode, engine=args.engine)
+                 mode=args.mode, engine=args.engine, adaptive=args.adaptive)
     elapsed = time.perf_counter() - t_start
     film.write_image(img, None if args.out == "-" else args.out)
     if args.time:
