@@ -1,12 +1,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Drives ``tpu_ray_torch``'s paths (the pool renderer with the wavefront
-kernels and with the whole-wave megakernel, the work-queue renderer and the
-plain wavefront) through its eight CUDA kernels at full width, and fails
-unless every phase passes:
+kernels and with the whole-wave megakernel, the work-queue renderer, the
+plain wavefront, and the first-hit AOV pass with the denoiser) through its
+nine CUDA kernels at full width, and fails unless every phase passes:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit;
-2. build the five sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
+2. build the six sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build seconds, the register use and the count of
    tensor-core (HMMA) instructions in the matrix-product sweep's SASS;
 3. ``torch.sqrt`` on the card correctly rounded (``core.vec.sqrt_rn`` takes
@@ -50,7 +50,14 @@ unless every phase passes:
    strict estimator (two-perlin-spheres and perlin-sky: table noise;
    cornell-smoke: the isotropic phase), ``hit_scatter`` strict (perlin-sky,
    cornell-smoke) and the megakernel with the Sobol' camera (cornell), each
-   timed by graph replay beside its uniform, fixed case;
+   timed by graph replay beside its uniform, fixed case; the queue's
+   sobol-b0 step (the B0 instantiation: first-bounce draws from Sobol' dims
+   7-10 of each lane's pixel and sample) on 1M-lane queue states of
+   cornell and next-week-final; the step (fixed and strict) and
+   ``hit_scatter`` on the textured-checker scene (checkers with textured
+   children) and the step on the emissive-image scene (an image dome
+   light); the first-hit AOV kernel on 1M camera lanes of cornell and of
+   the textured-checker scene, with its bound (68 B a lane);
 4. the eight non-strict golden configs rendered on the card (the image
    scenes with the cyan stand-in they were made with), held to the
    cross-engine criterion against ``tests/goldens/<name>.npy``, and an
@@ -60,7 +67,9 @@ unless every phase passes:
    and simple-light against the golden; book1-final and perlin-sky, whose
    goldens rest on the JAX package's compiled-loop rounding, against the
    CPU's render and the golden's mean), each with its strict-vs-fixed
-   margin;
+   margin; the textured-checker scene (pool, strict queue, wave) and the
+   emissive-image scene on the card against the CPU, and ``render_aovs`` of
+   cornell, cornell-smoke and the textured-checker scene card vs CPU;
 5. full width, launch counts set to 0 before each path and read after it:
    pool - cornell 500x500 depth 50 at 64 spp (a 1M-lane pool) and
    book1-final 600x400 at 16 spp; queue - next-week-final (1409 prims)
@@ -92,6 +101,11 @@ unless every phase passes:
    wall; two adaptive queue renders of
    next-week-final 100x100 (budget 256) bit-equal, and an adaptive pool
    render of cornell 48x48 on the card against the CPU (equal count maps);
+   cornell 500x500 64 spp on the queue with ``sobol-b0`` (its mean within
+   the spread of four sobol renders' means); the textured-checker scene
+   500x500 64 spp on the pool; ``render_aovs`` of cornell 500x500 at 16
+   spp and ``denoise`` of the 64-spp pool render on the card, then the
+   CLI's ``--aov all`` and ``--denoise`` at that size, each with its wall;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -113,15 +127,17 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device")
 
-from tpu_ray_torch import adaptive  # noqa: E402
+from tpu_ray_torch import adaptive, aov  # noqa: E402
 from tpu_ray_torch.core import rng, vec  # noqa: E402
 from tpu_ray_torch.core.film import to_rgb8  # noqa: E402
+from tpu_ray_torch.denoise import denoise  # noqa: E402
 from tpu_ray_torch.integrator import (SceneKernels, _queue_init,  # noqa: E402
                                       _to_i32_bits, init_pool_state,
                                       queue_body)
 from tpu_ray_torch.models import objects as ob  # noqa: E402
 from tpu_ray_torch.models.compile import build_scene  # noqa: E402
 from tpu_ray_torch.models.scenes import SCENES  # noqa: E402
+from tpu_ray_torch.utils import cli  # noqa: E402
 from tpu_ray_torch.ops import (build, hit_scatter, megakernel, shade,  # noqa: E402
                                sweep)
 from tpu_ray_torch.ops.intersect import intersect_ti  # noqa: E402
@@ -233,11 +249,46 @@ def perlin_sky():
                        background=(0.7, 0.8, 0.9))
 
 
+def textured_checker():
+    """Checkers whose children are textures (``checker_fancy``; the CPU
+    tests' ``tests/torch_port_common.py::textured_checker_scene``):
+    simple-light's layout with a Checker(SolidColor, Noise) ground and a
+    Checker(Noise, ImageTexture) sphere, under a dim sky."""
+    ground = ob.Lambertian(ob.Checker(ob.SolidColor((0.2, 0.3, 0.1)),
+                                      ob.Noise(scale=4.0, seed=SEED)))
+    ball = ob.Lambertian(ob.Checker(ob.Noise(scale=2.0, seed=SEED + 1),
+                                    ob.ImageTexture(seeded_image())))
+    light = ob.DiffuseLight((4.0, 4.0, 4.0))
+    sphere_light = ob.Sphere((0, 7, 0), 2, light)
+    rect_light = ob.Rect("xy", 3, 5, 1, 3, -2, light)
+    return build_scene([ob.Sphere((0, -1000, 0), 1000, ground),
+                        ob.Sphere((0, 2, 0), 2, ball), sphere_light,
+                        rect_light], lights=[sphere_light, rect_light],
+                       background=(0.2, 0.25, 0.3))
+
+
+def emissive_image():
+    """An image on a light (``image_on_emissive``; the CPU tests'
+    ``emissive_image_scene``): an emissive image dome of radius 500 around
+    a Lambertian sphere and a metal one."""
+    dome = ob.Sphere((0, 0, 0), 500,
+                     ob.DiffuseLight(ob.ImageTexture(seeded_image())))
+    return build_scene([dome,
+                        ob.Sphere((0, 2, 0), 2, ob.Lambertian((0.7, 0.6, 0.5))),
+                        ob.Sphere((0, 0.5, 3), 0.5, ob.Metal((0.8, 0.8, 0.8),
+                                                            0.1))])
+
+
 def scene_and_camera(name: str, width: int, height: int, earth=None,
                      sampler="uniform", strict=False):
     """A scene on the card and its camera: ``sampler`` the camera sampler,
-    ``strict`` the strict reference estimator."""
-    if name == "box-grid":
+    ``strict`` the strict reference estimator.  "checker-tex" and
+    "emissive-image" are seen through two-spheres' camera."""
+    if name in ("checker-tex", "emissive-image"):
+        scene = (textured_checker() if name == "checker-tex"
+                 else emissive_image())
+        cam = SCENES["two-spheres"].camera(width, height)
+    elif name == "box-grid":
         scene, cam = box_grid(), SCENES["next-week-final"].camera(width,
                                                                   height)
     elif name == "perlin-sky":
@@ -381,19 +432,23 @@ STEP_ROWS = {"origin": slice(0, 3), "direction": slice(3, 6),
              "accum": slice(10, 13)}
 
 
-def queue_after(name: str, width: int, height: int, iters: int, earth=None):
+def queue_after(name: str, width: int, height: int, iters: int, earth=None,
+                sampler="uniform"):
     """A 1M-lane work queue of ``name`` advanced ``iters`` iterations as
     ``trace_queue`` drives it; returns what the next iteration's kernels
-    take: the step configuration with ``n_samples = 0``, zero ``xy``, the
-    hashed path ids as slot ids, and lanes at mixed bounces."""
-    scene, cam = scene_and_camera(name, width, height, earth)
+    take: the step configuration with ``n_samples = 0`` (with sampler
+    sobol-b0, the first-bounce override under the camera salt), zero
+    ``xy``, the hashed path ids as slot ids, and lanes at mixed bounces;
+    with sobol-b0, ``st.lane`` holds each lane's (pixel, global sample)."""
+    scene, cam = scene_and_camera(name, width, height, earth, sampler)
     R, chunk_spp = 1 << 20, 8
     total = width * height * chunk_spp
-    cfg = shade.StepConfig.create(scene, cam, width, height, 50, n_samples=0)
+    cfg = shade.StepConfig.create(scene, cam, width, height, 50, n_samples=0,
+                                  cam_salt=SEED, queue=True)
     kern = SceneKernels.create(scene, False)
     key = rng.fold_in(rng.prng_key(SEED), 0x5EED)
     ki, ks = rng.fold_in(key, 0), rng.fold_in(key, 1)
-    st = _queue_init(R, total, DEV)
+    st = _queue_init(R, total, DEV, b0=cfg.b0)
     for _ in range(iters):
         st = queue_body(st, scene, cfg, kern, ki, ks, SEED, 0, total, width,
                         height)
@@ -415,20 +470,27 @@ def check_step(name, width, height, spp, iters, earth=None,
                         st.fstate, st.istate, bt, bi, ks)
 
 
-def check_step_queue(name, width, height, iters, earth=None):
+def check_step_queue(name, width, height, iters, earth=None,
+                     sampler="uniform"):
     """Pool-step kernel vs pool_step_plain at the shape the queue gives it,
     and the share of (tile, block) pairs the sorted sweep would skip on
-    this later iteration's rays."""
+    this later iteration's rays.  With sampler sobol-b0 it is the B0
+    instantiation, which reads each lane's (pixel, global sample)."""
     scene, cfg, kern, st, ki, ks, xy, sid = queue_after(name, width, height,
-                                                        iters, earth)
+                                                        iters, earth, sampler)
     if cfg.n_samples != 0 or int(st.istate[0].max()) < 2 \
-            or int(st.istate[2].sum()) < (1 << 19):
+            or int(st.istate[2].sum()) < (1 << 19) \
+            or cfg.b0 != (sampler == "sobol-b0"):
         raise AssertionError(f"{name}: not a mid-render queue state")
     rays = st.fstate[:7].contiguous()
     bt, bi = kern.intersect(scene, rays, ki, sid)
-    what = f"{name}{' with a seeded image' if earth is not None else ''}"
+    what = (f"{name}{' with a seeded image' if earth is not None else ''}"
+            f"{variant(sampler)}")
     out = compare_step(f"{what} queue iters={iters}", cfg, xy, sid, st.fstate,
-                       st.istate, bt, bi, ks)
+                       st.istate, bt, bi, ks,
+                       lane_b0=st.lane)
+    if cfg.b0:
+        return out
     blocks = sweep.sweep_blocks(scene)
     perm = torch.sort(sweep.sort_key(blocks, rays), stable=True).indices
     cnt = sweep.tile_lists(rays[:, perm].contiguous(), blocks.blo,
@@ -441,10 +503,12 @@ def check_step_queue(name, width, height, iters, earth=None):
     return out
 
 
-def compare_step(what, cfg, xy, slot, fstate, istate, bt, bi, ks):
+def compare_step(what, cfg, xy, slot, fstate, istate, bt, bi, ks,
+                 lane_b0=None):
     args = (cfg, xy, slot, fstate, istate, bt, bi, ks)
-    fk, ik = shade.pool_step(*args)
-    fp, ip = shade.pool_step_plain(*args)
+    kw = {} if lane_b0 is None else dict(lane_b0=lane_b0)
+    fk, ik = shade.pool_step(*args, **kw)
+    fp, ip = shade.pool_step_plain(*args, **kw)
     torch.cuda.synchronize()
     R = slot.shape[0]
     disc_bad = (ik != ip).any(dim=0)
@@ -463,20 +527,24 @@ def compare_step(what, cfg, xy, slot, fstate, istate, bt, bi, ks):
         f"lanes out of tol {n_float}, max abs err {worst:.3e}")
     if n_disc > 1e-4 * R or n_float > 1e-4 * R:
         raise AssertionError(f"pool-step kernel disagrees with plain on {what}")
-    step = lambda: shade.pool_step(*args)
+    step = lambda: shade.pool_step(*args, **kw)
     ms = kernel_ms(step)
     events_ms = cuda_ms(step, 20)
-    plain_ms = cuda_ms(lambda: shade.pool_step_plain(*args), 3)
-    # the strict mode's noise tables are read from the cache: each byte of
-    # them counts once
+    plain_ms = cuda_ms(lambda: shade.pool_step_plain(*args, **kw), 3)
+    # the strict mode's noise tables and the texture rows are read from the
+    # cache: each byte of them counts once; the sobol-b0 step reads 8 B
+    # more for each active lane at bounce 0
+    first = int(((istate[0] == 0) & (istate[2] > 0)).sum()) if cfg.b0 else 0
     nbytes = R * shade.BYTES_PER_LANE + cfg.tab.numel() * 4 + (
-        (cfg.perm.numel() + cfg.ranvec.numel()) * 4 if cfg.strict else 0)
+        (cfg.perm.numel() + cfg.ranvec.numel()) * 4 if cfg.strict else 0) + (
+        (cfg.texrow.numel() + cfg.kids.numel()) * 4
+        if cfg.flags["checker_fancy"] else 0) + 8 * first
     ops = R * shade.OPS_PER_LANE
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
     bound_ms = 1e3 * max(t_bytes, t_ops)
     log(f"step {what}: kernel {ms:.4f} ms (launched from the host one by one "
         f"{events_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms")
+        f"{bound_ms:.4f} ms{f', {first} lanes at bounce 0' if cfg.b0 else ''}")
     return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -531,6 +599,65 @@ def check_hit_scatter(name, width, height, spp, iters, strict=False):
                 bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=worst)
+
+
+def check_aov(name, width, height, samples):
+    """The first-hit feature kernel against its plain twin on the rays
+    ``render_aovs`` gives it: ``samples`` samples of a ``width`` x
+    ``height`` frame in one launch (1M lanes at 500x500 and 4), swept by
+    the render's sweep.  Hit flags equal, features within rtol 2e-4 / atol
+    1e-4 on all but 1e-4 of the lanes; time from a graph's replay, bound
+    68 B a lane over 3.35 TB/s."""
+    scene, cam = scene_and_camera(name, width, height)
+    cfg = shade.StepConfig.create(scene, cam, width, height, 1)
+    kern = SceneKernels.create(scene)
+    pix = torch.arange(width * height, dtype=torch.int64, device=DEV)
+    rays = torch.cat([aov.camera_rays(cam.to(DEV), width, height, pix, s,
+                                      SEED) for s in range(samples)], dim=1)
+    lanes = _to_i32_bits(pix.repeat(samples))
+    bt, bi = kern.intersect(scene, rays, rng.prng_key(0), lanes)
+    bi = bi.to(torch.int32).contiguous()
+    args = (cfg, rays, bt, bi)
+    fk = aov.aov_features(*args)
+    fp = aov.aov_features_plain(*args)
+    torch.cuda.synchronize()
+    R = rays.shape[1]
+    n_disc = int((fk[7] != fp[7]).sum())
+    diff = (fk - fp).abs()
+    n_float = int((diff > 1e-4 + 2e-4 * fp.abs()).any(dim=0).sum())
+    worst = float(diff.max())
+    log(f"aov {name} R={R}: hits {int(fp[7].sum())}, hit mismatches "
+        f"{n_disc}, lanes out of tol {n_float}, max abs err {worst:.3e}")
+    if n_disc or n_float > 1e-4 * R or int(fp[7].sum()) < R // 4:
+        raise AssertionError(f"aov kernel disagrees with plain on {name}")
+    ms = kernel_ms(lambda: aov.aov_features(*args))
+    plain_ms = cuda_ms(lambda: aov.aov_features_plain(*args), 3)
+    nbytes = R * aov.BYTES_PER_LANE + cfg.tab.numel() * 4 + (
+        (cfg.texrow.numel() + cfg.kids.numel()) * 4
+        if cfg.flags["checker_fancy"] else 0)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    log(f"aov {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", max_abs_err=worst)
+
+
+def hold_aovs(a, b, what):
+    """Two ``render_aovs`` results: coverage and +inf depths equal; albedo
+    and normal within 1e-4, depth within rtol 1e-5, on all but 2% of
+    pixels (a texel edge, a checker's sign of sines)."""
+    np.testing.assert_array_equal(a["coverage"], b["coverage"])
+    np.testing.assert_array_equal(np.isinf(a["depth"]), np.isinf(b["depth"]))
+    fin = np.isfinite(a["depth"])
+    bad = np.zeros(fin.shape, bool)
+    bad[fin] = np.abs(a["depth"][fin] - b["depth"][fin]) > \
+        1e-5 * np.abs(a["depth"][fin])
+    for k in ("albedo", "normal"):
+        bad |= (np.abs(a[k] - b[k]) > 1e-4).any(axis=-1)
+    log(f"{what}: pixels out of tol {bad.mean():.4%}, coverage mean "
+        f"{float(a['coverage'].mean()):.4f}")
+    if bad.mean() > 0.02:
+        raise AssertionError(f"{what}: the AOVs disagree")
 
 
 def hold_sorted_sweep(what, name, R, dense, got, plain):
@@ -1077,14 +1204,16 @@ def check_card_vs_cpu(what, scene, cam, w, h, **kw):
     cross_engine(a, b, f"{what} card vs cpu")
 
 
-COUNTERS = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
+COUNTERS = {"aov": aov.aov_features,
+            "sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
             "list_pass": sweep.list_pass,
             "pool_step": shade.pool_step,
             "hit_scatter": hit_scatter.hit_scatter,
             "megakernel": megakernel.trace_pool_mega,
             "sweep_masked": sweep.sweep_masked,
             "sweep_sphere_mxu": sweep.sweep_sphere_mxu}
-PLAIN = {"sweep": sweep.sweep_plain,
+PLAIN = {"aov": aov.aov_features_plain,
+         "sweep": sweep.sweep_plain,
          "tile_lists": sweep.tile_lists_plain,
          "needed_mask": sweep.needed_mask_plain,
          "sweep_compact": sweep.sweep_compact_plain,
@@ -1131,22 +1260,102 @@ def with_env(env, fn):
 
 
 def full_width(name, width, height, spp, sampler="uniform", strict=False,
-               **kw):
+               seed=SEED, **kw):
     scene, cam = scene_and_camera(name, width, height, sampler=sampler,
                                   strict=strict)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = render(scene, cam, width, height, spp, max_depth=50, seed=SEED,
+    img = render(scene, cam, width, height, spp, max_depth=50, seed=seed,
                  **kw)
     wall = time.perf_counter() - t0
     if img.shape != (height, width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{name}: bad image {img.shape}")
     bright = float(to_rgb8(img).mean())
     log(f"render {name}{variant(sampler, strict)} {width}x{height} {spp} spp "
-        f"depth 50 {kw}: wall "
+        f"depth 50 seed {seed} {kw}: wall "
         f"{wall:.3f} s, {width * height * spp / wall:.4g} samples/s, mean "
         f"8-bit {bright:.2f}")
     return img, wall, bright
+
+
+def sobol_b0_full():
+    """cornell 500x500, 64 spp, depth 50 on the queue with sampler sobol-b0
+    (the step's B0 instantiation), beside the sobol render at four seeds:
+    the sobol-b0 mean lies within the sobol means' spread, widened by its
+    own width on each side."""
+    reset_counts()
+    img, wall, _ = full_width("cornell", 500, 500, 64, sampler="sobol-b0",
+                              mode="queue")
+    counts = read_counts("sobol-b0 queue", ("sweep", "pool_step"))
+    means = [float(full_width("cornell", 500, 500, 64, sampler="sobol",
+                              mode="queue", seed=SEED + k)[0].mean())
+             for k in range(4)]
+    lo, hi = min(means), max(means)
+    mean = float(img.mean())
+    log(f"  cornell queue sobol-b0 mean {mean:.6f}, sobol means "
+        f"{', '.join(f'{m:.6f}' for m in means)} (seeds {SEED}-{SEED + 3})")
+    if not lo - (hi - lo) <= mean <= hi + (hi - lo):
+        raise AssertionError("the sobol-b0 queue render's mean is outside "
+                             "the sobol renders' spread")
+    return dict(wall_s=wall, mean=mean, sobol_means=means, counts=counts)
+
+
+def aov_full(img):
+    """``render_aovs`` (16 spp) and ``denoise`` of the 64-spp pool render
+    ``img`` on cornell 500x500, then the CLI's ``--aov all`` and
+    ``--denoise`` at the same size, each with its wall and its launch
+    counts (the CLI's files go to a temporary directory)."""
+    import tempfile
+
+    out, counts = {}, {}
+    scene, cam = scene_and_camera("cornell", 500, 500)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aovs = aov.render_aovs(scene, cam, 500, 500, spp=16, seed=SEED)
+    out["render_aovs_s"] = time.perf_counter() - t0
+    counts["aov"] = read_counts("render_aovs", ("sweep", "aov"),
+                                ("pool_step",))
+    cov = aovs["coverage"]
+    if not (all(np.isfinite(aovs[k]).all() for k in ("albedo", "normal",
+                                                      "coverage"))
+            and 0.5 < float(cov.mean()) < 1.0
+            and np.array_equal(np.isinf(aovs["depth"]), cov == 0)):
+        raise AssertionError("cornell AOVs: non-finite or inconsistent "
+                             "buffers")
+    t0 = time.perf_counter()
+    den = denoise(img, aovs["albedo"], aovs["normal"], aovs["depth"],
+                  device=DEV)
+    torch.cuda.synchronize()
+    out["denoise_s"] = time.perf_counter() - t0
+    den = den.cpu().numpy()
+    rel = abs(float(den.mean()) - float(img.mean())) / float(img.mean())
+    out["denoised_mean_rel"] = rel
+    log(f"  cornell 500x500: render_aovs 16 spp {out['render_aovs_s']:.3f} "
+        f"s (coverage {float(cov.mean()):.4f}), denoise r=3 on the card "
+        f"{out['denoise_s']:.3f} s, image mean {float(img.mean()):.6f} -> "
+        f"{float(den.mean()):.6f}")
+    if den.shape != img.shape or not np.isfinite(den).all() or rel > 0.05:
+        raise AssertionError("denoised cornell: bad image or moved mean")
+    with tempfile.TemporaryDirectory() as d:
+        size = ["--scene", "cornell", "--width", "500", "--height", "500"]
+        for what, argv, want, files in (
+                ("aov_cli", ["--spp", "16", "--aov", "all", "--out",
+                             f"{d}/c.png"], ("sweep", "aov"),
+                 [f"{d}/c.{n}.png" for n in aov.AOV_NAMES]),
+                ("denoise_cli", ["--spp", "64", "--max-depth", "50",
+                                 "--denoise", "--out", f"{d}/d.png"],
+                 ("sweep", "pool_step", "aov"), [f"{d}/d.png"])):
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(size + argv)
+            out[f"{what}_s"] = time.perf_counter() - t0
+            counts[what] = read_counts(what, want)
+            if rc != 0 or not all(os.path.getsize(f) > 0 for f in files):
+                raise AssertionError(f"{what}: exit {rc} or files missing")
+    log(f"  CLI walls: --aov all {out['aov_cli_s']:.3f} s, --denoise "
+        f"{out['denoise_cli_s']:.3f} s")
+    return out, counts
 
 
 class RoundLog:
@@ -1299,11 +1508,20 @@ def main() -> int:
     check_step("earth", 500, 500, 64, 2, earth=seeded_image())
     st_queue = check_step_queue("next-week-final", 1000, 1000, 6)
     check_step_queue("earth", 1000, 1000, 4, earth=seeded_image())
+    st_b0 = check_step_queue("cornell", 1000, 1000, 4, sampler="sobol-b0")
+    st_b0_nw = check_step_queue("next-week-final", 1000, 1000, 6,
+                                sampler="sobol-b0")
+    st_tex = check_step("checker-tex", 500, 500, 64, 2)
+    st_tex_strict = check_step("checker-tex", 500, 500, 64, 2, strict=True)
+    st_emissive = check_step("emissive-image", 500, 500, 64, 2)
     hsc = check_hit_scatter("cornell", 500, 500, 64, 3)
     hsc_perlin = check_hit_scatter("two-perlin-spheres", 500, 500, 64, 2)
     hsc_strict = check_hit_scatter("perlin-sky", 500, 500, 64, 2, strict=True)
     hsc_strict_media = check_hit_scatter("cornell-smoke", 500, 500, 64, 3,
                                          strict=True)
+    hsc_tex = check_hit_scatter("checker-tex", 500, 500, 64, 2)
+    av = check_aov("cornell", 500, 500, 4)
+    av_tex = check_aov("checker-tex", 500, 500, 4)
     sc_nw = check_sweep_compact("next-week-final", 1000, 1000, 1, 1)
     sc_book1 = check_sweep_compact("book1-final", 600, 400, 16, 1)
     sc_box = check_sweep_compact("box-grid", 1000, 1000, 1, 1)
@@ -1318,7 +1536,8 @@ def main() -> int:
     sm_nw = check_sweep_masked("next-week-final", 1000, 1000, 1, 1)
     mx_book1 = check_sweep_mxu("book1-final", 600, 400, 16, 1)
 
-    log("phase 4: goldens on the card, image scene card vs cpu")
+    log("phase 4: goldens on the card; image, textured-checker, "
+        "emissive-image scenes and AOVs card vs cpu")
     for name in GOLDENS:
         check_golden(name)
     check_card_vs_cpu("earth with a seeded image",
@@ -1330,6 +1549,19 @@ def main() -> int:
             check_golden(name, engine="mega")
     for name in STRICT_GOLDENS:
         check_strict_golden(name)
+    for name, mode, strict in (("checker-tex", "pool", False),
+                               ("checker-tex", "queue", True),
+                               ("checker-tex", "wave", False),
+                               ("emissive-image", "pool", False)):
+        check_card_vs_cpu(f"{name} 48x32 {mode}{variant(strict=strict)}",
+                          *scene_and_camera(name, 48, 32, strict=strict), 48,
+                          32, spp=8, max_depth=8, seed=SEED, mode=mode)
+    for name in ("cornell", "cornell-smoke", "checker-tex"):
+        scene, cam = scene_and_camera(name, 48, 32)
+        hold_aovs(aov.render_aovs(scene, cam, 48, 32, spp=4, seed=SEED,
+                                  device="cpu"),
+                  aov.render_aovs(scene, cam, 48, 32, spp=4, seed=SEED),
+                  f"render_aovs {name} 48x32 card vs cpu")
 
     log("phase 5: full-width renders through the kernels")
     reset_counts()
@@ -1440,6 +1672,11 @@ def main() -> int:
                       *scene_and_camera("cornell-smoke", 48, 32,
                                         strict=True),
                       48, 32, spp=8, max_depth=8, seed=SEED)
+    b0 = sobol_b0_full()
+    reset_counts()
+    full_width("checker-tex", 500, 500, 64)
+    n_tex = read_counts("textured-checker pool", ("sweep", "pool_step"))
+    aov_out, n_aov = aov_full(img_c)
     rounds = RoundLog()
     reset_counts()
     img_ap, n_ap, ad_pool = adaptive_full("cornell", 500, 500, 1000, 0.03,
@@ -1502,7 +1739,9 @@ def main() -> int:
              "strict_mega_fallback": n_strict_mega,
              "adaptive_pool": n_adaptive_pool,
              "adaptive_mega": n_adaptive_mega,
-             "adaptive_queue": n_adaptive_queue}
+             "adaptive_queue": n_adaptive_queue,
+             "sobol_b0_queue": b0.pop("counts"),
+             "checker_tex_pool": n_tex, **n_aov}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -1533,14 +1772,20 @@ def main() -> int:
              variants={"sobol cornell": st_sobol,
                        "strict two-perlin-spheres": st_strict_perlin,
                        "strict perlin-sky": st_strict_sky,
-                       "strict cornell-smoke": st_strict_media}, **st),
+                       "strict cornell-smoke": st_strict_media,
+                       "sobol-b0 queue cornell": st_b0,
+                       "sobol-b0 queue next-week-final": st_b0_nw,
+                       "textured checker": st_tex,
+                       "strict textured checker": st_tex_strict,
+                       "emissive image": st_emissive}, **st),
         dict(name="hit_scatter", route="cuda",
              source="tpu_ray_torch/csrc/pool_step.cu",
              replaces="tpu_ray/ops/shade_pallas.py:370 (_shade_kernel)",
              launches=launches["hit_scatter"],
              launches_by_path=by_path["hit_scatter"], library_ms=None,
              variants={"strict perlin-sky": hsc_strict,
-                       "strict cornell-smoke": hsc_strict_media}, **hsc),
+                       "strict cornell-smoke": hsc_strict_media,
+                       "textured checker": hsc_tex}, **hsc),
         dict(name="sweep_compact", route="cuda",
              source="tpu_ray_torch/csrc/sweep_compact.cu",
              replaces="tpu_ray/ops/intersect_pallas.py:505 (_compact_kernel)",
@@ -1567,7 +1812,14 @@ def main() -> int:
              launches=launches["sweep_sphere_mxu"],
              launches_by_path=by_path["sweep_sphere_mxu"], library_ms=None,
              **mx_book1),
+        dict(name="aov", route="cuda", source="tpu_ray_torch/csrc/aov.cu",
+             replaces="tpu_ray/aov.py:60 (_aov_step's hit record and "
+                      "texture_value, XLA: no TPU kernel; port-only)",
+             launches=launches["aov"], launches_by_path=by_path["aov"],
+             library_ms=None, variants={"textured checker": av_tex}, **av),
     ]
+    log(f"sobol-b0 queue: {json.dumps(b0)}")
+    log(f"aov and denoise: {json.dumps(aov_out)}")
     log(f"megakernel, one wave, 2 samples/slot depth 8: cornell-smoke "
         f"{json.dumps(mg_smoke)}; two-perlin-spheres "
         f"{json.dumps(mg_perlin)}; book1-final {json.dumps(mg_book1)}")

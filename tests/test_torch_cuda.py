@@ -15,7 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_ray_torch.integrator import SceneKernels, init_pool_state
+from torch_port_common import (emissive_image_scene, seeded_image,
+                               textured_checker_scene)
+
+from tpu_ray_torch import aov
+from tpu_ray_torch.denoise import denoise
+from tpu_ray_torch.integrator import (SceneKernels, _queue_init, _to_i32_bits,
+                                      init_pool_state, queue_body)
 from tpu_ray_torch.models import objects as ob
 from tpu_ray_torch.models.compile import build_scene
 from tpu_ray_torch.models.scenes import SCENES
@@ -82,10 +88,17 @@ def test_sweep_kernel_matches_plain(card):
 
 def _build(name, card):
     """A library scene on the card; "earth-image" carries a seeded image,
-    a "strict " prefix asks for the strict reference estimator."""
+    "checker-tex" has checkers with textured children and "emissive-image"
+    an image on a light (tests/torch_port_common.py, seen through
+    two-spheres' camera); a "strict " prefix asks for the strict reference
+    estimator."""
+    img = seeded_image()
     if name == "earth-image":
-        img = np.random.default_rng(3).integers(0, 256, (32, 64, 3), np.uint8)
         return SCENES["earth"], SCENES["earth"].build(earth=img).to(card)
+    if name in ("checker-tex", "emissive-image"):
+        make = (textured_checker_scene if name == "checker-tex"
+                else emissive_image_scene)
+        return SCENES["two-spheres"], make(ob, build_scene, img).to(card)
     if name.startswith("strict "):
         spec, ps = _build(name[len("strict "):], card)
         return spec, ps.replace(strict=True)
@@ -94,7 +107,8 @@ def _build(name, card):
 
 @pytest.mark.parametrize("name", ["cornell", "cornell-smoke",
                                   "two-perlin-spheres", "simple-light",
-                                  "earth-image"])
+                                  "earth-image", "checker-tex",
+                                  "strict checker-tex", "emissive-image"])
 def test_pool_step_kernel_matches_plain(card, name):
     _hold_pool_step(card, name)
 
@@ -147,7 +161,8 @@ def _hold_pool_step(card, name, sampler="uniform"):
 
 @pytest.mark.parametrize("name", ["cornell", "cornell-smoke",
                                   "two-perlin-spheres", "random-moving",
-                                  "earth-image"])
+                                  "earth-image", "checker-tex",
+                                  "emissive-image"])
 def test_hit_scatter_kernel_matches_plain(card, name):
     """Camera rays, then two rounds of continuation rays."""
     _hold_hit_scatter(card, name)
@@ -155,7 +170,8 @@ def test_hit_scatter_kernel_matches_plain(card, name):
 
 @pytest.mark.parametrize("name", ["strict cornell-smoke",
                                   "strict two-perlin-spheres",
-                                  "strict book1-final"])
+                                  "strict book1-final",
+                                  "strict checker-tex"])
 def test_hit_scatter_kernel_strict_matches_plain(card, name):
     """The strict branches of the shared core in the wave path's kernel."""
     _hold_hit_scatter(card, name)
@@ -594,14 +610,18 @@ def test_masked_and_mxu_renders_on_the_card(card, monkeypatch):
     ("cornell", "pool", "mega", "sobol", False),
     ("cornell-smoke", "pool", "auto", "uniform", True),
     ("two-perlin-spheres", "wave", "auto", "uniform", True),
-    ("book1-final", "queue", "auto", "sobol-b0", True)])
+    ("book1-final", "queue", "auto", "sobol-b0", True),
+    ("cornell", "queue", "auto", "sobol-b0", False),
+    ("checker-tex", "pool", "auto", "uniform", False),
+    ("checker-tex", "queue", "auto", "sobol-b0", True),
+    ("emissive-image", "wave", "auto", "uniform", False)])
 def test_sobol_and_strict_renders_on_the_card_match_the_cpu(
         card, name, mode, engine, sampler, strict):
     """Cross-engine criterion between the card's kernels and the CPU's
     plain twins on every path that takes a Sobol' camera or the strict
     estimator; the kernel that path runs launched."""
-    spec = SCENES[name]
-    scene = spec.build(seed=1024, earth=None).replace(strict=strict)
+    spec, scene = _build(name, "cpu")
+    scene = scene.replace(strict=strict)
     args = (scene, spec.camera(32, 24).replace(sampler=sampler), 32, 24)
     kw = dict(spp=4, max_depth=6, seed=5, mode=mode, engine=engine)
     counter = {"wave": hs.hit_scatter, "mega": mega.trace_pool_mega}.get(
@@ -644,3 +664,99 @@ def test_adaptive_renders_on_the_card_match_the_cpu(card, name, mode,
     close = (err < 1e-4).all(axis=-1)
     assert 1.0 - close.mean() <= 0.02
     np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+
+
+def test_pool_step_kernel_sobol_b0_queue_matches_plain(card):
+    """The queue's sobol-b0 step (the B0 instantiation) against its twin on
+    queue states a few iterations in: lanes at bounce 0 take dims 7-10 of
+    their (pixel, global sample), the others hashed draws."""
+    W, H = 32, 24
+    spec, ps = _build("cornell", card)
+    cam = spec.camera(W, H).replace(sampler="sobol-b0")
+    cfg = shade.StepConfig.create(ps, cam, W, H, 8, n_samples=0, cam_salt=7,
+                                  queue=True)
+    assert cfg.b0
+    kern = SceneKernels.create(ps)
+    total = W * H * 4
+    st = _queue_init(2048, total, card, b0=True)
+    key = rng.fold_in(rng.prng_key(5), 0x5EED)
+    ki, ks = rng.fold_in(key, 0), rng.fold_in(key, 1)
+    zeros2 = torch.zeros((2, 2048), dtype=torch.float32, device=card)
+    first = 0
+    for it in range(5):
+        st = queue_body(st, ps, cfg, kern, ki, ks, 7, 0, total, W, H)
+        sid = _to_i32_bits(rng.path_ids(st.work, st.istate[0]))
+        bt, bi = kern.intersect(ps, st.fstate[:7], ki, sid)
+        args = (cfg, zeros2, sid, st.fstate, st.istate, bt, bi, ks)
+        fk, ik = shade.pool_step(*args, lane_b0=st.lane)
+        fp, ip = shade.pool_step_plain(*args, lane_b0=st.lane)
+        same = (ik == ip).all(dim=0)
+        assert int((~same).sum()) <= 2
+        torch.testing.assert_close(fk[:, same], fp[:, same], rtol=2e-4,
+                                   atol=1e-3)
+        first += int(((st.istate[0] == 0) & (st.istate[2] > 0)).sum())
+    assert first > 1000
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell-smoke", "checker-tex",
+                                  "strict checker-tex", "earth-image"])
+def test_aov_kernel_matches_plain(card, name):
+    """The first-hit feature kernel against its twin on camera rays:
+    hit flags equal, features within rtol 2e-4 / atol 1e-4 on all but a
+    few lanes (a texel edge or a checker's sign of sines)."""
+    W, H = 96, 64
+    spec, ps = _build(name, card)
+    cam = spec.camera(W, H).to(card)
+    cfg = shade.StepConfig.create(ps, cam, W, H, 1)
+    kern = SceneKernels.create(ps)
+    R = W * H
+    u = torch.from_numpy(np.random.default_rng(4).random((R, 5))
+                         .astype(np.float32)).to(card)
+    rays = pack_rays(*cam.rays_from_uniforms(u[:, 0], u[:, 1], u[:, 2:5]))
+    ids = slot_ids(W, H, 1, card)
+    bt, bi = kern.intersect(ps, rays, (0, 1), ids)
+    bi = bi.to(torch.int32).contiguous()
+    launches = aov.aov_features.launches
+    fk = aov.aov_features(cfg, rays, bt, bi)
+    assert aov.aov_features.launches == launches + 1
+    fp = aov.aov_features_plain(cfg, rays, bt, bi)
+    assert torch.equal(fk[7], fp[7]) and int(fp[7].sum()) > R // 20
+    bad = ((fk - fp).abs() > 1e-4 + 2e-4 * fp.abs()).any(dim=0)
+    assert int(bad.sum()) <= 1e-3 * R
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell-smoke", "checker-tex"])
+def test_render_aovs_on_the_card_matches_the_cpu(card, name):
+    """render_aovs on the card against the CPU's plain twin: coverage
+    equal, albedo and normal within 1e-4 and depth within rtol 1e-5 on all
+    but 2% of pixels; banded card output bit-equal to unbanded."""
+    spec, ps = _build(name, "cpu")
+    cam = spec.camera(40, 24)
+    kw = dict(spp=4, seed=5)
+    a = aov.render_aovs(ps, cam, 40, 24, device="cpu", **kw)
+    b = aov.render_aovs(ps, cam, 40, 24, device=card, **kw)
+    c = aov.render_aovs(ps, cam, 40, 24, device=card, band_cap=200, **kw)
+    for k in aov.AOV_NAMES:
+        np.testing.assert_array_equal(b[k], c[k])
+    np.testing.assert_array_equal(a["coverage"], b["coverage"])
+    np.testing.assert_array_equal(np.isinf(a["depth"]), np.isinf(b["depth"]))
+    fin = np.isfinite(a["depth"])
+    bad = np.zeros(a["depth"].shape, bool)
+    bad[fin] = np.abs(a["depth"][fin] - b["depth"][fin]) > \
+        1e-5 * np.abs(a["depth"][fin])
+    for k in ("albedo", "normal"):
+        bad |= (np.abs(a[k] - b[k]) > 1e-4).any(axis=-1)
+    assert bad.mean() <= 0.02
+
+
+def test_denoise_on_the_card_matches_the_cpu(card):
+    r = np.random.default_rng(8)
+    img = r.random((24, 32, 3)).astype(np.float32)
+    alb = r.random((24, 32, 3)).astype(np.float32)
+    nrm = r.normal(size=(24, 32, 3)).astype(np.float32)
+    depth = r.uniform(1, 5, (24, 32)).astype(np.float32)
+    depth[::5, ::3] = np.inf
+    a = denoise(img, alb, nrm, depth, radius=2, device="cpu")
+    b = denoise(img, alb, nrm, depth, radius=2)
+    assert b.is_cuda
+    torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-6)

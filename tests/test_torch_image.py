@@ -122,9 +122,17 @@ def test_convert_carries_the_atlas(name):
 
 
 def test_image_on_emissive_is_refused():
+    """The megakernel refuses an image on a light (as it refuses every image
+    scene, like the JAX package's): ``engine="mega"`` renders on the
+    wavefront pool instead, which shades it, and says so on stderr."""
+    from tpu_ray_torch.ops import megakernel as mega
+
     light = ob.DiffuseLight(ob.ImageTexture(_image(1, (4, 4, 3))))
-    scene = build_scene([ob.Sphere((0, 0, 0), 1.0, light)])
-    assert scene.image_on_emissive
-    with pytest.raises(NotImplementedError, match="emissive"):
-        render(scene, SCENES["earth"].camera(8, 6), 8, 6, spp=1, max_depth=2,
-               device="cpu")
+    # a dome around the camera: a light emits on its back face
+    scene = build_scene([ob.Sphere((0, 0, 0), 100.0, light)])
+    assert scene.image_on_emissive and not mega.supported(scene)
+    args = (scene, SCENES["earth"].camera(8, 6), 8, 6)
+    kw = dict(spp=1, max_depth=2, device="cpu")
+    img = render(*args, engine="mega", **kw)
+    assert np.isfinite(img).all() and img.max() > 0.0
+    np.testing.assert_array_equal(img, render(*args, **kw))

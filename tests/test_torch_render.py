@@ -95,9 +95,10 @@ def test_render_without_device_needs_a_card():
 
 # what later slices of the port brought into scope renders now: the queue
 # slice's big scenes, image textures and queue mode, the strict estimator
-# and the Sobol' sampler of the seventh, adaptive sampling of the eighth
+# and the Sobol' sampler of the seventh, adaptive sampling of the eighth,
+# checkers with textured children and images on lights of the ninth
 NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol",
-                "adaptive")
+                "adaptive", "checker-fancy", "image-on-emissive")
 
 
 @pytest.mark.parametrize("what", ["next-week-final", "image", "strict",
@@ -107,8 +108,9 @@ NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol",
 def test_out_of_slice_inputs_raise(what):
     """Inputs outside the port raise NotImplementedError; the ones later
     slices took in (a scene over 512 prims, image textures, queue mode, the
-    strict estimator, the Sobol' sampler, adaptive sampling) render a
-    finite image instead."""
+    strict estimator, the Sobol' sampler, adaptive sampling, checkers with
+    textured children, an image on a light) render a finite image
+    instead."""
     from tpu_ray_torch.models import objects as ob
     from tpu_ray_torch.models.compile import build_scene
 
@@ -124,13 +126,18 @@ def test_out_of_slice_inputs_raise(what):
     elif what == "sobol":
         cam = cam.replace(sampler="sobol")
     elif what == "checker-fancy":
+        # in front of cornell's camera, under a sky
         tex = ob.Checker(ob.ImageTexture(img),
                          ob.SolidColor((0.9, 0.9, 0.9)))
-        scene = build_scene([ob.Sphere((0, 0, 0), 1.0, ob.Lambertian(tex))])
+        scene = build_scene([ob.Sphere((278, 278, 0), 200.0,
+                                       ob.Lambertian(tex))],
+                            background=(0.5, 0.6, 0.7))
         assert scene.checker_fancy
     elif what == "image-on-emissive":
-        scene = build_scene([ob.Sphere((0, 0, 0), 1.0, ob.DiffuseLight(
+        # a dome around cornell's camera: a light emits on its back face
+        scene = build_scene([ob.Sphere((278, 278, 0), 2000.0, ob.DiffuseLight(
             ob.ImageTexture(img)))])
+        assert scene.image_on_emissive
     else:
         kw = {"bvh": dict(bvh=True), "mesh": dict(mesh=object()),
               "queue": dict(mode="queue"), "adaptive": dict(adaptive=0.01),

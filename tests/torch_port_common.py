@@ -73,3 +73,39 @@ def mixed_scene():
             objs.append(ob.Rect(plane, a[0], a[1], b[0], b[1],
                                 r.uniform(-20, 20), white))
     return build_scene(objs)
+
+
+def seeded_image(seed=3, shape=(32, 64, 3)):
+    """An 8-bit RGB image from a numpy seed (the earth map is not in the
+    repository)."""
+    return np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
+
+
+def textured_checker_scene(ob, build_scene, img, seed=1024):
+    """Checkers whose children are textures (``SceneData.checker_fancy``):
+    simple-light's layout with a Checker(SolidColor, Noise) ground and a
+    Checker(Noise, ImageTexture) sphere, under a dim sky.  ``ob`` and
+    ``build_scene`` are either package's object API; seen through
+    ``two_spheres_camera``."""
+    ground = ob.Lambertian(ob.Checker(ob.SolidColor((0.2, 0.3, 0.1)),
+                                      ob.Noise(scale=4.0, seed=seed)))
+    ball = ob.Lambertian(ob.Checker(ob.Noise(scale=2.0, seed=seed + 1),
+                                    ob.ImageTexture(img)))
+    light = ob.DiffuseLight((4.0, 4.0, 4.0))
+    sphere_light = ob.Sphere((0, 7, 0), 2, light)
+    rect_light = ob.Rect("xy", 3, 5, 1, 3, -2, light)
+    world = [ob.Sphere((0, -1000, 0), 1000, ground),
+             ob.Sphere((0, 2, 0), 2, ball), sphere_light, rect_light]
+    return build_scene(world, lights=[sphere_light, rect_light],
+                       background=(0.2, 0.25, 0.3))
+
+
+def emissive_image_scene(ob, build_scene, img):
+    """An image texture on a light (``SceneData.image_on_emissive``): an
+    emissive image dome of radius 500 around a Lambertian sphere and a
+    metal one; seen through ``two_spheres_camera``."""
+    dome = ob.Sphere((0, 0, 0), 500, ob.DiffuseLight(ob.ImageTexture(img)))
+    return build_scene([dome,
+                        ob.Sphere((0, 2, 0), 2, ob.Lambertian((0.7, 0.6, 0.5))),
+                        ob.Sphere((0, 0.5, 3), 0.5, ob.Metal((0.8, 0.8, 0.8),
+                                                            0.1))])

@@ -166,7 +166,7 @@ def render_adaptive(scene, camera, width: int, height: int, *,
     signature; this port has one shading, the fused step.  Device meshes
     are a later slice and raise ``NotImplementedError``.  Runs on the card
     unless ``device="cpu"``."""
-    from .renderer import (check_supported, resolve_device, resolve_engine,
+    from .renderer import (resolve_device, resolve_engine,
                            resolve_mode)
 
     if mesh is not None:
@@ -183,14 +183,15 @@ def render_adaptive(scene, camera, width: int, height: int, *,
     if mode not in ("auto", "pool", "queue"):
         raise ValueError(f"adaptive sampling runs mode 'auto', 'pool' or "
                          f"'queue', not {mode!r}")
-    check_supported(scene)
     engine = resolve_engine(scene, engine)
     mode = resolve_mode(scene, mode, engine)
-    if camera.sampler == "sobol-b0":
+    if camera.sampler == "sobol-b0" and mode == "pool":
+        # the queue backend's rounds take the first-bounce override, as the
+        # JAX package's do; the pool backend keeps hashed scatter draws
         print("tpu_ray_torch: sampler=sobol-b0's bounce-dim override only "
-              "runs on the XLA work-queue path; the adaptive "
-              f"{mode} backend keeps the sobol camera dims with hashed "
-              "scatter draws", file=sys.stderr)
+              "runs on the XLA work-queue path; the adaptive pool backend "
+              "keeps the sobol camera dims with hashed scatter draws",
+              file=sys.stderr)
     dev = resolve_device(device)
     scene = scene.to(dev)
     kw = dict(spp_max=spp_max, tol=tol, max_depth=max_depth, seed=seed,

@@ -4,9 +4,11 @@ Port of ``tpu_ray/core/qmc.py``: the same direction numbers, the same
 hash-based Owen scrambles (Burley, JCGT 2020) and the same 24-bit
 quantisation, so every draw is bit-equal to the JAX package's on the same
 (slot, sample index, salt).  ``Camera.sampler`` selects it: ``"sobol"``
-(and ``"sobol-b0"``, which keeps the Sobol' camera dims wherever the fused
-step runs) draws the pixel jitter from dims 1-2 and the lens disk and
-shutter time from dims 3-5 of one scrambled Sobol' point per (slot, sample).
+draws the pixel jitter from dims 1-2 and the lens disk and shutter time
+from dims 3-5 of one scrambled Sobol' point per (slot, sample);
+``"sobol-b0"`` does the same and, on the work queue, also takes the
+first bounce's light and cosine scatter draws from dims 7-10
+(:func:`bounce0_uniforms`).
 
 The sequence index is the PLAIN global sample index: XORing the salt into
 it (as the hash path does) would permute the sample order and break the
@@ -70,8 +72,10 @@ _SOBOL7_V = _sobol_dirs(4, 4, [1, 3, 5, 13])
 _SOBOL8_V = _sobol_dirs(5, 2, [1, 1, 5, 5, 17])
 _SOBOL9_V = _sobol_dirs(5, 4, [1, 1, 5, 5, 5])
 _SOBOL10_V = _sobol_dirs(5, 7, [1, 1, 7, 11, 19])
-# the direction tables the kernels hold (csrc/qmc.cuh SOBOL_V, in order)
+# the direction tables the kernels hold (csrc/qmc.cuh SOBOL_V and
+# SOBOL_B0_V, in order)
 DEVICE_DIRS = (_SOBOL2_V, _SOBOL3_V, _SOBOL4_V, _SOBOL5_V)
+DEVICE_B0_DIRS = (_SOBOL6_V, _SOBOL7_V, _SOBOL8_V, _SOBOL9_V, _SOBOL10_V)
 _SCALE = float(np.float32(1.0 / (1 << 24)))
 
 
@@ -159,9 +163,10 @@ def lens_time_uniforms(slot, sidx, salt) -> tuple:
 
 def bounce0_uniforms(slot, sidx, salt) -> tuple:
     """Sobol' dims 6-10 of (slot, sample index), Owen-scrambled: the
-    first-bounce scatter draws of the JAX package's ``sobol-b0`` override
-    (its XLA work queue only; the port's fused step keeps the hashed
-    scatter draws).  Five float32 tensors in [0, 1)."""
+    first-bounce scatter draws of the ``sobol-b0`` sampler on the work
+    queue (the queue's step kernel draws dims 7-10 as ``csrc/qmc.cuh::
+    sobol_bounce0``; dim 6, the mixture coin, stays hashed).  Five float32
+    tensors in [0, 1)."""
     sidx = _u32(sidx)
     s = _seed0(slot, salt)
     for _ in range(4):       # past the five camera-dim seeds
@@ -170,6 +175,5 @@ def bounce0_uniforms(slot, sidx, salt) -> tuple:
     for _ in range(5):
         s = _fmix(s ^ _MIX2)
         seeds.append(s)
-    dirs = (_SOBOL6_V, _SOBOL7_V, _SOBOL8_V, _SOBOL9_V, _SOBOL10_V)
     return tuple(_to_unit(owen_scramble(sobol_bits(sidx, d), sd))
-                 for d, sd in zip(dirs, seeds))
+                 for d, sd in zip(DEVICE_B0_DIRS, seeds))

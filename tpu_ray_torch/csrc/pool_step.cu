@@ -13,7 +13,13 @@
 // ball-radius isotropic phase), so the pool, queue and wave paths render
 // it on the card.  Both kernels are templates on the flag bits, and the C
 // entries launch the instantiation that P.flags names: the uniform, fixed
-// instantiation carries neither branch.  The plain PyTorch twin is tpu_ray_torch/ops/shade.py::
+// instantiation carries no branch of them.  HAS_CHECKER_FANCY evaluates a
+// checker's textured children by their texture rows (the JAX package's
+// texture_value, which its fused kernels refuse); SAMPLER_B0, set by the
+// work queue only, takes each lane's first-bounce light and cosine draws
+// from Sobol' dims 7-10 of its (pixel, global sample) - the JAX XLA
+// queue's sobol-b0 override (tpu_ray/integrator.py:707-735), which the
+// JAX package runs only where its fused kernels do not.  The plain PyTorch twin is tpu_ray_torch/ops/shade.py::
 // pool_step_plain; the two follow the same operations in the same order.
 //
 // hit_scatter_kernel replaces tpu_ray/ops/shade_pallas.py::_shade_kernel
@@ -42,8 +48,10 @@
 //
 // Bound (pool step).  Memory: per lane it reads 84 B (xy 8, slot 4, float state 52, int
 // state 12, best_t 4, best_i 4) and writes 64 B (float state 52, int state
-// 12): ~148 B, so ~46 us per 1M-lane iteration at 3.35 TB/s.  The table rows
-// (<= 512 x 160 B) stay in L1/L2, as do the strict mode's noise tables (6 KB
+// 12): ~148 B, so ~46 us per 1M-lane iteration at 3.35 TB/s (the sobol-b0
+// step reads 8 B more for each lane at bounce 0: its pixel and sample).
+// The table rows (<= 512 x 160 B), the texture rows and the strict mode's
+// noise tables stay in L1/L2 (the noise tables are 6 KB
 // per Perlin instance: 6 permutation and 8 gradient-row loads per octave
 // and lane hit cache, so they add no device-memory bytes per lane).  Lanes
 // diverge on material and on Perlin textures (7 octaves x 8 corners of
@@ -59,9 +67,10 @@
 
 #define THREADS 256
 
-// SOBOL_ON / STRICT_ON: the flag bits SAMPLER_SOBOL / STRICT of P.flags,
-// which the C entries turn into the instantiation they launch
-template <bool SOBOL_ON, bool STRICT_ON>
+// SOBOL_ON / STRICT_ON / FANCY_ON / B0_ON: the flag bits SAMPLER_SOBOL /
+// STRICT / HAS_CHECKER_FANCY / SAMPLER_B0 of P.flags, which the C entries
+// turn into the instantiation they launch; only B0_ON reads lane_b0
+template <bool SOBOL_ON, bool STRICT_ON, bool FANCY_ON, bool B0_ON>
 __global__ void __launch_bounds__(THREADS)
 pool_step_kernel(const StepParams P, const Tables T,
                  const float* __restrict__ xy,
@@ -69,6 +78,7 @@ pool_step_kernel(const StepParams P, const Tables T,
                  const float* __restrict__ fin, const int* __restrict__ iin,
                  const float* __restrict__ best_t,
                  const int* __restrict__ best_i,
+                 const uint32_t* __restrict__ lane_b0,
                  float* __restrict__ fout, int* __restrict__ iout,
                  long long R) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -84,12 +94,17 @@ pool_step_kernel(const StepParams P, const Tables T,
   L.bounce = iin[i]; L.sample = iin[R + i]; L.active = iin[2 * R + i];
   float t = 0.0f;
   int idx = 0;
+  uint32_t pix = 0u, gs = 0u;
   if (!P.init && L.active > 0) {
     t = best_t[i];
     idx = best_i[i];
+    if (B0_ON && L.bounce == 0) {
+      pix = lane_b0[i];
+      gs = lane_b0[R + i];
+    }
   }
-  pool_iteration<SOBOL_ON, STRICT_ON>(P, T, xs, ys, slot, P.kd0, P.kd1,
-                                      P.init != 0, t, idx, L);
+  pool_iteration<SOBOL_ON, STRICT_ON, FANCY_ON, B0_ON>(
+      P, T, xs, ys, slot, P.kd0, P.kd1, P.init != 0, t, idx, L, pix, gs);
   const V3 o = L.o, d = L.d, tp = L.tp, ac = L.ac;
   const float tm = L.tm;
   const int bounce = L.bounce, sample = L.sample, active = L.active;
@@ -108,7 +123,7 @@ pool_step_kernel(const StepParams P, const Tables T,
 // index.  Direction and weight mean something only
 // where the lane hit and scattered (an emissive lane keeps its incoming
 // direction and weight 0).
-template <bool STRICT_ON>
+template <bool STRICT_ON, bool FANCY_ON>
 __global__ void __launch_bounds__(THREADS)
 hit_scatter_kernel(const StepParams P, const Tables T,
                    const float* __restrict__ rays,
@@ -124,9 +139,9 @@ hit_scatter_kernel(const StepParams P, const Tables T,
   const V3 d = {rays[3 * R + i], rays[4 * R + i], rays[5 * R + i]};
   const float t = best_t[i];
   const bool hit = isfinite(t);
-  const Shade s = shade_core<STRICT_ON>(P, T, o, d, rays[6 * R + i],
-                                        hit ? t : 1.0f,
-                             best_i[i], lane_ids[i], P.kd0, P.kd1);
+  const Shade s = shade_core<STRICT_ON, FANCY_ON, false>(
+      P, T, o, d, rays[6 * R + i], hit ? t : 1.0f, best_i[i], lane_ids[i],
+      P.kd0, P.kd1, false, nullptr);
   fout[i] = s.p.x; fout[R + i] = s.p.y; fout[2 * R + i] = s.p.z;
   fout[3 * R + i] = s.n.x; fout[4 * R + i] = s.n.y; fout[5 * R + i] = s.n.z;
   fout[6 * R + i] = s.u; fout[7 * R + i] = s.v;
@@ -139,12 +154,29 @@ hit_scatter_kernel(const StepParams P, const Tables T,
   mat[i] = s.mat;
 }
 
+typedef void (*StepKernel)(const StepParams, const Tables, const float*,
+                           const uint32_t*, const float*, const int*,
+                           const float*, const int*, const uint32_t*, float*,
+                           int*, long long);
+
+// the step's instantiation for P.flags: B0 only with the Sobol' camera (the
+// queue's sobol-b0), so twelve in all
+template <bool STRICT_ON, bool FANCY_ON>
+static StepKernel step_for(bool sobol, bool b0) {
+  if (b0) return pool_step_kernel<true, STRICT_ON, FANCY_ON, true>;
+  return sobol ? pool_step_kernel<true, STRICT_ON, FANCY_ON, false>
+               : pool_step_kernel<false, STRICT_ON, FANCY_ON, false>;
+}
+
 // xy (2, R) f32, slot (R) u32, fin (13, R) f32, iin (3, R) i32, best_t (R)
 // f32, best_i (R) i32, tab (N, 40) f32, salt (N) u32, lights (L, 25) f32,
 // atlas (I, img_h, img_w) u32, img_size (I, 2) i32, perlin_id (N) i32, perm
-// (P, 3, 256) i32, ranvec (P, 256, 3) f32, params: host pointer to the
+// (P, 3, 256) i32, ranvec (P, 256, 3) f32, texrow (T, 8) f32, kids (M, 2)
+// i32, lane_b0 (2, R) u32 each lane's pixel and global sample (read with
+// SAMPLER_B0 only; may be null else), params: host pointer to the
 // StepParams words; fout/iout like fin/iin.  Returns the launch's
-// cudaError_t (0 = launched).
+// cudaError_t (0 = launched; cudaErrorInvalidValue for SAMPLER_B0 without
+// the Sobol' camera or lane_b0).
 extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
                             const float* fin, const int* iin,
                             const float* best_t, const int* best_i,
@@ -152,6 +184,8 @@ extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
                             const float* lights, const uint32_t* atlas,
                             const int* img_size, const int* perlin_id,
                             const int* perm, const float* ranvec,
+                            const float* texrow, const int* kids,
+                            const uint32_t* lane_b0,
                             const void* params, float* fout, int* iout,
                             long long R,
                             void* stream) {
@@ -159,24 +193,27 @@ extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
   StepParams P;
   memcpy(&P, params, sizeof(StepParams));
   const Tables T = {tab, salt, lights, atlas, img_size, perlin_id, perm,
-                    ranvec};
+                    ranvec, texrow, kids};
   const long long blocks = (R + THREADS - 1) / THREADS;
   const bool sobol = (P.flags & SAMPLER_SOBOL) != 0;
   const bool strict = (P.flags & STRICT) != 0;
-  const auto kernel =
-      sobol ? (strict ? pool_step_kernel<true, true>
-                      : pool_step_kernel<true, false>)
-            : (strict ? pool_step_kernel<false, true>
-                      : pool_step_kernel<false, false>);
+  const bool fancy = (P.flags & HAS_CHECKER_FANCY) != 0;
+  const bool b0 = (P.flags & SAMPLER_B0) != 0;
+  if (b0 && (!sobol || lane_b0 == nullptr)) return (int)cudaErrorInvalidValue;
+  const StepKernel kernel =
+      strict ? (fancy ? step_for<true, true>(sobol, b0)
+                      : step_for<true, false>(sobol, b0))
+             : (fancy ? step_for<false, true>(sobol, b0)
+                      : step_for<false, false>(sobol, b0));
   kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      P, T, xy, slot, fin, iin, best_t, best_i, fout, iout, R);
+      P, T, xy, slot, fin, iin, best_t, best_i, lane_b0, fout, iout, R);
   return (int)cudaGetLastError();
 }
 
 // rays (7, R) f32 rows origin, direction, time; best_t (R) f32, best_i (R)
 // i32, lane_ids (R) u32; tables and params as tr_pool_step (only the key
-// words, t_min, n_lights, flags and the atlas dims are read; the STRICT bit
-// picks the instantiation); fout (17, R)
+// words, t_min, n_lights, flags and the atlas dims are read; the STRICT and
+// HAS_CHECKER_FANCY bits pick the instantiation); fout (17, R)
 // f32, flags (3, R) bytes, mat (R) i32.  Returns the launch's cudaError_t.
 extern "C" int tr_hit_scatter(const float* rays, const float* best_t,
                               const int* best_i, const uint32_t* lane_ids,
@@ -184,6 +221,7 @@ extern "C" int tr_hit_scatter(const float* rays, const float* best_t,
                               const float* lights, const uint32_t* atlas,
                               const int* img_size, const int* perlin_id,
                               const int* perm, const float* ranvec,
+                              const float* texrow, const int* kids,
                               const void* params, float* fout,
                               unsigned char* flags, int* mat,
                               long long R, void* stream) {
@@ -191,12 +229,16 @@ extern "C" int tr_hit_scatter(const float* rays, const float* best_t,
   StepParams P;
   memcpy(&P, params, sizeof(StepParams));
   const Tables T = {tab, salt, lights, atlas, img_size, perlin_id, perm,
-                    ranvec};
+                    ranvec, texrow, kids};
   const long long blocks = (R + THREADS - 1) / THREADS;
-  const auto kernel = (P.flags & STRICT) ? hit_scatter_kernel<true>
-                                         : hit_scatter_kernel<false>;
+  const bool strict = (P.flags & STRICT) != 0;
+  const bool fancy = (P.flags & HAS_CHECKER_FANCY) != 0;
+  const auto kernel =
+      strict ? (fancy ? hit_scatter_kernel<true, true>
+                      : hit_scatter_kernel<true, false>)
+             : (fancy ? hit_scatter_kernel<false, true>
+                      : hit_scatter_kernel<false, false>);
   kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       P, T, rays, best_t, best_i, lane_ids, fout, flags, mat, R);
   return (int)cudaGetLastError();
 }
-

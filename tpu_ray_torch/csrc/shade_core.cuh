@@ -3,19 +3,24 @@
 // block, the murmur3 streams, the textures, the shade core (hit record +
 // textures + scatter of one lane) and one pool iteration of a lane (estimator
 // update, Russian roulette, path death, camera regeneration, hashed or
-// Sobol').  Two bits of ``flags`` select what the JAX package selects by
-// static arguments: SAMPLER_SOBOL the scrambled Sobol' camera sample
-// (qmc.cuh), STRICT the reference estimator (table-noise Perlin octaves, the
-// Lambertian's mixture with an unhittable light in scenes without lights,
-// the ball-radius isotropic phase).  They are template arguments of the
-// core (SOBOL_ON, STRICT_ON), and each kernel's C entry launches the
-// instantiation that the bits name: the uniform, fixed path is compiled
-// without either branch, which, compiled in and skipped, cost the step 2%
-// of its time (one H100, PERF.md).  The three
-// kernels run this one copy, statement for statement in the order of the
-// plain version tpu_ray_torch/ops/shade.py, so a lane's discrete decisions
-// are the same in all of them.  Needs IEEE arithmetic: no fast math,
-// --fmad=false.
+// Sobol').  Four bits of ``flags`` select what the JAX package selects by
+// static arguments or by its XLA path: SAMPLER_SOBOL the scrambled Sobol'
+// camera sample (qmc.cuh), STRICT the reference estimator (table-noise
+// Perlin octaves, the Lambertian's mixture with an unhittable light in
+// scenes without lights, the ball-radius isotropic phase), HAS_CHECKER_FANCY
+// checkers whose children are textures (each child evaluated by its own
+// row of the texture table, textures.texture_value), SAMPLER_B0 the work
+// queue's sobol-b0 first-bounce scatter draws (qmc.cuh sobol_bounce0).
+// They are template arguments of the core (SOBOL_ON, STRICT_ON, FANCY_ON,
+// B0_ON), and each kernel's C entry launches the instantiation that the
+// bits name: the uniform, fixed path is compiled without any of the
+// branches, which, compiled in and skipped, cost the step 2% of its time
+// (one H100, PERF.md).  The hit record (hit_record) and the texture value
+// (albedo) are device functions of their own, which the first-hit AOV
+// kernel (aov.cu) calls too.  The four kernels run this one copy,
+// statement for statement in the order of the plain version
+// tpu_ray_torch/ops/shade.py, so a lane's discrete decisions are the same
+// in all of them.  Needs IEEE arithmetic: no fast math, --fmad=false.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,9 +42,14 @@ enum {
   HAS_EMISSIVE = 1 << 6, HAS_LAMBERTIAN = 1 << 7, HAS_METAL = 1 << 8,
   HAS_DIELECTRIC = 1 << 9, HAS_ISOTROPIC = 1 << 10, HAS_IMAGE = 1 << 11,
   ANY_TRANSFORM = 1 << 12,
+  HAS_CHECKER_FANCY = 1 << 13,   // a checker with a non-constant child
   // render-wide switches (ops/shade.py::_params), not scene features
-  SAMPLER_SOBOL = 1 << 13, STRICT = 1 << 14
+  SAMPLER_SOBOL = 1 << 14, STRICT = 1 << 15, SAMPLER_B0 = 1 << 16
 };
+
+// per-texture rows (ops/shade.py::texture_table): 0 kind | 1:4 colour
+// | 4 Perlin scale | 5 image id | 6 Perlin instance | 7 hash salt (bits)
+#define TEX_COLS 8
 
 // layout mirrored by tpu_ray_torch/ops/shade.py::_params (32-bit words)
 struct StepParams {
@@ -179,6 +189,9 @@ struct Tables {
   const int* __restrict__ perlin_id;      // (N) Perlin instance per prim
   const int* __restrict__ perm;           // (P, 3, 256) strict-mode tables
   const float* __restrict__ ranvec;       // (P, 256, 3)
+  // checkers with textured children (HAS_CHECKER_FANCY) only; null else
+  const float* __restrict__ texrow;       // (T, TEX_COLS) texture rows
+  const int* __restrict__ kids;           // (M, 2) odd, even texture ids
 };
 
 // --- the reference's table-noise octave (strict mode) ----------------------
@@ -217,13 +230,11 @@ __device__ float perlin_noise_table(const Tables& T, int pid, float qx,
   return acc;
 }
 
-// 7-octave turbulence marble of prim idx: the hash-gradient octave, or with
-// TABLE the reference's table octave
+// 7-octave turbulence marble: the hash-gradient octave of stream ``salt``,
+// or with TABLE the reference's table octave of Perlin instance ``pid``
 template <bool TABLE>
-__device__ float marble(const Tables& T, int idx, float scale, float px,
-                        float py, float pz) {
-  const uint32_t salt = TABLE ? 0u : T.salt[idx];
-  const int pid = TABLE ? T.perlin_id[idx] : 0;
+__device__ float marble(const Tables& T, uint32_t salt, int pid, float scale,
+                        float px, float py, float pz) {
   float acc = 0.0f, ppx = px, ppy = py, ppz = pz, weight = 1.0f;
   for (int o = 0; o < 7; ++o) {
     const float qx = scale * ppx, qy = scale * ppy, qz = scale * ppz;
@@ -238,43 +249,64 @@ __device__ float marble(const Tables& T, int idx, float scale, float px,
   return 0.5f * (1.0f + sinf(pz + 10.0f * fabsf(acc)));
 }
 
-struct Shade {
-  V3 p, n, dir, w, emitted;
+// textures.image_value_from: clamp, v-flip, one packed-texel load
+__device__ __forceinline__ V3 image_texel(const StepParams& P, const Tables& T,
+                                          int iid, float u, float v) {
+  const float nx = (float)T.img_size[2 * iid];
+  const float ny = (float)T.img_size[2 * iid + 1];
+  const int ti = (int)floorf(jmin(jmax(u * nx, 0.0f), nx - IMG_EPS));
+  const int tj = (int)floorf(
+      jmin(jmax((1.0f - v) * ny - IMG_EPS, 0.0f), ny - IMG_EPS));
+  const uint32_t tex = T.atlas[((long long)iid * P.img_h + tj) * P.img_w + ti];
+  return {(float)(tex & 0xFFu) * INV_255, (float)((tex >> 8) & 0xFFu) * INV_255,
+          (float)((tex >> 16) & 0xFFu) * INV_255};
+}
+
+// textures._base_value: a checker's child, evaluated by its own texture row
+// as a texture that is not a checker (a checker child, which the scene
+// compiler refuses, would be its constant colour)
+template <bool STRICT_ON>
+__device__ V3 child_texture(const StepParams& P, const Tables& T, int tex,
+                            V3 p, float u, float v) {
+  const float* tr = T.texrow + (long long)tex * TEX_COLS;
+  const int kind = (int)tr[0];
+  V3 val = {tr[1], tr[2], tr[3]};
+  if ((P.flags & HAS_PERLIN) && kind == TEX_PERLIN) {
+    const float m = marble<STRICT_ON>(T, STRICT_ON ? 0u : __float_as_uint(tr[7]),
+                                      STRICT_ON ? (int)tr[6] : 0, tr[4], p.x,
+                                      p.y, p.z);
+    val = {m, m, m};
+  }
+  if ((P.flags & HAS_IMAGE) && kind == TEX_IMAGE)
+    val = image_texel(P, T, (int)tr[5], u, v);
+  return val;
+}
+
+// The hit record of a lane's sweep result (ops/intersect.py::_hit_record):
+// point, face-flipped normal, front face and texture (u, v).
+struct Hit {
+  V3 p, n;
   float u, v;
-  int mat;
-  bool front, scattered;
-  uint32_t base;
+  bool front;
 };
 
-// Hit record + textures + scatter of one lane whose sweep result is
-// (ts, idx), ts already made finite (ops/shade.py::_shade); (kd0, kd1) are
-// the scatter key's words.
-template <bool STRICT_ON>
-__device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
-                            float tm, float ts, int idx, uint32_t slot,
-                            uint32_t kd0, uint32_t kd1) {
+// ``row`` is the winner's prim row, ``ts`` its hit distance made finite.
+__device__ __forceinline__ Hit hit_record(const StepParams& P, const float* row,
+                                          V3 o, V3 d, float tm, float ts) {
   const int fl = P.flags;
-  Shade s;
+  Hit h;
   const V3 p = {o.x + ts * d.x, o.y + ts * d.y, o.z + ts * d.z};
-  s.p = p;
-  s.emitted = {0.0f, 0.0f, 0.0f};
-  s.dir = d;
-  s.w = {0.0f, 0.0f, 0.0f};
-  s.u = 0.0f;
-  s.v = 0.0f;
-  const float* row = T.tab + (long long)idx * PRIM_COLS;
+  h.p = p;
+  h.u = 0.0f;
+  h.v = 0.0f;
   const int kind = (int)row[0];
-  s.mat = (int)row[1];
-  const float t_min = P.t_min;
-
-  // ---- hit record (ops/intersect.py::_hit_record) ----
   V3 n;
   if (kind == PRIM_QUAD && (fl & HAS_QUADS)) {
     n = {row[5], row[6], row[7]};
     if (fl & HAS_IMAGE) {
       const V3 q = {p.x - row[2], p.y - row[3], p.z - row[4]};
-      s.u = q.x * row[10] + q.y * row[11] + q.z * row[12];
-      s.v = q.x * row[13] + q.y * row[14] + q.z * row[15];
+      h.u = q.x * row[10] + q.y * row[11] + q.z * row[12];
+      h.v = q.x * row[13] + q.y * row[14] + q.z * row[15];
     }
   } else if (kind == PRIM_BOX && (fl & HAS_SOLID_BOX)) {
     const float ix = 1.0f / d.x, iy = 1.0f / d.y, iz = 1.0f / d.z;
@@ -288,7 +320,7 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
     ax_n = n2 > jmax(n0, n1) ? 2 : ax_n;
     int ax_f = f1 < f0 ? 1 : 0;
     ax_f = f2 < jmin(f0, f1) ? 2 : ax_f;
-    const int axis = tn_b > t_min ? ax_n : ax_f;
+    const int axis = tn_b > P.t_min ? ax_n : ax_f;
     n = {axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
          axis == 2 ? 1.0f : 0.0f};
     if (fl & HAS_IMAGE) {
@@ -296,8 +328,8 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
       const float fx = (p.x - row[2]) / jmax(row[5] - row[2], 1e-30f);
       const float fy = (p.y - row[3]) / jmax(row[6] - row[3], 1e-30f);
       const float fz = (p.z - row[4]) / jmax(row[7] - row[4], 1e-30f);
-      s.u = axis == 0 ? fy : fx;
-      s.v = axis == 2 ? fy : fz;
+      h.u = axis == 0 ? fy : fx;
+      h.v = axis == 2 ? fy : fz;
     }
   } else {
     float cx = row[2], cy = row[3], cz = row[4];
@@ -313,8 +345,8 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
       // spherical uv of the outward normal
       const float phi = atan2f(n.z, n.x);
       const float theta = asinf(jmin(jmax(n.y, -1.0f), 1.0f));
-      s.u = 1.0f - (phi + PI_F) / TWO_PI;
-      s.v = (theta + HALF_PI_F) / PI_F;
+      h.u = 1.0f - (phi + PI_F) / TWO_PI;
+      h.v = (theta + HALF_PI_F) / PI_F;
     }
   }
   bool front = dot3(d, n) < 0.0f;
@@ -322,41 +354,88 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
   if ((fl & HAS_MEDIA) && kind >= PRIM_MEDIUM_SPHERE) {
     n = {1.0f, 0.0f, 0.0f};
     front = true;
-    s.u = 0.0f;
-    s.v = 0.0f;
+    h.u = 0.0f;
+    h.v = 0.0f;
   }
-  s.n = n;
-  s.front = front;
+  h.n = n;
+  h.front = front;
+  return h;
+}
 
-  // ---- textures (textures.texture_value_packed) ----
-  const int mkind = (int)row[16];
-  const uint32_t base = fmix(slot + kd0) ^ kd1;
-  s.base = base;
+// The texture value at a hit of prim ``idx`` (row ``row``):
+// textures.texture_value_packed from the row's material columns, or with
+// FANCY_ON a checker's children by their texture rows (texture_value).
+template <bool STRICT_ON, bool FANCY_ON>
+__device__ __forceinline__ V3 albedo(const StepParams& P, const Tables& T,
+                                     const float* row, int idx, V3 p, float u,
+                                     float v) {
+  const int fl = P.flags;
   V3 att = {row[20], row[21], row[22]};
   const int tex_kind = (int)row[19];
   if ((fl & HAS_CHECKER) && tex_kind == TEX_CHECKER) {
     const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y) *
                         sinf(10.0f * p.z);
-    att = sines < 0.0f ? V3{row[23], row[24], row[25]}
-                       : V3{row[26], row[27], row[28]};
+    if (FANCY_ON) {
+      const int* kid = T.kids + 2 * (int)row[1];
+      att = child_texture<STRICT_ON>(P, T, sines < 0.0f ? kid[0] : kid[1], p,
+                                     u, v);
+    } else {
+      att = sines < 0.0f ? V3{row[23], row[24], row[25]}
+                         : V3{row[26], row[27], row[28]};
+    }
   }
   if ((fl & HAS_PERLIN) && tex_kind == TEX_PERLIN) {
-    const float m = marble<STRICT_ON>(T, idx, row[29], p.x, p.y, p.z);
+    const float m = marble<STRICT_ON>(T, STRICT_ON ? 0u : T.salt[idx],
+                                      STRICT_ON ? T.perlin_id[idx] : 0,
+                                      row[29], p.x, p.y, p.z);
     att = {m, m, m};
   }
-  if ((fl & HAS_IMAGE) && tex_kind == TEX_IMAGE) {
-    // textures.image_value_from: clamp, v-flip, one packed-texel load
-    const int iid = (int)row[39];
-    const float nx = (float)T.img_size[2 * iid];
-    const float ny = (float)T.img_size[2 * iid + 1];
-    const int ti = (int)floorf(jmin(jmax(s.u * nx, 0.0f), nx - IMG_EPS));
-    const int tj = (int)floorf(
-        jmin(jmax((1.0f - s.v) * ny - IMG_EPS, 0.0f), ny - IMG_EPS));
-    const uint32_t tex =
-        T.atlas[((long long)iid * P.img_h + tj) * P.img_w + ti];
-    att = {(float)(tex & 0xFFu) * INV_255, (float)((tex >> 8) & 0xFFu) * INV_255,
-           (float)((tex >> 16) & 0xFFu) * INV_255};
-  }
+  if ((fl & HAS_IMAGE) && tex_kind == TEX_IMAGE)
+    att = image_texel(P, T, (int)row[39], u, v);
+  return att;
+}
+
+struct Shade {
+  V3 p, n, dir, w, emitted;
+  float u, v;
+  int mat;
+  bool front, scattered;
+  uint32_t base;
+};
+
+// Hit record + textures + scatter of one lane whose sweep result is
+// (ts, idx), ts already made finite (ops/shade.py::_shade); (kd0, kd1) are
+// the scatter key's words.  With B0_ON, a lane whose ``first`` is set (its
+// first bounce) takes scatter columns 2, 3 (the light's uv) and 6, 7 (the
+// cosine lobe's) from b0u[0..3] instead of the hashed draws: the queue's
+// sobol-b0 first bounce.  Without B0_ON neither argument is read.
+template <bool STRICT_ON, bool FANCY_ON, bool B0_ON>
+__device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
+                            float tm, float ts, int idx, uint32_t slot,
+                            uint32_t kd0, uint32_t kd1, bool first,
+                            const float* b0u) {
+  const int fl = P.flags;
+  Shade s;
+  s.emitted = {0.0f, 0.0f, 0.0f};
+  s.dir = d;
+  s.w = {0.0f, 0.0f, 0.0f};
+  const float* row = T.tab + (long long)idx * PRIM_COLS;
+  s.mat = (int)row[1];
+  const float t_min = P.t_min;
+
+  const Hit h = hit_record(P, row, o, d, tm, ts);
+  const V3 p = h.p, n = h.n;
+  const bool front = h.front;
+  s.p = p;
+  s.n = n;
+  s.u = h.u;
+  s.v = h.v;
+  s.front = front;
+
+  const int mkind = (int)row[16];
+  const uint32_t base = fmix(slot + kd0) ^ kd1;
+  s.base = base;
+  const V3 att = albedo<STRICT_ON, FANCY_ON>(P, T, row, idx, p, h.u, h.v);
   const V3 unit_d = normalize3(d);
   if ((fl & HAS_EMISSIVE) && mkind == MAT_DIFFUSE_LIGHT && !front)
     s.emitted = att;
@@ -365,15 +444,17 @@ __device__ Shade shade_core(const StepParams& P, const Tables& T, V3 o, V3 d,
   V3 dir = d, w = {0.0f, 0.0f, 0.0f};
   const float* lights = T.lights;
   if (mkind == MAT_LAMBERTIAN && (fl & HAS_LAMBERTIAN)) {
+    const bool b0 = B0_ON && first;
     const V3 cos_dir = onb_apply(n, cosine_direction_from(
-        hash_col(base, 6), hash_col(base, 7)));
+        b0 ? b0u[2] : hash_col(base, 6), b0 ? b0u[3] : hash_col(base, 7)));
     const int L = P.n_lights;
     if (L > 0) {
       const int pick = min((int)(hash_col(base, 1) * (float)L), L - 1);
       const float* lr = lights + pick * 25;
       V3 light_dir;
       if (lr[13] > 0.5f) {
-        const float u2 = hash_col(base, 2), u3 = hash_col(base, 3);
+        const float u2 = b0 ? b0u[0] : hash_col(base, 2);
+        const float u3 = b0 ? b0u[1] : hash_col(base, 3);
         light_dir = {lr[0] + u2 * lr[3] + u3 * lr[6] - p.x,
                      lr[1] + u2 * lr[4] + u3 * lr[7] - p.y,
                      lr[2] + u2 * lr[5] + u3 * lr[8] - p.z};
@@ -482,11 +563,14 @@ struct Lane {
 // One pool iteration of a lane: shade its sweep result (t, idx), update the
 // estimator (integrator.trace_pool body), and regenerate the camera sample
 // where the path died (rng.hash_uniforms2 + camera.rays_from_uniforms).
-// ``init`` runs the regeneration alone, for every lane.
-template <bool SOBOL_ON, bool STRICT_ON>
+// ``init`` runs the regeneration alone, for every lane.  With B0_ON a lane
+// at bounce 0 takes its light and cosine scatter draws from Sobol' dims
+// 7-10 of (b0_pix, b0_gs) under P.cam_salt (the queue's sobol-b0).
+template <bool SOBOL_ON, bool STRICT_ON, bool FANCY_ON, bool B0_ON>
 __device__ __forceinline__ void pool_iteration(
     const StepParams& P, const Tables& T, float xs, float ys, uint32_t slot,
-    uint32_t kd0, uint32_t kd1, bool init, float t, int idx, Lane& L) {
+    uint32_t kd0, uint32_t kd1, bool init, float t, int idx, Lane& L,
+    uint32_t b0_pix, uint32_t b0_gs) {
   V3 o = L.o, d = L.d, tp = L.tp, ac = L.ac;
   float tm = L.tm;
   int bounce = L.bounce, sample = L.sample;
@@ -506,8 +590,11 @@ __device__ __forceinline__ void pool_iteration(
     V3 p = o, emitted = {0.0f, 0.0f, 0.0f}, dir = d, w = {0.0f, 0.0f, 0.0f};
     uint32_t base = 0;
     if (hit) {
-      const Shade s = shade_core<STRICT_ON>(P, T, o, d, tm, t, idx, slot, kd0,
-                                            kd1);
+      float q[4];
+      const bool first = B0_ON && bounce == 0;
+      if (first) sobol_bounce0(b0_pix, b0_gs, P.cam_salt, q);
+      const Shade s = shade_core<STRICT_ON, FANCY_ON, B0_ON>(
+          P, T, o, d, tm, t, idx, slot, kd0, kd1, first, q);
       p = s.p;
       emitted = s.emitted;
       dir = s.dir;

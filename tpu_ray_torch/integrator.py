@@ -32,7 +32,8 @@ unfused hit-record + scatter kernel (:mod:`tpu_ray_torch.ops.hit_scatter`).
 Kept as the semantic reference of the estimator.
 
 **Work queue** (:func:`trace_queue`, port of ``integrator.trace_queue``
-with fused shading): one persistent pool of lanes draws (pixel, sample)
+with fused shading, and with the XLA queue's ``sobol-b0`` first-bounce
+scatter draws in the step): one persistent pool of lanes draws (pixel, sample)
 work items off a global frontier; the moment a path dies its lane takes
 the next item, so the pool stays full until the frontier is spent and the
 render pays one survival tail.  Path draws are keyed by (work item,
@@ -295,12 +296,18 @@ class QueueState:
     frontier: torch.Tensor  # () int64 next unissued work item
     plane: torch.Tensor     # (3, pad + 1) float32; the last column takes
     #                         the writes of lanes that did not die
+    lane: torch.Tensor | None = None  # sobol-b0 only: (2, m) int32 the
+    #                         work item's pixel and global sample (uint32
+    #                         bits), set at inject for the step's
+    #                         first-bounce draws; None for other samplers
 
 
-def _queue_init(R: int, total: int, dev, pad: int | None = None
-                ) -> QueueState:
+def _queue_init(R: int, total: int, dev, pad: int | None = None,
+                b0: bool = False) -> QueueState:
     """Fresh lanes and a zero plane of ``pad`` columns (default ``total``)
-    plus the sentinel column; columns past ``total`` are never written."""
+    plus the sentinel column; columns past ``total`` are never written.
+    ``b0`` (the step configuration's) gives the lanes their (pixel, global
+    sample) record."""
     pad = total if pad is None else pad
     f = torch.zeros((N_FSTATE, R), dtype=torch.float32, device=dev)
     f[3:6] = 1.0
@@ -310,7 +317,9 @@ def _queue_init(R: int, total: int, dev, pad: int | None = None
         istate=torch.zeros((N_ISTATE, R), dtype=torch.int32, device=dev),
         work=torch.full((R,), pad, dtype=torch.int64, device=dev),
         frontier=torch.zeros((), dtype=torch.int64, device=dev),
-        plane=torch.zeros((3, pad + 1), dtype=torch.float32, device=dev))
+        plane=torch.zeros((3, pad + 1), dtype=torch.float32, device=dev),
+        lane=(torch.zeros((2, R), dtype=torch.int32, device=dev) if b0
+              else None))
 
 
 def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -325,7 +334,10 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     """One queue iteration: trace + fused step + flush dead + inject fresh.
 
     ``cfg`` is a step configuration with ``n_samples = 0`` (the step
-    kernel then never regenerates; the queue injects work itself).
+    kernel then never regenerates; the queue injects work itself); with
+    ``cfg.b0`` (sampler ``"sobol-b0"``) the step also reads each lane's
+    (pixel, global sample), which the inject records in ``st.lane``
+    (made by ``_queue_init(..., b0=True)``); other samplers keep no record.
     ``worklist`` ((Wl,) int64 packed entries, Wl >= ``total``) replaces the
     uniform work map: item w renders pixel ``worklist[w] >> WL_SAMP_BITS``
     at absolute sample ``worklist[w] & WL_SAMP_MASK``; path ids stay keyed
@@ -336,7 +348,8 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     bt, bi = kern.intersect(scene, st.fstate[:7], k_isect, sid)
     zeros2 = torch.zeros((2, m), dtype=torch.float32, device=dev)
     was_active = st.istate[2] > 0
-    f, i = pool_step(cfg, zeros2, sid, st.fstate, st.istate, bt, bi, k_scat)
+    f, i = pool_step(cfg, zeros2, sid, st.fstate, st.istate, bt, bi, k_scat,
+                     lane_b0=st.lane)
 
     # flush: each work item dies exactly once, so its radiance is written
     died = was_active & (i[2] == 0)
@@ -380,8 +393,12 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     i[0] = torch.where(valid, 0, i[0])
     i[2] = (~free | valid).to(torch.int32)
     frontier = torch.clamp(st.frontier + free.sum(), max=total)
+    lane = st.lane
+    if cfg.b0:
+        lane = torch.where(valid, torch.stack([_to_i32_bits(pix),
+                                               _to_i32_bits(gsample)]), lane)
     return QueueState(f, i, torch.where(valid, w_new, st.work), frontier,
-                      st.plane)
+                      st.plane, lane)
 
 
 def queue_compact(st: QueueState, m: int) -> QueueState:
@@ -391,7 +408,9 @@ def queue_compact(st: QueueState, m: int) -> QueueState:
                           stable=True)[:m]
     return QueueState(st.fstate[:, order].contiguous(),
                       st.istate[:, order].contiguous(), st.work[order],
-                      st.frontier, st.plane)
+                      st.frontier, st.plane,
+                      None if st.lane is None
+                      else st.lane[:, order].contiguous())
 
 
 def trace_queue(scene: SceneData, camera, width: int, height: int,
@@ -444,13 +463,15 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
         return (z, z.clone()) if worklist is not None else z
     if kern is None:
         kern = SceneKernels.create(scene)
-    # n_samples = 0: the step kernel never regenerates a camera ray
+    # n_samples = 0: the step kernel never regenerates a camera ray; the
+    # camera salt keys the sobol-b0 step's first-bounce draws
     cfg = StepConfig.create(scene, camera, width, height, max_depth,
-                            rr_depth=rr_depth, n_samples=0)
+                            rr_depth=rr_depth, n_samples=0,
+                            cam_salt=cam_salt, queue=True)
     key = np.asarray(key, np.uint32)
     k_isect, k_scat = rng.fold_in(key, 0), rng.fold_in(key, 1)
     work_base = (int(chunk_s0) & rng.M32) * P
-    st = _queue_init(R, total, dev, pad)
+    st = _queue_init(R, total, dev, pad, cfg.b0)
     epoch_iters = max(1, int(epoch_iters))
     max_epochs = 21 + (total // max(R, 1) + chunk_spp * cfg.max_depth
                        + 2 * cfg.max_depth) // epoch_iters * 4

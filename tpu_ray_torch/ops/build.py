@@ -27,7 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-SOURCES = ("sweep", "sweep_compact", "sweep_mxu", "pool_step", "megakernel")
+SOURCES = ("sweep", "sweep_compact", "sweep_mxu", "pool_step", "megakernel",
+           "aov")
 
 _lock = threading.Lock()
 _libs: dict = {}

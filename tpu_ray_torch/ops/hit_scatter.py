@@ -29,7 +29,7 @@ import torch
 
 from ..core.rng import M32
 from .build import load_fn
-from .shade import StepConfig, _params, _shade, table_ptrs
+from .shade import StepConfig, _params, _shade, table_ptrs, texture_ptrs
 
 # roofline numerators per lane: 40 B read (7 ray rows, best_t, best_i, lane
 # id) + 75 B written (17 float rows, 3 flag bytes, the material index);
@@ -104,14 +104,15 @@ def hit_scatter(cfg: StepConfig, rays, best_t, best_i, kd, lane_ids):
         return hit_scatter_plain(cfg, rays, best_t, best_i, kd, lane_ids)
     _check(cfg, rays, best_t, best_i, lane_ids)
     fn = load_fn("pool_step", "tr_hit_scatter",
-                 [ctypes.c_void_p] * 16 + [ctypes.c_longlong, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 18 + [ctypes.c_longlong, ctypes.c_void_p])
     R = rays.shape[1]
     f = torch.empty((N_FOUT, R), dtype=torch.float32, device=rays.device)
     flags = torch.empty((3, R), dtype=torch.bool, device=rays.device)
     mat = torch.empty((R,), dtype=torch.int32, device=rays.device)
     params = _params(cfg, kd, False)
     err = fn(rays.data_ptr(), best_t.data_ptr(), best_i.data_ptr(),
-             lane_ids.data_ptr(), *table_ptrs(cfg), params.ctypes.data,
+             lane_ids.data_ptr(), *table_ptrs(cfg), *texture_ptrs(cfg),
+             params.ctypes.data,
              f.data_ptr(), flags.data_ptr(), mat.data_ptr(), R,
              torch.cuda.current_stream(rays.device).cuda_stream)
     if err != 0:

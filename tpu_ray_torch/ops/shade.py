@@ -3,10 +3,15 @@
 ``csrc/pool_step.cu`` replaces the TPU kernel ``tpu_ray/ops/shade_pallas.py::
 _step_kernel`` (with ``_shade_core``): one whole pool iteration per lane -
 hit-record rebuild from the sweep's (best_t, best_i), constant / checker /
-hash-Perlin / image textures, scatter for the five materials with 50/50 light /
+hash-Perlin / image textures (a checker's textured children by their
+texture rows, ``textures.texture_value``, where the scene has such a
+checker), scatter for the five materials with 50/50 light /
 cosine MIS, optional Russian roulette, estimator accumulation, path death
 and camera regeneration, hashed or from the scrambled Sobol' point of
-``core/qmc.py`` (``Camera.sampler``).  With ``scene.strict`` it shades the
+``core/qmc.py`` (``Camera.sampler``).  On the work queue with the
+``sobol-b0`` sampler a lane's first-bounce light and cosine draws come from
+Sobol' dims 7-10 of its (pixel, global sample) (``StepConfig.b0``; the
+JAX XLA queue's override).  With ``scene.strict`` it shades the
 strict reference estimator, which the JAX package computes in XLA outside
 its kernels (``ops/scatter.py``, ``ops/textures.py``): the reference's
 table-noise Perlin octaves, the Lambertian's mixture with an unhittable
@@ -93,14 +98,22 @@ PRIM_COLS = 40
 FLAG_BITS = ("has_moving", "has_quads", "has_solid_box", "has_media",
              "has_checker", "has_perlin", "has_emissive", "has_lambertian",
              "has_metal", "has_dielectric", "has_isotropic", "has_image",
-             "any_transform")
+             "any_transform", "checker_fancy")
 # the render-wide bits above them (csrc/shade_core.cuh)
-SAMPLER_SOBOL_BIT = 1 << 13
-STRICT_BIT = 1 << 14
-# camera samplers: "sobol-b0" keeps the Sobol' camera dims with hashed
-# scatter draws wherever the fused step runs, which in this port is
-# everywhere (the JAX package's first-bounce override is XLA-only)
+SAMPLER_SOBOL_BIT = 1 << 14
+STRICT_BIT = 1 << 15
+SAMPLER_B0_BIT = 1 << 16
+# camera samplers: "sobol-b0" is "sobol" plus, on the work queue only (as
+# in the JAX package), the first bounce's light and cosine scatter draws
+# from Sobol' dims 7-10 of (pixel, global sample); the pool and the
+# megakernel keep the hashed scatter draws
 SAMPLERS = ("uniform", "sobol", "sobol-b0")
+# the scatter columns the sobol-b0 first bounce takes from dims 7-10: the
+# light's (u, v) and the cosine lobe's (the coin, column 0, stays hashed)
+B0_COLS = (2, 3, 6, 7)
+# per-texture rows (csrc/shade_core.cuh TEX_COLS): 0 kind | 1:4 colour
+# | 4 Perlin scale | 5 image id | 6 Perlin instance | 7 hash salt (bits)
+TEX_COLS = 8
 
 
 def build_tables(scene: SceneData):
@@ -153,6 +166,27 @@ def build_tables(scene: SceneData):
     return geo, salt.astype(np.uint32), lights
 
 
+def texture_table(scene: SceneData):
+    """(texrow (T, 8) f32, kids (M, 2) int32) as numpy: every texture's own
+    row and each material's checker children (odd, even texture ids), which
+    the shade core reads for a checker whose children are not constant."""
+    t = lambda a: a.cpu().numpy()
+    tx = scene.texs
+    pid = t(tx.perlin_id).astype(np.int64)
+    rows = np.zeros((t(tx.kind).shape[0], TEX_COLS), np.float32)
+    rows[:, 0] = t(tx.kind)
+    rows[:, 1:4] = t(tx.color)
+    rows[:, 4] = t(tx.scale)
+    rows[:, 5] = t(tx.image_id)
+    rows[:, 6] = pid
+    salts = t(tx.perlin_salt).astype(np.uint32)
+    rows[:, 7] = salts[np.clip(pid, 0, max(salts.shape[0] - 1, 0))].view(
+        np.float32) if salts.size else 0.0
+    mt = t(scene.mats.tex).astype(np.int64)
+    kids = np.stack([t(tx.odd)[mt], t(tx.even)[mt]], axis=1).astype(np.int32)
+    return rows, np.ascontiguousarray(kids)
+
+
 def perlin_ids(scene: SceneData) -> np.ndarray:
     """(N,) int32 Perlin instance of each prim's material texture: the row
     of the strict mode's noise tables (``textures.marble_from``'s pid)."""
@@ -177,6 +211,8 @@ class StepConfig:
     perlin_id: torch.Tensor   # (N,) int32 Perlin instance per prim
     perm: torch.Tensor        # (P, 3, 256) int32 strict-mode noise tables
     ranvec: torch.Tensor      # (P, 256, 3) float32
+    texrow: torch.Tensor      # (T, 8) float32 texture rows (texture_table)
+    kids: torch.Tensor        # (M, 2) int32 checker children per material
     t_min: float
     background: np.ndarray    # (3,) float32
     cam: np.ndarray           # (21,) float32 (Camera.vec)
@@ -189,17 +225,22 @@ class StepConfig:
     cam_salt: int
     sobol: bool               # Sobol' camera sample (Camera.sampler)
     strict: bool              # the strict reference estimator
+    b0: bool = False          # sobol-b0 first-bounce draws (the queue)
 
     @classmethod
     def create(cls, scene: SceneData, camera, width: int, height: int,
                max_depth: int, rr_depth: int = 0, n_samples: int = 1,
-               sample0: int = 0, cam_salt: int = 0) -> "StepConfig":
+               sample0: int = 0, cam_salt: int = 0,
+               queue: bool = False) -> "StepConfig":
         """The step's configuration for ``scene`` seen through ``camera``:
         the sampler comes from ``camera.sampler``, the estimator from
-        ``scene.strict``."""
+        ``scene.strict``.  ``queue``: the step runs on the work queue,
+        where ``"sobol-b0"`` also takes each lane's first-bounce scatter
+        draws from its (pixel, global sample) under ``cam_salt``."""
         if camera.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {camera.sampler!r}")
         geo, salt, lights = build_tables(scene)
+        texrow, kids = texture_table(scene)
         dev = scene.device
         texs = scene.texs
         return cls(
@@ -214,13 +255,16 @@ class StepConfig:
             perlin_id=torch.from_numpy(perlin_ids(scene)).to(dev),
             perm=texs.perlin_perm.to(torch.int32).contiguous(),
             ranvec=texs.perlin_ranvec.to(torch.float32).contiguous(),
+            texrow=torch.from_numpy(texrow).to(dev),
+            kids=torch.from_numpy(kids).to(dev),
             t_min=float(f32(scene.t_min)),
             background=scene.background.cpu().numpy().astype(np.float32),
             cam=camera.vec(), inv_w=float(f32(1.0 / width)),
             inv_h=float(f32(1.0 / height)), max_depth=int(max_depth),
             rr_depth=int(rr_depth), n_samples=int(n_samples),
             sample0=int(sample0) & M32, cam_salt=int(cam_salt) & M32,
-            sobol=camera.sampler != "uniform", strict=bool(scene.strict))
+            sobol=camera.sampler != "uniform", strict=bool(scene.strict),
+            b0=bool(queue) and camera.sampler == "sobol-b0")
 
 
 # --- plain helpers on component triples (megakernel.py:112-240) -------------
@@ -402,11 +446,11 @@ def image_value(cfg: StepConfig, iid, u, v):
     return tuple(((w >> sh) & 0xFF).to(torch.float32) * s for sh in (0, 8, 16))
 
 
-def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
-    """Record rebuild + textures + scatter for every lane
-    (``shade_pallas._shade_core``, with the image fetch done in place as
-    ``ops/intersect.py::_hit_record`` + ``textures.image_value_from`` do it,
-    not deferred)."""
+def hit_record_plain(cfg: StepConfig, o, d, tm, t, idx) -> dict:
+    """The hit record of every lane's sweep result (``ops/intersect.py::
+    _hit_record``; ``csrc/shade_core.cuh::hit_record``): ``rows`` the
+    winner's (R, 40) prim rows, ``hit``, ``point``, the face-flipped
+    ``normal``, ``front`` and the texture ``u``, ``v``."""
     fl = cfg.flags
     t_min = cfg.t_min
     zero = torch.zeros_like(t)
@@ -477,18 +521,55 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
         if fl["has_image"]:
             uu = torch.where(is_med, 0.0, uu)
             vv = torch.where(is_med, 0.0, vv)
+    return dict(rows=rows, hit=hit, point=(px, py, pz), normal=n_vec,
+                front=front, u=uu, v=vv)
 
-    mkind = pull(16).to(torch.int32)
-    base = fmix((as_u32(slot) + kd[0]) & M32) ^ kd[1]
-    u = lambda i: hash_col(base, i)
 
+def _child_texture(cfg: StepConfig, tex, p, uu, vv):
+    """``textures._base_value`` of each lane's texture id ``tex``: a
+    checker's child, evaluated as a texture that is not a checker
+    (``csrc/shade_core.cuh::child_texture``)."""
+    tr = cfg.texrow[tex.to(torch.int64)]               # (R, 8)
+    kind = tr[:, 0].to(torch.int32)
+    val = (tr[:, 1], tr[:, 2], tr[:, 3])
+    px, py, pz = p
+    if cfg.flags["has_perlin"]:
+        pid = tr[:, 6].to(torch.int32)
+        if cfg.strict:
+            octave = lambda qx, qy, qz: _perlin_noise_table(cfg, pid, qx, qy,
+                                                            qz)
+        else:
+            psalt = as_u32(tr[:, 7].contiguous().view(torch.int32))
+            octave = lambda qx, qy, qz: _perlin_noise(psalt, qx, qy, qz)
+        m = _marble(octave, tr[:, 4], px, py, pz)
+        val = _where3(kind == TEX_PERLIN, (m, m, m), val)
+    if cfg.flags["has_image"]:
+        val = _where3(kind == TEX_IMAGE,
+                      image_value(cfg, tr[:, 5].to(torch.int32), uu, vv), val)
+    return val
+
+
+def albedo_plain(cfg: StepConfig, rows, idx, p, uu, vv):
+    """The texture value at each lane's hit (``textures.
+    texture_value_packed`` from the prim rows' material columns, or where
+    the scene has a checker with textured children, that checker's
+    children by their texture rows as ``textures.texture_value`` does;
+    ``csrc/shade_core.cuh::albedo``)."""
+    fl = cfg.flags
+    pull = lambda c: rows[:, c]
+    px, py, pz = p
     att = (pull(20), pull(21), pull(22))
     tex_kind = pull(19).to(torch.int32)
     if fl["has_checker"]:
         sines = (torch.sin(10.0 * px) * torch.sin(10.0 * py)
                  * torch.sin(10.0 * pz))
-        checker = _where3(sines < 0.0, (pull(23), pull(24), pull(25)),
-                          (pull(26), pull(27), pull(28)))
+        if fl["checker_fancy"]:
+            kid = cfg.kids[pull(1).to(torch.int64)]
+            checker = _child_texture(cfg, torch.where(sines < 0.0, kid[:, 0],
+                                                      kid[:, 1]), p, uu, vv)
+        else:
+            checker = _where3(sines < 0.0, (pull(23), pull(24), pull(25)),
+                              (pull(26), pull(27), pull(28)))
         att = _where3(tex_kind == TEX_CHECKER, checker, att)
     if fl["has_perlin"]:
         if cfg.strict:
@@ -503,6 +584,34 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
     if fl["has_image"]:
         att = _where3(tex_kind == TEX_IMAGE,
                       image_value(cfg, pull(39).to(torch.int32), uu, vv), att)
+    return att
+
+
+def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd, b0=None):
+    """Record rebuild + textures + scatter for every lane
+    (``shade_pallas._shade_core``, with the image fetch done in place as
+    ``ops/intersect.py::_hit_record`` + ``textures.image_value_from`` do it,
+    not deferred).  ``b0``: (the four Sobol' draws of dims 7-10, the lanes
+    at their first bounce) of the queue's sobol-b0, which replace scatter
+    columns ``B0_COLS`` on those lanes."""
+    fl = cfg.flags
+    t_min = cfg.t_min
+    zero = torch.zeros_like(t)
+    h = hit_record_plain(cfg, o, d, tm, t, idx)
+    rows, hit, front, n_vec = h["rows"], h["hit"], h["front"], h["normal"]
+    pull = lambda c: rows[:, c]
+    px, py, pz = h["point"]
+
+    mkind = pull(16).to(torch.int32)
+    base = fmix((as_u32(slot) + kd[0]) & M32) ^ kd[1]
+
+    def u(i):
+        if b0 is not None and i in B0_COLS:
+            q, first = b0
+            return torch.where(first, q[B0_COLS.index(i)], hash_col(base, i))
+        return hash_col(base, i)
+
+    att = albedo_plain(cfg, rows, idx, h["point"], h["u"], h["v"])
 
     unit_d = _normalize(d)
     if fl["has_emissive"]:
@@ -623,15 +732,18 @@ def _shade(cfg: StepConfig, o, d, tm, t, idx, slot, kd):
     scattered = (mkind != MAT_DIFFUSE_LIGHT if fl["has_emissive"]
                  else torch.ones_like(hit))
     return dict(hit=hit, point=(px, py, pz), normal=n_vec, front=front,
-                u=uu, v=vv, mat=pull(1).to(torch.int32), direction=direction,
+                u=h["u"], v=h["v"], mat=pull(1).to(torch.int32),
+                direction=direction,
                 weight=weight, emitted=emitted, scattered=scattered,
                 base=base)
 
 
 def pool_step_plain(cfg: StepConfig, xy, slot, fstate, istate, best_t,
-                    best_i, kd, init: bool = False):
-    """One pool iteration in plain PyTorch; returns new (fstate, istate)."""
-    _check(cfg, xy, slot, fstate, istate, best_t, best_i)
+                    best_i, kd, init: bool = False, lane_b0=None):
+    """One pool iteration in plain PyTorch; returns new (fstate, istate).
+    ``lane_b0``: with ``cfg.b0``, each lane's (pixel, global sample) as a
+    (2, R) int32 tensor of uint32 bits."""
+    _check(cfg, xy, slot, fstate, istate, best_t, best_i, lane_b0)
     pool_step_plain.calls += 1
     kd = (int(kd[0]) & M32, int(kd[1]) & M32)
     xs, ys = xy[0], xy[1]
@@ -645,7 +757,12 @@ def pool_step_plain(cfg: StepConfig, xy, slot, fstate, istate, best_t,
         act = torch.zeros_like(active, dtype=torch.bool)
         dead_now = torch.ones_like(act)
     else:
-        s = _shade(cfg, o, d, tm, best_t, best_i, slot, kd)
+        b0 = None
+        if cfg.b0:
+            q = qmc.bounce0_uniforms(as_u32(lane_b0[0]), as_u32(lane_b0[1]),
+                                     cfg.cam_salt)[1:5]
+            b0 = (q, bounce == 0)
+        s = _shade(cfg, o, d, tm, best_t, best_i, slot, kd, b0)
         act = active > 0
         hit, scattered = s["hit"], s["scattered"]
         miss = act & ~hit
@@ -718,12 +835,17 @@ def camera_uniforms(sobol: bool, slot, gs, salt: int) -> tuple:
     return tuple(hash_col(base, i) for i in range(5))
 
 
-def _check(cfg, xy, slot, fstate, istate, best_t, best_i):
+def _check(cfg, xy, slot, fstate, istate, best_t, best_i, lane_b0=None):
     R = fstate.shape[1]
     want = ((xy, (2, R), torch.float32), (slot, (R,), torch.int32),
             (fstate, (N_FSTATE, R), torch.float32),
             (istate, (N_ISTATE, R), torch.int32),
             (best_t, (R,), torch.float32), (best_i, (R,), torch.int32))
+    if cfg.b0:
+        if lane_b0 is None:
+            raise ValueError("pool step: the sobol-b0 queue step needs each "
+                             "lane's (pixel, global sample)")
+        want += ((lane_b0, (2, R), torch.int32),)
     for x, shape, dtype in want:
         if tuple(x.shape) != shape or x.dtype != dtype:
             raise ValueError(f"pool step: expected {shape} {dtype}, got "
@@ -748,7 +870,7 @@ def _params(cfg: StepConfig, kd, init: bool) -> np.ndarray:
                       cfg.cam_salt)
     flags = sum(1 << i for i, n in enumerate(FLAG_BITS) if cfg.flags[n])
     flags |= (SAMPLER_SOBOL_BIT if cfg.sobol else 0) | \
-        (STRICT_BIT if cfg.strict else 0)
+        (STRICT_BIT if cfg.strict else 0) | (SAMPLER_B0_BIT if cfg.b0 else 0)
     w[k + 7:k + 13] = np.array([cfg.n_samples, cfg.max_depth, cfg.rr_depth,
                                 cfg.n_lights, flags, int(init)],
                                np.int64) & M32
@@ -764,23 +886,32 @@ def table_ptrs(cfg: StepConfig):
             cfg.ranvec.data_ptr())
 
 
+def texture_ptrs(cfg: StepConfig):
+    """Device pointers of the texture rows and the checker children (read
+    by the kernels only for a checker with textured children)."""
+    return cfg.texrow.data_ptr(), cfg.kids.data_ptr()
+
+
 def pool_step(cfg: StepConfig, xy, slot, fstate, istate, best_t, best_i,
-              kd, init: bool = False):
+              kd, init: bool = False, lane_b0=None):
     """One fused pool iteration: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Returns new (fstate, istate)."""
+    plain version for CPU tensors.  Returns new (fstate, istate).
+    ``lane_b0`` as :func:`pool_step_plain`'s."""
     if not fstate.is_cuda:
         return pool_step_plain(cfg, xy, slot, fstate, istate, best_t, best_i,
-                               kd, init)
-    _check(cfg, xy, slot, fstate, istate, best_t, best_i)
+                               kd, init, lane_b0)
+    _check(cfg, xy, slot, fstate, istate, best_t, best_i, lane_b0)
     fn = load_fn("pool_step", "tr_pool_step",
-                 [ctypes.c_void_p] * 17 + [ctypes.c_longlong, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 20 + [ctypes.c_longlong, ctypes.c_void_p])
     R = fstate.shape[1]
     f_out = torch.empty_like(fstate)
     i_out = torch.empty_like(istate)
     params = _params(cfg, kd, init)
     err = fn(xy.data_ptr(), slot.data_ptr(), fstate.data_ptr(),
              istate.data_ptr(), best_t.data_ptr(), best_i.data_ptr(),
-             *table_ptrs(cfg), params.ctypes.data, f_out.data_ptr(),
+             *table_ptrs(cfg), *texture_ptrs(cfg),
+             lane_b0.data_ptr() if cfg.b0 else None,
+             params.ctypes.data, f_out.data_ptr(),
              i_out.data_ptr(), R,
              torch.cuda.current_stream(fstate.device).cuda_stream)
     if err != 0:

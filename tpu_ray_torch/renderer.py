@@ -22,7 +22,9 @@ hands ``adaptive=TOL`` to :func:`tpu_ray_torch.adaptive.render_adaptive`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a CUDA device they raise.  Inputs outside this port's scope raise
-``NotImplementedError``; nothing falls back to another path.
+``NotImplementedError``; nothing falls back to another path but
+``engine="mega"`` on a scene the megakernel does not cover, which renders
+on the wavefront pool and says so, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -76,16 +78,6 @@ def pick_samples_per_wave(width: int, height: int, spp: int,
         spp, max(1, rays_per_wave // max(width * height, 1)))
 
 
-def check_supported(scene: SceneData) -> None:
-    """Raise ``NotImplementedError`` for scenes outside this port."""
-    if scene.checker_fancy:
-        raise NotImplementedError("checker textures with non-constant "
-                                  "children are not ported yet")
-    if scene.image_on_emissive:
-        raise NotImplementedError("an image texture on an emissive material "
-                                  "is outside the fused shading kernels")
-
-
 ENGINES = ("auto", "xla", "mxu", "pallas", "mega")
 
 
@@ -107,8 +99,9 @@ def resolve_engine(scene: SceneData, engine: str = "auto") -> str:
         if mega_supported(scene):
             return "mega"
         print("tpu_ray_torch: engine=mega does not cover this scene (image "
-              "textures, strict mode or more than 512 prims); rendering on "
-              "the wavefront path", file=sys.stderr)
+              "textures, checkers with textured children, strict mode or "
+              "more than 512 prims); rendering on the wavefront path",
+              file=sys.stderr)
         return "xla"
     return "xla" if engine == "auto" else engine
 
@@ -310,16 +303,14 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
             max_depth=max_depth, seed=seed, rays_per_wave=rays_per_wave,
             engine=engine, rr_depth=rr_depth, progress=progress,
             device=device)
-    check_supported(scene)
     engine = resolve_engine(scene, engine)
     mode = resolve_mode(scene, mode, engine)
-    if camera.sampler == "sobol-b0":
-        # the JAX package's first-bounce override runs on its XLA work queue
-        # only; this port's queue always runs the fused step, so every mode
-        # keeps the Sobol' camera dims with hashed scatter draws, and says so
-        where = f"mode={mode}" if mode != "queue" else "the fused queue kernel"
+    if camera.sampler == "sobol-b0" and mode != "queue":
+        # the first-bounce override runs on the work queue only, as in the
+        # JAX package; the pool and the megakernel keep the Sobol' camera
+        # dims with hashed scatter draws, and say so
         print("tpu_ray_torch: sampler=sobol-b0's bounce-dim override only "
-              f"runs on the XLA work-queue path; {where} keeps the sobol "
+              f"runs on the XLA work-queue path; mode={mode} keeps the sobol "
               "camera dims with hashed scatter draws", file=sys.stderr)
     dev = resolve_device(device)
     scene = scene.to(dev)

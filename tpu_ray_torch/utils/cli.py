@@ -4,8 +4,9 @@ The flags of the JAX CLI that this port covers (``--scene``, ``--width``,
 ``--height``, ``--spp``, ``--max-depth``, ``--seed``, ``--out``,
 ``--earthmap``, ``--rays-per-wave``, ``--samples-per-wave``,
 ``--list-scenes``, ``--rr-depth``, ``--mode``, ``--engine``,
-``--estimator``, ``--sampler``, ``--adaptive``) with the same defaults and
-choices, plus
+``--estimator``, ``--sampler``, ``--adaptive``, ``--aov``, ``--denoise``,
+``--denoise-radius``) with the same defaults, choices, checks and file
+names, plus
 ``--device``: the card by default, ``cpu`` for the plain PyTorch versions.
 The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or as
 a P3 PPM to stdout; progress and "Done." go to stderr.
@@ -48,9 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("uniform", "sobol", "sobol-b0"),
                    help="camera sample generator: 'uniform' is the "
                         "reference's per-sample jitter; 'sobol' a scrambled "
-                        "Sobol' point per (pixel, sample); 'sobol-b0' the "
-                        "same here (its first-bounce override is the JAX "
-                        "package's XLA queue only); pool and queue modes")
+                        "Sobol' point per (pixel, sample); 'sobol-b0' "
+                        "extends it to the first bounce's light and cosine "
+                        "scatter draws on the work queue (the pool and the "
+                        "megakernel keep hashed scatter draws and say so); "
+                        "pool and queue modes")
     p.add_argument("--rr-depth", type=int, default=0, metavar="N",
                    help="Russian-roulette path termination after N bounces "
                         "(0 = off)")
@@ -72,6 +75,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "one whole-wave megakernel launch per pool wave "
                         "(scenes of at most 512 prims without image "
                         "textures); mxu is not ported")
+    p.add_argument("--aov", default=None, metavar="LIST",
+                   help="render first-hit feature buffers instead of the "
+                        "beauty pass: comma list from albedo,normal,depth,"
+                        "coverage, or 'all' (tpu_ray_torch/aov.py).  Each "
+                        "buffer is written to <out stem>.<name>.png; with "
+                        "--out *.pfm, raw float buffers (signed normals, "
+                        "+inf depth misses) instead.  Requires --out.  Use "
+                        "a small --spp (e.g. 16)")
+    p.add_argument("--denoise", action="store_true",
+                   help="cross-bilateral denoise of the beauty pass guided "
+                        "by the first-hit AOVs (tpu_ray_torch/denoise.py; "
+                        "biased like every practical denoiser, so never the "
+                        "default).  Renders the albedo/normal/depth guides "
+                        "at <=16 spp on top of the beauty pass")
+    p.add_argument("--denoise-radius", type=int, default=3, metavar="R",
+                   help="denoiser window radius (window is (2R+1)^2)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain "
                         "PyTorch versions")
@@ -109,6 +128,10 @@ def main(argv=None) -> int:
     camera = spec.camera(args.width, args.height)
     if args.sampler != "uniform":
         camera = camera.replace(sampler=args.sampler)
+    # the AOV passes' engine argument, as the JAX CLI coerces it
+    aov_engine = args.engine if args.engine in ("xla", "pallas") else "xla"
+    if args.aov:
+        return _write_aovs(args, scene, camera, aov_engine)
     t_start = time.perf_counter()
     img = render(scene, camera, args.width, args.height, args.spp,
                  max_depth=args.max_depth, seed=args.seed,
@@ -117,9 +140,77 @@ def main(argv=None) -> int:
                  rr_depth=args.rr_depth, device=args.device, progress=True,
                  mode=args.mode, engine=args.engine, adaptive=args.adaptive)
     elapsed = time.perf_counter() - t_start
+    if args.denoise:
+        from ..aov import render_aovs
+        from ..denoise import denoise
+
+        aovs = render_aovs(scene, camera, args.width, args.height,
+                           spp=min(args.spp, 16), seed=args.seed,
+                           engine=aov_engine, device=args.device)
+        img = denoise(img, aovs["albedo"], aovs["normal"], aovs["depth"],
+                      radius=args.denoise_radius,
+                      device=args.device).cpu().numpy()
+        print("denoised (cross-bilateral, AOV-guided, "
+              f"r={args.denoise_radius})", file=sys.stderr)
     film.write_image(img, None if args.out == "-" else args.out)
     if args.time:
         print(f"render wall time: {elapsed:.3f}s", file=sys.stderr)
+    print("Done.", file=sys.stderr)
+    return 0
+
+
+def _write_aovs(args, scene, camera, engine) -> int:
+    """``--aov``: render the first-hit buffers and write one file per
+    buffer (``tpu_ray/utils/cli.py``'s checks, messages and names)."""
+    import numpy as np
+
+    from ..aov import AOV_NAMES, aov_images, render_aovs
+    from ..core import film
+
+    names = AOV_NAMES if args.aov == "all" else tuple(
+        n.strip() for n in args.aov.split(",") if n.strip())
+    bad = [n for n in names if n not in AOV_NAMES]
+    if bad:
+        print(f"unknown AOV(s) {bad}; choose from {list(AOV_NAMES)}",
+              file=sys.stderr)
+        return 2
+    if args.out == "-":
+        print("--aov writes one PNG per buffer; pass --out PATH",
+              file=sys.stderr)
+        return 2
+    ignored = [flag for flag, on in (("--adaptive", args.adaptive),
+                                     ("--mode", args.mode != "auto"),
+                                     ("--rr-depth", args.rr_depth)) if on]
+    if ignored:
+        print(f"[aov] ignoring {', '.join(ignored)}: AOV passes are "
+              "single-device first-hit sweeps (band-tiled under the "
+              "beauty pass's lane caps)", file=sys.stderr)
+    t_start = time.perf_counter()
+    aovs = render_aovs(scene, camera, args.width, args.height, spp=args.spp,
+                       seed=args.seed, engine=engine, device=args.device)
+    stem = args.out
+    if stem.lower().endswith(".pfm"):
+        # raw float buffers: albedo linear, normal signed, depth with +inf
+        # misses, coverage a fraction
+        stem = stem[:-4]
+        for n in names:
+            a = np.asarray(aovs[n], np.float32)
+            if a.ndim == 2:
+                a = np.repeat(a[..., None], 3, axis=-1)
+            film.write_pfm(a, f"{stem}.{n}.pfm")
+            print(f"wrote {stem}.{n}.pfm", file=sys.stderr)
+    else:
+        imgs = aov_images(aovs)
+        for suffix in (".png", ".ppm", ".hdr"):
+            if stem.lower().endswith(suffix):
+                stem = stem[: -len(suffix)]
+        for n in names:
+            rgb8 = (np.clip(imgs[n], 0.0, 1.0) * 255.999).astype(np.uint8)
+            film.write_png(rgb8, f"{stem}.{n}.png")
+            print(f"wrote {stem}.{n}.png", file=sys.stderr)
+    if args.time:
+        print(f"aov wall time: {time.perf_counter() - t_start:.3f}s",
+              file=sys.stderr)
     print("Done.", file=sys.stderr)
     return 0
 
