@@ -2,11 +2,14 @@
 
 Drives ``tpu_ray_torch``'s paths (the pool renderer with the wavefront
 kernels and with the whole-wave megakernel, the work-queue renderer, the
-plain wavefront, and the first-hit AOV pass with the denoiser) through its
-nine CUDA kernels at full width, and fails unless every phase passes:
+plain wavefront, BVH traversal, checkpoint / resume, the CLI's
+``--supervise`` and ``--progressive``, the render server, and the
+first-hit AOV pass with the denoiser) through its ten CUDA kernels at full
+width, and fails unless every phase passes:
 
-1. the card: its name, and ``nvidia-smi``'s name and power limit;
-2. build the six sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
+1. the card: its name, and ``nvidia-smi``'s name and power limit; the auto
+   checkpoints are cleared, so none shortens a timed render;
+2. build the seven sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build seconds, the register use and the count of
    tensor-core (HMMA) instructions in the matrix-product sweep's SASS;
 3. ``torch.sqrt`` on the card correctly rounded (``core.vec.sqrt_rn`` takes
@@ -57,7 +60,14 @@ nine CUDA kernels at full width, and fails unless every phase passes:
    ``hit_scatter`` on the textured-checker scene (checkers with textured
    children) and the step on the emissive-image scene (an image dome
    light); the first-hit AOV kernel on 1M camera lanes of cornell and of
-   the textured-checker scene, with its bound (68 B a lane);
+   the textured-checker scene, with its bound (68 B a lane); the BVH
+   traversal kernel on cornell's 1M camera rays and bounce-1 rays,
+   book1-final's 960k bounce-1 rays and next-week-final's 1M bounce-1 rays
+   (its fog in the tree): bit-equal to its plain twin, against the
+   brute-force sweep plus media (hits equal, prims equal but on equal-t
+   ties, t within rtol 1e-5), with the node visits and leaf pairs per ray
+   its twin counts, its graph-replayed time beside the dense sweep's on the
+   same rays, and its bound from those counts;
 4. the eight non-strict golden configs rendered on the card (the image
    scenes with the cyan stand-in they were made with), held to the
    cross-engine criterion against ``tests/goldens/<name>.npy``, and an
@@ -106,6 +116,22 @@ nine CUDA kernels at full width, and fails unless every phase passes:
    500x500 64 spp on the pool; ``render_aovs`` of cornell 500x500 at 16
    spp and ``denoise`` of the 64-spp pool render on the card, then the
    CLI's ``--aov all`` and ``--denoise`` at that size, each with its wall;
+   ``bvh=True``: cornell 500x500 64 spp and book1-final 600x400 16 spp on
+   the pool, next-week-final 400x400 16 spp on the queue, each against the
+   brute-force render of the same call (cross-engine criterion; bit-equal
+   or not is printed) with no sweep launch; checkpoint / resume, each
+   resumed image bit-equal to the uninterrupted one: cornell 500x500 64 spp
+   in 8 waves on the pool and with ``engine="mega"`` (a crash injected by
+   ``TPU_RAY_CRASH_AFTER_WAVE=5``, resumed at wave 4) and next-week-final
+   400x400 16 spp in 4 queue chunks (an ``on_partial`` that raises after
+   chunk 2); the CLI at cornell 500x500 64 spp in 8 waves: ``--supervise
+   2`` in a subprocess with a crash before wave 3, its stdout the clean
+   run's PPM byte for byte and "retry 1/2" on its stderr, ``--progressive``
+   to stdout (the same bytes) and to a PNG rewritten whole after every
+   wave; ``serve()`` in this process (ping, warm, two identical cornell
+   500x500 64 spp renders, one with ``bvh``, one with ``denoise``, stats,
+   quit), each image bit-equal to the direct render, with the first and
+   second renders' walls;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -127,7 +153,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device")
 
-from tpu_ray_torch import adaptive, aov  # noqa: E402
+from tpu_ray_torch import adaptive, aov, renderer  # noqa: E402
 from tpu_ray_torch.core import rng, vec  # noqa: E402
 from tpu_ray_torch.core.film import to_rgb8  # noqa: E402
 from tpu_ray_torch.denoise import denoise  # noqa: E402
@@ -138,8 +164,8 @@ from tpu_ray_torch.models import objects as ob  # noqa: E402
 from tpu_ray_torch.models.compile import build_scene  # noqa: E402
 from tpu_ray_torch.models.scenes import SCENES  # noqa: E402
 from tpu_ray_torch.utils import cli  # noqa: E402
-from tpu_ray_torch.ops import (build, hit_scatter, megakernel, shade,  # noqa: E402
-                               sweep)
+from tpu_ray_torch.ops import (build, bvh, hit_scatter, megakernel,  # noqa: E402
+                               shade, sweep)
 from tpu_ray_torch.ops.intersect import intersect_ti  # noqa: E402
 from tpu_ray_torch.renderer import (pick_samples_per_wave, pixel_grid,  # noqa: E402
                                     plan_pool, render, resolve_mode,
@@ -149,8 +175,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, fp32 outside tensor cores
 TF32_FLOPS_PER_S = 495e12       # H100 SXM data sheet, dense TF32 tensor cores
 SEED = 1024
-GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "tests", "goldens")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
 GOLDENS = {   # tests/test_golden.py CONFIGS: (spp, depth, width, height)
     "two-spheres": (16, 8, 32, 24),
     "cornell": (32, 12, 32, 24),
@@ -421,6 +447,74 @@ def check_sweep(name, width, height, spp, iters, parts=()):
         else:
             out["parts"][R] = got
     return out
+
+
+def check_bvh(name, width, height, spp, iters):
+    """The BVH kernel on one full-width pool's rays after ``iters``
+    iterations (0: camera rays), held three ways: bit-equal to its plain
+    twin on every lane; against the brute-force sweep plus media
+    (``intersect_ti``: the dense sweep kernel), ``hit`` equal on every
+    lane, ``prim`` equal on every hit lane but equal-t ties (the visit
+    order is not the index order), t within rtol 1e-5; and timed by graph
+    replay beside the dense sweep on the same rays.
+
+    Its bound counts the work this run's rays need, which the twin counts:
+    ~25 fp32 operations a node visit plus each leaf pair's math (21 a
+    static sphere, 27 moving, 24 box, 31 quad, ~40 a medium) over 67
+    TFLOP/s, against 36 B a ray (7 floats in, t and id out; 4 B more for
+    the lane id that keys the media draws) over 3.35 TB/s; the larger of
+    the two."""
+    scene, _, kern, st, ki, _ = pool_after(name, width, height, spp, iters)
+    rays, lanes = st.fstate[:7], st.slot
+    R = rays.shape[1]
+    tables = bvh.BVHTables.create(scene, None, kern.geo, kern.media)
+    got = bvh.intersect_bvh(scene, tables, rays, ki, lanes)
+    stats = {}
+    plain = bvh.intersect_bvh_plain(scene, tables, rays, ki, lanes, stats)
+    twin_equal = (torch.equal(got[0], plain[0])
+                  and torch.equal(got[1], plain[1]))
+    ft, fi = intersect_ti(scene, rays, ki, lanes, kern.geo, kern.media)
+    (bt, bi) = got
+    hit_b, hit_f = torch.isfinite(bt), torch.isfinite(ft)
+    hit_mismatch = int((hit_b != hit_f).sum())
+    both = hit_b & hit_f
+    err = (bt[both] - ft[both]).abs()
+    max_abs = float(err.max()) if int(both.sum()) else 0.0
+    bad_t = int((err > 1e-5 * ft[both].abs()).sum())
+    idx_diff = both & (bi != fi)
+    ties = int((idx_diff & (bt == ft)).sum())
+    bad_i = int(idx_diff.sum()) - ties
+    what = f"{name} iters={iters} R={R}"
+    ranges = sweep._ranges(scene)
+    ms = kernel_ms(lambda: bvh.intersect_bvh(scene, tables, rays, ki, lanes))
+    sweep_ms = kernel_ms(lambda: sweep.sweep(rays, kern.geo, ranges,
+                                             scene.t_min))
+    plain_ms = cuda_ms(lambda: bvh.intersect_bvh_plain(scene, tables, rays,
+                                                       ki, lanes), 1)
+    # bound: the work these rays need, as the twin counted it - 25 flops a
+    # node visit, each leaf pair's flops (bvh.traversal_flops) - over 67
+    # TFLOP/s, against 36 B a ray (+4 B lane id with media) over 3.35 TB/s
+    nbytes = R * (36 + (4 if scene.has_media else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = bvh.traversal_flops(stats) / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    per_ray = {k: v / R for k, v in stats.items() if k != "rays"}
+    log(f"bvh {what}: bit-equal to its twin {twin_equal}; against the "
+        f"brute-force sweep + media: hits {int(hit_b.sum())}, hit "
+        f"mismatches {hit_mismatch}, t max abs err {max_abs:.3e}, t out of "
+        f"rtol 1e-5 {bad_t}, prim mismatches {bad_i} (+{ties} exact ties); "
+        f"per ray {json.dumps({k: round(v, 3) for k, v in per_ray.items()})}"
+        f"; kernel {ms:.4f} ms, dense sweep {sweep_ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not twin_equal:
+        raise AssertionError(f"bvh kernel differs from its twin on {what}")
+    if hit_mismatch or bad_t or bad_i:
+        raise AssertionError(f"bvh disagrees with the brute-force sweep on "
+                             f"{what}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=0.0, sweep_ms=sweep_ms,
+                max_abs_err_vs_sweep=max_abs, per_ray=per_ray)
 
 
 STEP_TOL = {   # tests/test_shade_pallas.py:68-86
@@ -1204,7 +1298,7 @@ def check_card_vs_cpu(what, scene, cam, w, h, **kw):
     cross_engine(a, b, f"{what} card vs cpu")
 
 
-COUNTERS = {"aov": aov.aov_features,
+COUNTERS = {"aov": aov.aov_features, "bvh": bvh.intersect_bvh,
             "sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
             "list_pass": sweep.list_pass,
             "pool_step": shade.pool_step,
@@ -1212,7 +1306,7 @@ COUNTERS = {"aov": aov.aov_features,
             "megakernel": megakernel.trace_pool_mega,
             "sweep_masked": sweep.sweep_masked,
             "sweep_sphere_mxu": sweep.sweep_sphere_mxu}
-PLAIN = {"aov": aov.aov_features_plain,
+PLAIN = {"aov": aov.aov_features_plain, "bvh": bvh.intersect_bvh_plain,
          "sweep": sweep.sweep_plain,
          "tile_lists": sweep.tile_lists_plain,
          "needed_mask": sweep.needed_mask_plain,
@@ -1462,6 +1556,274 @@ def uniform_wall(name, width, height, budget, out, **kw):
         f"same budget {out['uniform_wall_s']:.3f} s")
 
 
+# --- around the render: BVH renders, checkpoint / resume, the CLI's
+# --supervise and --progressive, the render server -------------------------
+
+# (scene, width, height, spp) of the full-width bvh renders, depth 50
+BVH_FULL = (("cornell", 500, 500, 64), ("book1-final", 600, 400, 16),
+            ("next-week-final", 400, 400, 16))
+BVH_ABSENT = ("sweep", "sweep_compact", "sweep_masked", "sweep_sphere_mxu",
+              "megakernel")
+
+
+def bvh_full():
+    """Each ``BVH_FULL`` render with ``bvh=True`` beside the brute-force
+    render of the same call: the cross-engine criterion, whether they are
+    bit-equal, and no sweep launch in the bvh render (cornell and
+    book1-final on the pool, next-week-final on the queue)."""
+    out, counts = {}, {}
+    for name, w, h, spp in BVH_FULL:
+        img_f, wall_f, _ = full_width(name, w, h, spp)
+        reset_counts()
+        img_b, wall_b, _ = full_width(name, w, h, spp, bvh=True)
+        counts[f"bvh_{name}"] = read_counts(f"bvh {name}", ("bvh",
+                                                            "pool_step"),
+                                            BVH_ABSENT)
+        cross_engine(img_f, img_b, f"{name} bvh vs brute force")
+        same = bool(np.array_equal(img_f, img_b))
+        log(f"  {name}: bvh {wall_b:.3f} s, brute force {wall_f:.3f} s; "
+            f"images bit-equal {same}")
+        out[name] = dict(bvh_s=wall_b, brute_s=wall_f, bit_equal=same)
+    return out, counts
+
+
+class Stop(Exception):
+    """Raised by an ``on_partial`` to interrupt a render."""
+
+
+def interrupted(what, fn, expect):
+    """``fn()`` must raise ``expect`` (the interruption under test)."""
+    try:
+        fn()
+    except expect as e:
+        log(f"  {what}: the first call raised {type(e).__name__}: {e}")
+        return
+    raise AssertionError(f"{what}: the first call was not interrupted")
+
+
+def resumed(what, message, fn):
+    """``fn()`` with stderr captured: it must say ``message``."""
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        img = fn()
+    if message not in err.getvalue():
+        raise AssertionError(f"{what}: no {message!r} on stderr")
+    log(f"  {what}: the second call said {message!r}")
+    return img
+
+
+def checkpoint_full(d):
+    """Checkpoint / resume at full width, each resumed render bit-equal to
+    the uninterrupted render of the same call: the pool and the megakernel
+    (cornell 500x500 64 spp, ``samples_per_wave=2``: 8 waves, a checkpoint
+    every 2, a crash injected before wave 5, resumed at wave 4) and the
+    queue (next-week-final 400x400 16 spp in 4 chunks, ``QUEUE_PLANE_BYTES``
+    lowered; an ``on_partial`` that raises after chunk 2, which the
+    checkpoint saved before it was called)."""
+    out, counts = {}, {}
+    for engine in ("auto", "mega"):
+        what = f"checkpoint pool engine={engine}"
+        kw = dict(samples_per_wave=2, engine=engine)
+        full, _, _ = full_width("cornell", 500, 500, 64, **kw)
+        ck = os.path.join(d, f"pool-{engine}.npz")
+        reset_counts()
+        interrupted(what, lambda: with_env(
+            {"TPU_RAY_CRASH_AFTER_WAVE": "5"},
+            lambda: full_width("cornell", 500, 500, 64, checkpoint_path=ck,
+                               checkpoint_every=2, **kw)), RuntimeError)
+        img = resumed(what, "resuming at wave 4", lambda: full_width(
+            "cornell", 500, 500, 64, checkpoint_path=ck, progress=True,
+            **kw)[0])
+        counts[f"checkpoint_{'mega' if engine == 'mega' else 'pool'}"] = \
+            read_counts(what, ("megakernel",) if engine == "mega"
+                        else ("sweep", "pool_step"))
+        out[engine] = same = bool(np.array_equal(img, full))
+        log(f"  {what}: resumed image bit-equal to the uninterrupted one "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{what}: the resumed render differs")
+    what = "checkpoint queue"
+    old = renderer.QUEUE_PLANE_BYTES
+    renderer.QUEUE_PLANE_BYTES = 400 * 400 * 12 * 4   # 4 samples a chunk
+    try:
+        full, _, _ = full_width("next-week-final", 400, 400, 16,
+                                mode="queue")
+        ck = os.path.join(d, "queue.npz")
+        seen = []
+
+        def stop(img, rows_final):
+            seen.append(rows_final)
+            if len(seen) == 2:
+                raise Stop("on_partial after chunk 2")
+
+        reset_counts()
+        interrupted(what, lambda: full_width(
+            "next-week-final", 400, 400, 16, mode="queue", checkpoint_path=ck,
+            checkpoint_every=1, on_partial=stop), Stop)
+        img = resumed(what, "resuming at chunk 2", lambda: full_width(
+            "next-week-final", 400, 400, 16, mode="queue", checkpoint_path=ck,
+            progress=True)[0])
+        counts["checkpoint_queue"] = read_counts(what, ("sweep", "pool_step"))
+    finally:
+        renderer.QUEUE_PLANE_BYTES = old
+    out["queue"] = same = bool(np.array_equal(img, full))
+    log(f"  {what}: resumed image bit-equal to the uninterrupted one {same}")
+    if not same:
+        raise AssertionError(f"{what}: the resumed render differs")
+    return out, counts
+
+
+def png_pixels(path):
+    """(H, W, 3) uint8 of a PNG written by ``film.png_bytes`` (one IDAT of
+    filter-0 rows): a torn or partial file fails to decode."""
+    import zlib
+
+    data = open(path, "rb").read()
+    w, h = (int.from_bytes(data[16 + 4 * k:20 + 4 * k], "big")
+            for k in range(2))
+    i = data.index(b"IDAT")
+    n = int.from_bytes(data[i - 4:i], "big")
+    raw = np.frombuffer(zlib.decompress(data[i + 4:i + 4 + n]), np.uint8)
+    return raw.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+
+
+def cli_stdout(argv):
+    """``cli.main(argv)`` in this process; returns (exit code, stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def cli_full(d):
+    """The CLI on the card, cornell 500x500 64 spp ``--samples-per-wave 2``
+    (8 waves): a clean run's PPM; ``--supervise 2`` in a subprocess with a
+    checkpoint every wave and a crash injected before wave 3, whose stdout
+    must be the clean PPM byte for byte and whose stderr must show the
+    retry and the resume; ``--progressive`` to stdout (the same bytes) and
+    to a PNG, which must decode whole after every rewrite and end as the
+    clean image."""
+    from tpu_ray_torch.core import film
+
+    base = ["--scene", "cornell", "--width", "500", "--height", "500",
+            "--spp", "64", "--samples-per-wave", "2"]
+    out, counts = {}, {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, clean = cli_stdout(base)
+    out["clean_s"] = time.perf_counter() - t0
+    counts["cli"] = read_counts("cli", ("sweep", "pool_step"))
+    if rc != 0 or clean.split()[:4] != ["P3", "500", "500", "255"]:
+        raise AssertionError("the clean CLI run wrote no PPM")
+    pixels = np.array(clean.split()[4:], np.uint8).reshape(500, 500, 3)
+    env = dict(os.environ, TPU_RAY_CRASH_AFTER_WAVE="3")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_ray_torch"] + base
+        + ["--checkpoint", os.path.join(d, "sup.npz"), "--checkpoint-every",
+           "1", "--supervise", "2"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    out["supervise_s"] = time.perf_counter() - t0
+    same = r.stdout == clean
+    log(f"  --supervise 2: exit {r.returncode}, {out['supervise_s']:.1f} s; "
+        f"stdout byte-identical to the clean run {same}; stderr has "
+        f"'retry 1/2' {'retry 1/2' in r.stderr}, 'resuming at wave 3' "
+        f"{'resuming at wave 3' in r.stderr}")
+    if r.returncode != 0 or not same or "[supervise] retry 1/2" not in \
+            r.stderr or "resuming at wave 3" not in r.stderr:
+        raise AssertionError("--supervise did not recover the crashed "
+                             f"render: {r.stderr[-2000:]}")
+    rc, prog = cli_stdout(base + ["--progressive"])
+    log(f"  --progressive --out -: byte-identical to the plain PPM "
+        f"{prog == clean}")
+    if rc != 0 or prog != clean:
+        raise AssertionError("--progressive --out - differs from the PPM")
+    path = os.path.join(d, "p.png")
+    orig, seen = film.ProgressiveOutput.update, []
+
+    def spy(po, img, rows_final):
+        orig(po, img, rows_final)
+        seen.append(png_pixels(po.path))
+
+    film.ProgressiveOutput.update = spy
+    try:
+        rc = cli.main(base + ["--progressive", "--out", path])
+    finally:
+        film.ProgressiveOutput.update = orig
+    whole = all(s.shape == (500, 500, 3) for s in seen)
+    final = bool(np.array_equal(png_pixels(path), pixels))
+    log(f"  --progressive --out p.png: {len(seen)} rewrites (7 waves and "
+        f"the finish), each whole {whole}; the last equals the PPM {final}")
+    if rc != 0 or len(seen) != 8 or not whole or not final:
+        raise AssertionError("--progressive --out p.png was not rewritten "
+                             "whole after every wave")
+    return out, counts
+
+
+def read_pfm(path):
+    raw = open(path, "rb").read()
+    _, dims, _, body = raw.split(b"\n", 3)
+    w, h = (int(v) for v in dims.split())
+    return np.frombuffer(body, "<f4").reshape(h, w, 3)[::-1]
+
+
+def serve_full(d):
+    """``serve()`` in this process on the card: ping, warm, two identical
+    cornell 500x500 64 spp renders, one with ``bvh``, one with
+    ``denoise``, stats and quit.  Each image (.pfm, the linear floats) must
+    be bit-equal to a direct ``render()`` of the same request (with the
+    denoise: ``render_aovs`` at 16 spp and ``denoise`` r=3)."""
+    import io
+
+    from tpu_ray_torch.utils.server import serve
+
+    w, h, spp = 500, 500, 64
+    req = {"scene": "cornell", "width": w, "height": h, "spp": spp}
+    outs = {k: os.path.join(d, f"{k}.pfm") for k in ("a", "b", "bvh", "den")}
+    reqs = [{"cmd": "ping", "id": "ping"}, dict(req, cmd="warm", id="warm"),
+            dict(req, out=outs["a"], id="a"), dict(req, out=outs["b"], id="b"),
+            dict(req, out=outs["bvh"], bvh=True, id="bvh"),
+            dict(req, out=outs["den"], denoise=True, id="den"),
+            {"cmd": "stats", "id": "stats"}, {"cmd": "quit", "id": "quit"}]
+    sink = io.StringIO()
+    reset_counts()
+    rc = serve(io.StringIO("\n".join(json.dumps(r) for r in reqs) + "\n"),
+               sink)
+    counts = {"serve": read_counts("serve", ("sweep", "pool_step", "bvh",
+                                             "aov"))}
+    lines = [json.loads(ln) for ln in sink.getvalue().splitlines()]
+    by_id = {ln.get("id"): ln for ln in lines[1:]}
+    if rc != 0 or lines[0] != {"ok": True, "ready": True} or not all(
+            by_id.get(r["id"], {}).get("ok") for r in reqs):
+        raise AssertionError(f"serve: a request failed: {lines}")
+    scene, cam = scene_and_camera("cornell", w, h)
+    img = render(scene, cam, w, h, spp)
+    img_bvh = render(scene, cam, w, h, spp, bvh=True)
+    aovs = aov.render_aovs(scene, cam, w, h, spp=16, seed=SEED)
+    den = denoise(img, aovs["albedo"], aovs["normal"], aovs["depth"],
+                  radius=3).cpu().numpy()
+    equal = {k: bool(np.array_equal(read_pfm(outs[k]), want))
+             for k, want in (("a", img), ("b", img), ("bvh", img_bvh),
+                             ("den", den))}
+    out = dict(first_s=by_id["a"]["wall_s"], second_s=by_id["b"]["wall_s"],
+               warm_s=by_id["warm"]["wall_s"], bvh_s=by_id["bvh"]["wall_s"],
+               denoise_s=by_id["den"]["wall_s"], bit_equal=equal,
+               kernels_loaded=by_id["stats"]["kernels"]["loaded"])
+    log(f"  serve: warm {out['warm_s']} s, first render {out['first_s']} s, "
+        f"second {out['second_s']} s, bvh {out['bvh_s']} s, denoise "
+        f"{out['denoise_s']} s; bit-equal to direct renders {equal}; "
+        f"stats kernels {out['kernels_loaded']}")
+    if not all(equal.values()):
+        raise AssertionError("serve: an image differs from the direct render")
+    return out, counts
+
+
 def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1470,6 +1832,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"phase 1: device {kind}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
+    # no stale auto checkpoint may shorten a timed render
+    renderer.clear_auto_checkpoints()
 
     t0 = time.perf_counter()
     secs = build.build_all()
@@ -1535,6 +1899,11 @@ def main() -> int:
                for name, w, h, spp in MEGA_FULL}
     sm_nw = check_sweep_masked("next-week-final", 1000, 1000, 1, 1)
     mx_book1 = check_sweep_mxu("book1-final", 600, 400, 16, 1)
+    bv = {"cornell camera": check_bvh("cornell", 500, 500, 64, 0),
+          "cornell bounce 1": check_bvh("cornell", 500, 500, 64, 1),
+          "book1-final bounce 1": check_bvh("book1-final", 600, 400, 16, 1),
+          "next-week-final bounce 1": check_bvh("next-week-final", 1000,
+                                                1000, 1, 1)}
 
     log("phase 4: goldens on the card; image, textured-checker, "
         "emissive-image scenes and AOVs card vs cpu")
@@ -1731,6 +2100,13 @@ def main() -> int:
     log("adaptive: " + json.dumps(dict(pool=ad_pool, mega=ad_mega,
                                        queue=ad_queue,
                                        mega_vs_pool_count_diff=n_diff)))
+    import tempfile
+
+    bvh_out, n_bvh = bvh_full()
+    with tempfile.TemporaryDirectory() as d:
+        ck_out, n_ck = checkpoint_full(d)
+        cli_out, n_cli = cli_full(d)
+        serve_out, n_serve = serve_full(d)
     paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
              "wave": n_wave, "mega_pool": n_mega, "masked_queue": n_masked,
              "mxu_pool": n_mxu, "sobol_pool": n_sobol_pool,
@@ -1741,7 +2117,8 @@ def main() -> int:
              "adaptive_mega": n_adaptive_mega,
              "adaptive_queue": n_adaptive_queue,
              "sobol_b0_queue": b0.pop("counts"),
-             "checker_tex_pool": n_tex, **n_aov}
+             "checker_tex_pool": n_tex, **n_aov, **n_bvh, **n_ck, **n_cli,
+             **n_serve}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -1812,6 +2189,14 @@ def main() -> int:
              launches=launches["sweep_sphere_mxu"],
              launches_by_path=by_path["sweep_sphere_mxu"], library_ms=None,
              **mx_book1),
+        dict(name="bvh", route="cuda", source="tpu_ray_torch/csrc/bvh.cu",
+             replaces="tpu_ray/ops/bvh.py:270 (intersect_scene_bvh, an XLA "
+                      "lax.while_loop: no TPU kernel; port-only)",
+             launches=launches["bvh"], launches_by_path=by_path["bvh"],
+             library_ms=None,
+             variants={k: v for k, v in bv.items()
+                       if k != "next-week-final bounce 1"},
+             **bv["next-week-final bounce 1"]),
         dict(name="aov", route="cuda", source="tpu_ray_torch/csrc/aov.cu",
              replaces="tpu_ray/aov.py:60 (_aov_step's hit record and "
                       "texture_value, XLA: no TPU kernel; port-only)",
@@ -1820,6 +2205,10 @@ def main() -> int:
     ]
     log(f"sobol-b0 queue: {json.dumps(b0)}")
     log(f"aov and denoise: {json.dumps(aov_out)}")
+    log(f"bvh renders: {json.dumps(bvh_out)}")
+    log(f"checkpoint resumes bit-equal: {json.dumps(ck_out)}")
+    log(f"cli: {json.dumps(cli_out)}")
+    log(f"serve: {json.dumps(serve_out)}")
     log(f"megakernel, one wave, 2 samples/slot depth 8: cornell-smoke "
         f"{json.dumps(mg_smoke)}; two-perlin-spheres "
         f"{json.dumps(mg_perlin)}; book1-final {json.dumps(mg_book1)}")

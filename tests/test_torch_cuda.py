@@ -760,3 +760,87 @@ def test_denoise_on_the_card_matches_the_cpu(card):
     b = denoise(img, alb, nrm, depth, radius=2)
     assert b.is_cuda
     torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["cornell-smoke", "next-week-final",
+                                  "mixed"])
+def test_bvh_kernel_bit_equal_to_plain(card, name):
+    """The traversal kernel against its twin on the card, every lane: both
+    run the sweeps' pair math and media.cuh's free flight, and the twin's
+    lockstep loop visits the nodes in the kernel's order.  Against the
+    brute-force sweep: the same hits, prims but on equal-t ties."""
+    from tpu_ray_torch.ops import bvh
+
+    ps = (_mixed_scene() if name == "mixed"
+          else SCENES[name].build(seed=1024, earth=None)).to(card)
+    r = np.random.default_rng(12)
+    n = 1 << 16
+    # origins over the scene: the mixed scene's +-20 box, the library
+    # scenes' ~555-unit rooms
+    c, half = (0.0, 40.0) if name == "mixed" else (278.0, 300.0)
+    rays = pack_rays(*(torch.from_numpy(a).to(card) for a in (
+        (c + r.uniform(-half, half, (n, 3))).astype(np.float32),
+        r.normal(size=(n, 3)).astype(np.float32),
+        r.random(n).astype(np.float32))))
+    lanes = torch.arange(n, dtype=torch.int32, device=card)
+    kd = (0x1234, 0x9876)
+    tables = bvh.BVHTables.create(ps)
+    launches = bvh.intersect_bvh.launches
+    t, i = bvh.intersect_bvh(ps, tables, rays, kd, lanes)
+    assert bvh.intersect_bvh.launches == launches + 1
+    tp, ip = bvh.intersect_bvh_plain(ps, tables, rays, kd, lanes)
+    assert torch.equal(t, tp) and torch.equal(i, ip)
+    ft, fi = intersect_ti(ps, rays, kd, lanes)
+    hit = torch.isfinite(ft)
+    assert torch.equal(torch.isfinite(t), hit) and int(hit.sum()) > 1000
+    differ = hit & (i != fi)
+    assert bool((t[differ] == ft[differ]).all())       # equal-t ties only
+    torch.testing.assert_close(t[hit], ft[hit], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("engine,mode", [("auto", "pool"), ("mega", "pool"),
+                                         ("auto", "queue")])
+def test_resume_on_the_card_is_bit_equal(card, monkeypatch, tmp_path,
+                                         engine, mode):
+    """A render interrupted after its checkpoints and resumed on the card
+    equals the uninterrupted card render bit for bit (the pool's sums run
+    over unique lane ids, the queue's plane in a fixed order)."""
+    from tpu_ray_torch import renderer
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    spec = SCENES["cornell"]
+    args = (spec.build(seed=1024), spec.camera(32, 32), 32, 32)
+    kw = dict(spp=8, max_depth=8, seed=5, mode=mode, engine=engine,
+              rays_per_wave=1024, samples_per_wave=2)
+    if mode == "queue":
+        monkeypatch.setattr(renderer, "QUEUE_PLANE_BYTES", 32 * 32 * 12 * 2)
+    full = render(*args, **kw)
+    ck = str(tmp_path / "ck.npz")
+
+    class Stop(Exception):
+        pass
+
+    def stop(img, rows_final):
+        raise Stop
+
+    with pytest.raises(Stop):
+        render(*args, checkpoint_path=ck, checkpoint_every=1,
+               on_partial=stop, **kw)
+    np.testing.assert_array_equal(render(*args, checkpoint_path=ck, **kw),
+                                  full)
+
+
+def test_bvh_render_on_the_card_matches_the_cpu(card):
+    from tpu_ray_torch.ops import bvh
+
+    spec = SCENES["cornell-smoke"]
+    args = (spec.build(seed=1024), spec.camera(32, 24), 32, 24)
+    kw = dict(spp=4, max_depth=6, seed=5, bvh=True)
+    launches = bvh.intersect_bvh.launches
+    b = render(*args, device=card, **kw)
+    assert bvh.intersect_bvh.launches > launches
+    a = render(*args, device="cpu", **kw)
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    close = (err < 1e-4).all(axis=-1)
+    assert 1.0 - close.mean() <= 0.02
+    np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)

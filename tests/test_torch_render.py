@@ -96,21 +96,24 @@ def test_render_without_device_needs_a_card():
 # what later slices of the port brought into scope renders now: the queue
 # slice's big scenes, image textures and queue mode, the strict estimator
 # and the Sobol' sampler of the seventh, adaptive sampling of the eighth,
-# checkers with textured children and images on lights of the ninth
+# checkers with textured children and images on lights of the ninth, BVH
+# traversal, checkpoints and progressive output of the tenth
 NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol",
-                "adaptive", "checker-fancy", "image-on-emissive")
+                "adaptive", "checker-fancy", "image-on-emissive", "bvh",
+                "checkpoint", "progressive")
 
 
 @pytest.mark.parametrize("what", ["next-week-final", "image", "strict",
                                   "sobol", "bvh", "mesh", "queue",
                                   "adaptive", "checkpoint", "progressive",
                                   "checker-fancy", "image-on-emissive"])
-def test_out_of_slice_inputs_raise(what):
-    """Inputs outside the port raise NotImplementedError; the ones later
-    slices took in (a scene over 512 prims, image textures, queue mode, the
-    strict estimator, the Sobol' sampler, adaptive sampling, checkers with
-    textured children, an image on a light) render a finite image
-    instead."""
+def test_out_of_slice_inputs_raise(what, tmp_path):
+    """Inputs outside the port (device meshes) raise NotImplementedError;
+    the ones later slices took in (a scene over 512 prims, image textures,
+    queue mode, the strict estimator, the Sobol' sampler, adaptive
+    sampling, checkers with textured children, an image on a light, BVH
+    traversal, a checkpoint path, an on_partial callback) render a finite
+    image instead."""
     from tpu_ray_torch.models import objects as ob
     from tpu_ray_torch.models.compile import build_scene
 
@@ -141,7 +144,7 @@ def test_out_of_slice_inputs_raise(what):
     else:
         kw = {"bvh": dict(bvh=True), "mesh": dict(mesh=object()),
               "queue": dict(mode="queue"), "adaptive": dict(adaptive=0.01),
-              "checkpoint": dict(checkpoint_path="x.npz"),
+              "checkpoint": dict(checkpoint_path=str(tmp_path / "x.npz")),
               "progressive": dict(on_partial=print)}[what]
     if what in NOW_RENDERED:
         out = render(scene, cam, 8, 6, spp=1, max_depth=2, device="cpu", **kw)

@@ -7,8 +7,10 @@ tensors (``"prims.center"``, ``"texs.perlin_salt"``, ``"background"``,
 ...) plus its static fields by name (``"n_prims"``, ``"t_min"``, ...);
 :func:`scene_from_jax_arrays` turns such a dict into the port's
 :class:`~tpu_ray_torch.models.scene_data.SceneData`, and
-:func:`scene_to_arrays` is its inverse.  Neither imports JAX: the caller
-that holds a JAX scene builds the dict.
+:func:`scene_to_arrays` is its inverse.  :func:`bvh_from_arrays` carries a
+JAX ``BVHArrays`` across the same way, so both packages traverse the very
+same tree.  None imports JAX: the caller that holds a JAX scene or tree
+builds the dict.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from .models.scene_data import (
     SceneData,
     TextureArrays,
 )
+from .ops.bvh import BVHArrays
 
 _GROUPS = {"prims": PrimArrays, "mats": MaterialArrays,
            "texs": TextureArrays, "lights": LightArrays}
@@ -66,3 +69,19 @@ def scene_from_jax_arrays(d: dict, device="cpu") -> SceneData:
         statics[k] = float(v) if k == "t_min" else (
             bool(v) if isinstance(v, (bool, np.bool_)) else int(v))
     return SceneData(**groups, **{k: t(d[k]) for k in _TOP}, **statics)
+
+
+_BVH_ARRAYS = ("node_min", "node_max", "child_l", "child_r", "first",
+               "count", "order")
+
+
+def bvh_from_arrays(d: dict, device="cpu") -> BVHArrays:
+    """The port's :class:`~tpu_ray_torch.ops.bvh.BVHArrays` from a dict of
+    a JAX ``BVHArrays``' numpy arrays (keyed by field name: node_min,
+    node_max, child_l, child_r, first, count, order) plus its static
+    ``n_nodes`` and ``leaf_size`` (optional: the node count and 4)."""
+    arrs = {k: torch.from_numpy(np.array(d[k], order="C")).to(device)
+            for k in _BVH_ARRAYS}
+    return BVHArrays(**arrs,
+                     n_nodes=int(d.get("n_nodes", arrs["count"].shape[0])),
+                     leaf_size=int(d.get("leaf_size", 4)))

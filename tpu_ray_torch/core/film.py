@@ -3,10 +3,13 @@
 Port of ``tpu_ray/core/film.py``: linear RGB -> gamma-2 (sqrt) -> clamp to
 [0, 0.999] -> floor(256 x) -> uint8, and the P3 PPM writer (header, then
 one image row per line).  PNG is encoded with ``zlib`` alone, so the port
-needs no imaging package.
+needs no imaging package.  :class:`ProgressiveOutput` turns a render's
+``on_partial`` estimates into streamed PPM rows or an atomically rewritten
+image file.
 """
 from __future__ import annotations
 
+import os
 import struct
 import sys
 import zlib
@@ -15,7 +18,7 @@ import numpy as np
 
 __all__ = ["to_rgb8", "write_ppm", "ppm_string", "ppm_body_rows",
            "png_bytes", "write_png", "write_pfm", "write_hdr",
-           "write_image"]
+           "write_image", "ProgressiveOutput"]
 
 
 def to_rgb8(img) -> np.ndarray:
@@ -112,3 +115,65 @@ def write_image(img, path: str | None) -> None:
             write_ppm(rgb8, f)
     else:
         write_png(rgb8, path)
+
+
+class ProgressiveOutput:
+    """Progressive render output (``tpu_ray/core/film.py::ProgressiveOutput``).
+
+    Two modes, chosen by ``path``:
+
+    - ``None``/``'-'``: stream P3 PPM rows to stdout (or ``fp``) the moment
+      they are final (all spp accumulated).  The port has no band tiling,
+      so no row is final before the render is: the header goes out with
+      the first update and the rows with :meth:`finish`.
+    - a file path: atomically rewrite the file with the current estimate on
+      every update (written under ``<path>.tmp``, then ``os.replace``), so
+      a reader never sees a torn image and a crash keeps the latest frame.
+      The format follows the destination's extension, as
+      :func:`write_image`: .pfm / .hdr linear, .ppm, else PNG.
+
+    Feed it to ``render(on_partial=po.update)`` and call
+    ``po.finish(final_img)`` afterwards.
+    """
+
+    def __init__(self, path: str | None, width: int, height: int, fp=None):
+        self.path = None if path in (None, "-") else path
+        self.w, self.h = width, height
+        self.fp = fp
+        self.rows_emitted = 0
+        self._header_done = False
+
+    def _stream_rows(self, img, rows_final: int) -> None:
+        out = self.fp if self.fp is not None else sys.stdout
+        if not self._header_done:
+            out.write(f"P3\n{self.w} {self.h}\n255\n")
+            self._header_done = True
+        if rows_final > self.rows_emitted:
+            out.write(ppm_body_rows(to_rgb8(img[self.rows_emitted:rows_final])))
+            self.rows_emitted = rows_final
+        out.flush()
+
+    def update(self, img, rows_final: int) -> None:
+        if self.path is None:
+            self._stream_rows(img, rows_final)
+            return
+        tmp = self.path + ".tmp"
+        # dispatch on the destination's extension (the temporary name ends
+        # in .tmp)
+        if self.path.endswith(".pfm"):
+            write_pfm(img, tmp)
+        elif self.path.endswith(".hdr"):
+            write_hdr(img, tmp)
+        elif self.path.endswith(".ppm"):
+            with open(tmp, "w") as f:
+                write_ppm(to_rgb8(img), f)
+        else:
+            write_png(to_rgb8(img), tmp)
+        os.replace(tmp, self.path)
+
+    def finish(self, img) -> None:
+        """Write whatever the progressive updates have not yet emitted."""
+        if self.path is None:
+            self._stream_rows(img, self.h)
+        else:
+            self.update(img, self.h)

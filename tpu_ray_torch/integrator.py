@@ -59,6 +59,7 @@ import torch
 from .core import rng
 from .core.vec import sqrt_rn
 from .models.scene_data import SceneData
+from .ops.bvh import BVHArrays, BVHTables, intersect_bvh
 from .ops.hit_scatter import hit_scatter
 from .ops.intersect import intersect_ti, media_rows
 from .ops.megakernel import trace_pool_mega  # noqa: F401  (re-exported)
@@ -118,36 +119,48 @@ def pool_levels(R: int, n_prims: int):
 @dataclass
 class SceneKernels:
     """Per-render tables of the sweeps and the media rows.  This is the one
-    place that decides the sweep: ``blocks`` is set when the render uses a
-    sorted sweep, ``masked`` picks the mask-gated kernel over the compacted
-    lists, ``mxu`` is set when the static spheres go through the
-    matrix-product sweep."""
+    place that decides how a render finds its closest hits: ``bvh`` is set
+    when it traverses a BVH (``ops/bvh.py``, no sweep at all), ``blocks``
+    when it uses a sorted sweep, ``masked`` picks the mask-gated kernel over
+    the compacted lists, ``mxu`` is set when the static spheres go through
+    the matrix-product sweep."""
 
     geo: torch.Tensor
     media: list
     blocks: SweepBlocks | None = None
     masked: bool = False
     mxu: MxuPack | None = None
+    bvh: BVHTables | None = None
 
     @classmethod
-    def create(cls, scene: SceneData, sort: bool | None = None
-               ) -> "SceneKernels":
+    def create(cls, scene: SceneData, sort: bool | None = None,
+               bvh: BVHArrays | None = None) -> "SceneKernels":
         """``sort``: the sorted sweep on or off; ``None`` reads
         ``TPU_RAY_SORT`` (off unless ``1``).  The environment is read here,
         once: ``TPU_RAY_CULL_STYLE`` other than ``compact`` makes a sorted
         sweep mask-gated, ``TPU_RAY_SWEEP_MXU=1`` sends the static-sphere
-        range through the matrix-product sweep."""
-        sort = use_sort(sort) and scene.n_solid > 0
+        range through the matrix-product sweep.  With ``bvh`` (a
+        :class:`~tpu_ray_torch.ops.bvh.BVHArrays` of the scene) every
+        intersect traverses the tree and the sweep switches are not
+        read."""
         geo = sweep_table(scene)
+        media = media_rows(scene)
+        if bvh is not None:
+            return cls(geo=geo, media=media,
+                       bvh=BVHTables.create(scene, bvh, geo, media))
+        sort = use_sort(sort) and scene.n_solid > 0
         n_ss = scene.n_sphere_static
-        return cls(geo=geo, media=media_rows(scene),
+        return cls(geo=geo, media=media,
                    blocks=sweep_blocks(scene) if sort else None,
                    masked=sort and use_mask_cull(),
                    mxu=mxu_pack(geo, 0, n_ss) if use_mxu() and n_ss > 0
                    else None)
 
     def intersect(self, scene: SceneData, rays, kd, lane_ids):
-        """:func:`intersect_ti` with this render's tables."""
+        """The closest hits with this render's tables: BVH traversal when
+        ``bvh`` is set, else :func:`intersect_ti`."""
+        if self.bvh is not None:
+            return intersect_bvh(scene, self.bvh, rays, kd, lane_ids)
         return intersect_ti(scene, rays, kd, lane_ids, self.geo, self.media,
                             self.blocks, self.masked, self.mxu)
 

@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 SOURCES = ("sweep", "sweep_compact", "sweep_mxu", "pool_step", "megakernel",
-           "aov")
+           "aov", "bvh")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -110,6 +110,12 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         _libs[name] = lib
     return lib
+
+
+def loaded() -> list:
+    """The names of the sources whose libraries this process has loaded."""
+    with _lock:
+        return sorted(_libs)
 
 
 def load_fn(name: str, symbol: str, argtypes):

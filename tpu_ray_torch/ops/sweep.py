@@ -121,8 +121,18 @@ def _check(rays: torch.Tensor, geo: torch.Tensor):
 def _block_t(rays, geo, lo, hi, kind, t_min):
     """(r, hi - lo) hit distances of a ray block against prim rows
     [lo, hi) of one kind - _chunk_t's solid math, op for op."""
-    ox, oy, oz, dx, dy, dz, rt = (rays[i][:, None] for i in range(7))
-    g = geo[lo:hi].T[:, None, :]                 # (16, 1, C)
+    return pair_t([rays[i][:, None] for i in range(7)],
+                  geo[lo:hi].T[:, None, :], kind, t_min)
+
+
+def pair_t(r, g, kind, t_min):
+    """Hit distances of rays against prim rows of one kind, elementwise
+    under broadcasting: ``r`` the seven ray rows (ox, oy, oz, dx, dy, dz,
+    time), ``g`` the 16 rows of the prim table's columns.  The one copy of
+    the solid pair math in plain PyTorch: the sweeps' twins call it on a
+    (rays, prims) block (:func:`_block_t`), the BVH traversal's twin on one
+    gathered prim per ray, so both give a pair the same bits."""
+    ox, oy, oz, dx, dy, dz, rt = r
     if kind in ("sphere", "moving"):
         a = dx * dx + dy * dy + dz * dz
         cx, cy, cz = g[0], g[1], g[2]

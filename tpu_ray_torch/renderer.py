@@ -20,8 +20,17 @@ hands ``adaptive=TOL`` to :func:`tpu_ray_torch.adaptive.render_adaptive`.
 * ``mode="wave"``: the plain wavefront, one path per lane per wave, kept
   as the estimator's semantic reference.
 
+Every mode checkpoints its film (``checkpoint_path``, and by default for
+long renders) and reports partial estimates (``on_partial``) after each
+wave or chunk, in the JAX package's order: save, then report.  The
+accumulator stays on the render's device and comes to the host only for
+those two.  The JAX package's band tiling (``_row0``, ``_rows``,
+``_band_cap``) serves its >512-prim pool lane caps, which this port does
+not carry (``resolve_mode`` sends such scenes to the queue), so no row is
+final before the render is.
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
-without a CUDA device they raise.  Inputs outside this port's scope raise
+without a CUDA device they raise.  Device meshes raise
 ``NotImplementedError``; nothing falls back to another path but
 ``engine="mega"`` on a scene the megakernel does not cover, which renders
 on the wavefront pool and says so, as in the JAX package.
@@ -29,8 +38,11 @@ on the wavefront pool and says so, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import hashlib
+import os
 import sys
-import time
+import threading
 
 import numpy as np
 import torch
@@ -41,9 +53,11 @@ from .core.camera import Camera
 from .integrator import (COMPACT_FLOOR, COMPACT_MIN, SceneKernels, trace,
                          trace_pool_mega, trace_pool_staged, trace_queue)
 from .models.scene_data import SceneData
+from .ops.bvh import build_bvh
 from .ops.intersect import pack_rays
 from .ops.megakernel import supported as mega_supported
 from .ops.shade import StepConfig
+from .utils.profiling import WaveTimer
 
 QUEUE_MIN_PRIMS = 512    # mode="auto" picks the work queue above this
 # the queue's per-(sample, pixel) film plane is 12 bytes a row; chunks of
@@ -53,6 +67,14 @@ QUEUE_PLANE_BYTES = 8_000_000_000
 # costs one small device-to-host copy, so short epochs are cheap, and every
 # iteration past an exit condition is a full-pool iteration wasted
 QUEUE_EPOCH_ITERS = 8
+# renders of at least this many waves checkpoint by default, so a crash
+# loses at most one checkpoint interval
+AUTO_CHECKPOINT_WAVES = 8
+# the estimator and random streams a checkpoint's film was made with: bump
+# when they change (the JAX package's version 4, whose semantics the port
+# keeps); CKPT_MARK starts every tag, so neither package resumes the other's
+CKPT_MARK = "tpu_ray_torch"
+SEMANTICS_VERSION = 4
 
 
 def resolve_device(device=None) -> torch.device:
@@ -107,24 +129,40 @@ def resolve_engine(scene: SceneData, engine: str = "auto") -> str:
 
 
 def resolve_mode(scene: SceneData, mode: str = "auto",
-                 engine: str = "auto") -> str:
+                 engine: str = "auto", bvh: bool = False) -> str:
     """``"auto"`` -> the work queue for scenes of more than 512 prims, the
     pool otherwise.  A pool request for a bigger scene is demoted to the
     queue and announced on stderr: the pool's plan above 512 prims is a
     set of lane caps of one TPU worker that key the noise, which this port
     does not carry.  A queue request with the megakernel engine (on a scene
-    it supports) is demoted to the pool, where the megakernel runs, and
-    announced too.  ``mode="wave"`` keeps the plain wavefront whatever the
-    engine, as in the JAX package."""
+    it supports), or with ``bvh`` on a scene of at most 512 prims, is
+    demoted to the pool, where the JAX package renders it (so the noise is
+    its noise), and announced too.  Above 512 prims ``bvh`` stays on the
+    queue, whose intersects then traverse the tree; a stderr line says
+    that the JAX package would render it on its banded pool.
+    ``mode="wave"`` keeps the plain wavefront whatever the engine, as in
+    the JAX package."""
     if mode not in ("auto", "pool", "queue", "wave"):
         raise ValueError(f"unknown mode {mode!r}")
+    big = scene.n_prims > QUEUE_MIN_PRIMS
     if mode == "auto":
-        mode = "queue" if scene.n_prims > QUEUE_MIN_PRIMS else "pool"
-    elif mode == "pool" and scene.n_prims > QUEUE_MIN_PRIMS:
+        mode = "queue" if big else "pool"
+    elif mode == "pool" and big:
         print(f"tpu_ray_torch: demoting mode=pool to the work queue: "
               f"{scene.n_prims} prims (pool mode renders up to "
               f"{QUEUE_MIN_PRIMS})", file=sys.stderr)
-        return "queue"
+        mode = "queue"
+    if mode == "queue" and bvh and big:
+        print(f"tpu_ray_torch: bvh on {scene.n_prims} prims renders on the "
+              "work queue; the JAX package would render this request on its "
+              "banded pool, whose lane caps this port does not carry",
+              file=sys.stderr)
+    elif mode == "queue" and bvh:
+        print("tpu_ray_torch: demoting mode=queue to the wave pool: bvh "
+              "runs on the pool integrator", file=sys.stderr)
+        return "pool"
+    if big:
+        return mode
     if mode == "queue" and resolve_engine(scene, engine) == "mega":
         print("tpu_ray_torch: demoting mode=queue to the wave pool: the "
               "megakernel runs on the pool integrator", file=sys.stderr)
@@ -200,18 +238,127 @@ def film_add(accum: torch.Tensor, rad: torch.Tensor, k_pool: int,
     return accum + rad.T.reshape(k_pool, height, width, 3).sum(dim=0)
 
 
+# --- checkpoints --------------------------------------------------------------
+
+def checkpoint_dir() -> str:
+    """Where auto checkpoints go: ``~/.cache/tpu_ray_torch/checkpoints``,
+    resolved at call time (so ``HOME`` decides it)."""
+    return os.path.join(os.path.expanduser("~"), ".cache", "tpu_ray_torch",
+                        "checkpoints")
+
+
+def _remove(path) -> None:
+    try:
+        os.remove(path)
+    except OSError:
+        pass
+
+
+def clear_auto_checkpoints() -> None:
+    """Delete the auto checkpoints, so that a timed render renders in full
+    instead of resuming a crashed one."""
+    for f in glob.glob(os.path.join(checkpoint_dir(), "auto-*.npz")):
+        _remove(f)
+
+
+def _scene_fingerprint(scene: SceneData, camera: Camera) -> str:
+    """Short content hash of the scene's payloads, the camera's fields, its
+    sampler and the background: editing a material must not resume."""
+    h = hashlib.sha1()
+    for a in (scene.prim_payload, scene.mat_payload):
+        h.update(a.cpu().numpy().tobytes())
+    for f in dataclasses.fields(camera):
+        v = getattr(camera, f.name)
+        if isinstance(v, torch.Tensor):
+            h.update(v.cpu().numpy().astype(np.float32).tobytes())
+    h.update(camera.sampler.encode())
+    h.update(scene.background.cpu().numpy().astype(np.float32).tobytes())
+    return h.hexdigest()[:12]
+
+
+def _config_tag(scene, camera, width, height, spp, max_depth, seed,
+                schedule: str) -> str:
+    """The render a checkpoint belongs to: the port marker (a JAX package
+    checkpoint never matches, nor the other way round), the semantics
+    version, the scene and camera contents and every render parameter."""
+    return (f"{CKPT_MARK}.v{SEMANTICS_VERSION}.s{int(scene.strict)}"
+            f"|{_scene_fingerprint(scene, camera)}|{scene.n_prims}"
+            f"|{width}x{height}|{spp}|{max_depth}|{seed}|{schedule}")
+
+
+def _checkpoint_path(path, every: int, tag: str, n_units: int,
+                     auto_min: int, auto_every: int):
+    """(path, every, auto): the caller's path with the ``.npz`` suffix, or,
+    when no path and no interval is given and the render has at least
+    ``auto_min`` units, an auto checkpoint keyed by the tag's hash."""
+    auto = path is None and every == 0 and n_units >= auto_min
+    if auto:
+        d = checkpoint_dir()
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(
+            d, f"auto-{hashlib.sha1(tag.encode()).hexdigest()[:12]}.npz")
+        every = auto_every
+    if path and not path.endswith(".npz"):
+        path += ".npz"
+    return path, every, auto
+
+
+def _load_checkpoint(path, tag: str, dev, progress: bool, unit: str):
+    """(accumulator on ``dev`` or None, units done) from ``path``: None, 0
+    when there is no file, another render's file (said on stderr) or one
+    that does not read (said too)."""
+    try:
+        with np.load(path) as ck:
+            if str(ck["config"]) == tag:
+                done = int(ck["waves_done"])
+                if progress:
+                    print(f"\nresuming at {unit} {done}", file=sys.stderr)
+                return torch.from_numpy(ck["accum"]).to(dev), done
+        print(f"checkpoint {path} is for a different render config; "
+              "starting fresh", file=sys.stderr)
+    except FileNotFoundError:
+        pass
+    except Exception as e:
+        print(f"ignoring unreadable checkpoint {path}: {e}", file=sys.stderr)
+    return None, 0
+
+
+def _save_checkpoint(path, accum: np.ndarray, done: int, tag: str) -> None:
+    """Write under a temporary name, then rename: a reader (another
+    process rendering the same configuration) never sees a torn file."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, accum=accum, waves_done=done, config=tag)
+    os.replace(tmp, path)
+
+
+# --- the render loops -----------------------------------------------------------
+
 def _render_queue(scene, camera, width, height, spp, max_depth, seed,
-                  rays_per_wave, rr_depth, progress, sort):
+                  rays_per_wave, rr_depth, progress, sort, bvh, engine,
+                  checkpoint_path, checkpoint_every, on_partial):
     """Work-queue render: sample chunks sized by the film-plane budget, one
-    key for every chunk (draws are keyed by global work item and bounce)."""
+    key for every chunk (draws are keyed by global work item and bounce),
+    a checkpoint and ``on_partial`` after each chunk but the last."""
     P = width * height
     R, chunk_spp, epoch_iters, drain = plan_queue(scene, width, height, spp,
                                                   rays_per_wave)
-    kern = SceneKernels.create(scene, sort)
+    n_chunks = spp // chunk_spp
+    kern = SceneKernels.create(scene, sort, bvh)
     k_queue = rng.fold_in(rng.prng_key(seed), 0x5EED)
-    film = torch.zeros((P, 3), dtype=torch.float32, device=scene.device)
+    tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
+                      f"queue|{engine}|{chunk_spp}x{n_chunks}|rr{rr_depth}"
+                      f"|bvh{int(bvh is not None)}")
+    path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
+                                         tag, n_chunks, 2, 1)
+    film, start = (None, 0)
+    if path:
+        film, start = _load_checkpoint(path, tag, scene.device, progress,
+                                       "chunk")
+    if film is None:
+        film = torch.zeros((P, 3), dtype=torch.float32, device=scene.device)
 
-    for c in range(spp // chunk_spp):
+    for c in range(start, n_chunks):
         def cb(frontier, total, done=c * P * chunk_spp):
             pct = 100.0 * (done + frontier) / (P * spp)
             print(f"\rRendering {pct:5.1f}%", end="", file=sys.stderr)
@@ -221,17 +368,24 @@ def _render_queue(scene, camera, width, height, spp, max_depth, seed,
             max_depth, R, cam_salt=seed, epoch_iters=epoch_iters,
             drain_levels=drain, progress_cb=cb if progress else None,
             rr_depth=rr_depth, kern=kern)
+        if path and every and (c + 1) % every == 0 and c + 1 < n_chunks:
+            _save_checkpoint(path, film.cpu().numpy(), c + 1, tag)
+        if on_partial is not None and c + 1 < n_chunks:
+            on_partial(film.cpu().numpy().reshape(height, width, 3)
+                       / ((c + 1) * chunk_spp), 0)
     if progress:
         print("", file=sys.stderr)
+    if auto:
+        _remove(path)
     return film.reshape(height, width, 3).cpu().numpy() / spp
 
 
-def _render_wave(scene, camera, width, height, spp, max_depth, seed,
-                 rays_per_wave, rr_depth, progress, sort):
-    """Plain-wavefront render (``make_wave_fn``): per wave ``k`` samples per
-    pixel, camera samples drawn by lane position from ``jax.random``-equal
-    streams of ``split(fold_in(PRNGKey(seed), wave), 3)``, so it takes the
-    uniform sampler only."""
+def _wave_step(scene, camera, width, height, spp, max_depth, seed,
+               rays_per_wave, rr_depth, kern):
+    """Plain-wavefront schedule (``make_wave_fn``): (k samples per pixel a
+    wave, waves, step(accum, w)).  Camera samples are drawn by lane
+    position from ``jax.random``-equal streams of ``split(fold_in(
+    PRNGKey(seed), wave), 3)``, so it takes the uniform sampler only."""
     if camera.sampler != "uniform":
         raise ValueError(
             "mode='wave' draws camera samples by lane position, not by "
@@ -240,18 +394,13 @@ def _render_wave(scene, camera, width, height, spp, max_depth, seed,
             f"{camera.sampler!r}")
     dev = scene.device
     k = pick_samples_per_wave(width, height, spp, rays_per_wave)
-    n_waves = spp // k
     xy = pixel_grid(width, height, k, dev)
-    kern = SceneKernels.create(scene, sort)
     cfg = StepConfig.create(scene, camera, width, height, max_depth,
                             rr_depth=rr_depth)
     cam = camera.to(dev)
     base_key = rng.prng_key(seed)
-    accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
-    for w in range(n_waves):
-        if progress:
-            print(f"\rRendering wave {w + 1} of {n_waves}", end="",
-                  file=sys.stderr)
+
+    def step(accum, w):
         k_jit, k_cam, k_path = rng.split(rng.fold_in(base_key, w), 3)
         R = xy.shape[1]
         jitter = rng.uniform(k_jit, (R, 2), dev)
@@ -260,10 +409,33 @@ def _render_wave(scene, camera, width, height, spp, max_depth, seed,
         ro, rd, rt = cam.rays_from_uniforms(u, v, rng.uniform(k_cam, (R, 3),
                                                               dev))
         rad = trace(scene, cfg, pack_rays(ro, rd, rt), k_path, kern=kern)
-        accum = film_add(accum, rad, k, height, width)
-    if progress:
-        print("", file=sys.stderr)
-    return accum.cpu().numpy() / spp
+        return film_add(accum, rad, k, height, width)
+
+    return k, spp // k, step
+
+
+def _pool_step(scene, camera, width, height, spp, max_depth, seed,
+               rays_per_wave, samples_per_wave, rr_depth, kern, mega):
+    """Pool schedule (``plan_pool``): (samples per pixel a wave, waves,
+    step(accum, w)); ``mega`` runs each wave as one megakernel launch."""
+    dev = scene.device
+    k_pool, s_wave, n_waves = plan_pool(scene, width, height, spp,
+                                        rays_per_wave, samples_per_wave)
+    xy = pixel_grid(width, height, k_pool, dev)
+    sids = slot_ids(width, height, k_pool, dev)
+    trace_wave = trace_pool_mega if mega else trace_pool_staged
+    base_key = rng.prng_key(seed)
+    cfg0 = StepConfig.create(scene, camera, width, height, max_depth,
+                             rr_depth=rr_depth, n_samples=s_wave,
+                             cam_salt=seed)
+
+    def step(accum, w):
+        cfg = dataclasses.replace(cfg0, sample0=(w * s_wave) & rng.M32)
+        rad, _ = trace_wave(scene, cfg, xy, sids, rng.fold_in(base_key, w),
+                            kern)
+        return film_add(accum, rad, k_pool, height, width)
+
+    return k_pool * s_wave, n_waves, step
 
 
 def render(scene: SceneData, camera: Camera, width: int, height: int,
@@ -272,7 +444,8 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
            rr_depth: int = 0, device=None, progress: bool = False,
            mode: str = "auto", bvh=False, mesh=None, adaptive: float = 0.0,
            checkpoint_path=None, on_partial=None,
-           sort: bool | None = None, engine: str = "auto") -> np.ndarray:
+           sort: bool | None = None, engine: str = "auto",
+           checkpoint_every: int = 0) -> np.ndarray:
     """Render to a linear (H, W, 3) float32 image (mean over spp samples).
 
     ``mode``: "auto" (the work queue above 512 prims, else the pool),
@@ -280,23 +453,34 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     the wavefront kernels, "mega" for one megakernel launch per pool wave
     (:func:`resolve_engine`).  ``sort`` sends the closest-hit sweep
     through the sorted, compacted-list kernel (the same image bit for bit;
-    ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  ``adaptive`` > 0
-    renders with per-pixel adaptive sampling at that tone-mapped standard
-    error (:func:`tpu_ray_torch.adaptive.render_adaptive`): ``spp`` becomes
-    the per-pixel budget cap, and ``mode``, ``samples_per_wave`` and
-    ``sort`` are not read.  The remaining arguments of the JAX ``render``
-    (BVH traversal, device meshes, checkpoints, progressive output) are
-    later slices of the port and raise ``NotImplementedError`` when asked
-    for.  ``camera.sampler`` picks the camera sample ("uniform", "sobol",
-    "sobol-b0"; the pool and queue modes) and ``scene.strict`` the strict
-    reference estimator.
+    ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  ``bvh``: ``True``
+    (or a :class:`~tpu_ray_torch.ops.bvh.BVHArrays`) finds closest hits by
+    BVH traversal instead of the sweep (:func:`resolve_mode` for where it
+    renders; with ``engine="mega"`` the wavefront pool renders).
+    ``adaptive`` > 0 renders with per-pixel adaptive sampling at that
+    tone-mapped standard error (:func:`tpu_ray_torch.adaptive.
+    render_adaptive`): ``spp`` becomes the per-pixel budget cap, and
+    ``mode``, ``samples_per_wave``, ``sort``, the checkpoint and
+    ``on_partial`` are not read.
+
+    ``checkpoint_path`` makes the render resumable: the film is saved every
+    ``checkpoint_every`` waves (pool, wave) or chunks (queue), and a later
+    call of the same render resumes from it (a file of another render is
+    set aside and said so).  Renders of at least ``AUTO_CHECKPOINT_WAVES``
+    waves (two chunks on the queue) checkpoint by default under
+    :func:`checkpoint_dir`, a file removed when the render completes.
+    ``on_partial(img, rows_final)`` is called after every wave or chunk but
+    the last with the current mean estimate; ``rows_final`` is 0 (no row
+    is final before the render is).  ``TPU_RAY_CRASH_AFTER_WAVE=N`` in
+    the environment makes a fresh (not resumed) pool or wave render raise
+    before wave N.  ``mesh`` (device meshes) is a later slice of the port
+    and raises ``NotImplementedError``.  ``camera.sampler`` picks the
+    camera sample ("uniform", "sobol", "sobol-b0"; the pool and queue
+    modes) and ``scene.strict`` the strict reference estimator.
     """
-    for name, on in (("bvh", bool(bvh)), ("mesh", mesh is not None),
-                     ("checkpointing", checkpoint_path is not None),
-                     ("progressive output", on_partial is not None)):
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (a later "
-                                      "slice of the port)")
+    if mesh is not None:
+        raise NotImplementedError("device meshes are not ported yet (a "
+                                  "later slice of the port)")
     if adaptive and adaptive > 0:
         return render_adaptive(
             scene, camera, width, height, spp_max=spp, tol=adaptive,
@@ -304,7 +488,7 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
             engine=engine, rr_depth=rr_depth, progress=progress,
             device=device)
     engine = resolve_engine(scene, engine)
-    mode = resolve_mode(scene, mode, engine)
+    mode = resolve_mode(scene, mode, engine, bvh=bool(bvh))
     if camera.sampler == "sobol-b0" and mode != "queue":
         # the first-bounce override runs on the work queue only, as in the
         # JAX package; the pool and the megakernel keep the Sobol' camera
@@ -314,34 +498,57 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
               "camera dims with hashed scatter draws", file=sys.stderr)
     dev = resolve_device(device)
     scene = scene.to(dev)
+    bvh = (build_bvh(scene) if bvh is True else bvh.to(dev)) if bvh else None
     if mode == "queue":
         return _render_queue(scene, camera, width, height, spp, max_depth,
-                             seed, rays_per_wave, rr_depth, progress, sort)
+                             seed, rays_per_wave, rr_depth, progress, sort,
+                             bvh, engine, checkpoint_path, checkpoint_every,
+                             on_partial)
+    kern = SceneKernels.create(scene, sort, bvh)
     if mode == "wave":
-        return _render_wave(scene, camera, width, height, spp, max_depth,
-                            seed, rays_per_wave, rr_depth, progress, sort)
-    k_pool, s_wave, n_waves = plan_pool(scene, width, height, spp,
-                                        rays_per_wave, samples_per_wave)
-    xy = pixel_grid(width, height, k_pool, dev)
-    sids = slot_ids(width, height, k_pool, dev)
-    kern = SceneKernels.create(scene, sort)
-    trace_wave = trace_pool_mega if engine == "mega" else trace_pool_staged
-    base_key = rng.prng_key(seed)
-    accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
-    cfg = StepConfig.create(scene, camera, width, height, max_depth,
-                            rr_depth=rr_depth, n_samples=s_wave,
-                            cam_salt=seed)
-    t0 = time.perf_counter()
-    for w in range(n_waves):
+        wave_spp, n_waves, step = _wave_step(
+            scene, camera, width, height, spp, max_depth, seed,
+            rays_per_wave, rr_depth, kern)
+    else:
+        # with a BVH the megakernel's own sweep cannot run: the wavefront
+        # pool renders, as the JAX package's trace_pool does
+        wave_spp, n_waves, step = _pool_step(
+            scene, camera, width, height, spp, max_depth, seed,
+            rays_per_wave, samples_per_wave, rr_depth, kern,
+            engine == "mega" and bvh is None)
+    tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
+                      f"{mode}|{engine}|{wave_spp}|{n_waves}|rr{rr_depth}"
+                      f"|bvh{int(bvh is not None)}")
+    path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
+                                         tag, n_waves, AUTO_CHECKPOINT_WAVES,
+                                         max(1, n_waves // 8))
+    accum, start = (None, 0)
+    if path:
+        accum, start = _load_checkpoint(path, tag, dev, progress, "wave")
+    if accum is None:
+        accum = torch.zeros((height, width, 3), dtype=torch.float32,
+                            device=dev)
+    # fault injection for the supervision tests: a fresh (not resumed)
+    # render dies before wave N; a resumed one carries on past it
+    crash_after = int(os.environ.get("TPU_RAY_CRASH_AFTER_WAVE", -1))
+    timer = WaveTimer(enabled=progress)
+    for w in range(start, n_waves):
+        if w == crash_after and start == 0:
+            raise RuntimeError(f"injected crash before wave {w} "
+                               "(TPU_RAY_CRASH_AFTER_WAVE)")
         if progress:
             print(f"\rRendering wave {w + 1} of {n_waves}", end="",
                   file=sys.stderr)
-        cfg = dataclasses.replace(cfg, sample0=(w * s_wave) & rng.M32)
-        rad, _ = trace_wave(scene, cfg, xy, sids, rng.fold_in(base_key, w),
-                            kern)
-        accum = film_add(accum, rad, k_pool, height, width)
+        timer.start()
+        accum = step(accum, w)
+        if path and every and (w + 1) % every == 0:
+            _save_checkpoint(path, accum.cpu().numpy(), w + 1, tag)
+        if on_partial is not None and w + 1 < n_waves:
+            on_partial(accum.cpu().numpy() / min((w + 1) * wave_spp, spp), 0)
+        timer.stop()
     img = accum.cpu().numpy()
     if progress:
-        print(f"\n{n_waves} waves in {time.perf_counter() - t0:.3f}s",
-              file=sys.stderr)
+        print(f"\n{timer.summary()}", file=sys.stderr)
+    if auto:
+        _remove(path)
     return img / spp

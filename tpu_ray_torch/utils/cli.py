@@ -1,15 +1,17 @@
 """Command-line renderer: ``python -m tpu_ray_torch``.
 
-The flags of the JAX CLI that this port covers (``--scene``, ``--width``,
-``--height``, ``--spp``, ``--max-depth``, ``--seed``, ``--out``,
-``--earthmap``, ``--rays-per-wave``, ``--samples-per-wave``,
-``--list-scenes``, ``--rr-depth``, ``--mode``, ``--engine``,
-``--estimator``, ``--sampler``, ``--adaptive``, ``--aov``, ``--denoise``,
-``--denoise-radius``) with the same defaults, choices, checks and file
-names, plus
-``--device``: the card by default, ``cpu`` for the plain PyTorch versions.
-The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or as
-a P3 PPM to stdout; progress and "Done." go to stderr.
+The flags of the JAX CLI (``--scene``, ``--width``, ``--height``,
+``--spp``, ``--max-depth``, ``--seed``, ``--out``, ``--earthmap``,
+``--rays-per-wave``, ``--samples-per-wave``, ``--list-scenes``,
+``--rr-depth``, ``--mode``, ``--engine``, ``--estimator``, ``--sampler``,
+``--adaptive``, ``--aov``, ``--denoise``, ``--denoise-radius``, ``--bvh``,
+``--checkpoint``, ``--checkpoint-every``, ``--progressive``,
+``--profile``, ``--serve``, ``--supervise``, ``--time``) with the same
+defaults, choices, checks and file names, plus ``--device``: the card by
+default, ``cpu`` for the plain PyTorch versions.  ``--devices N`` (device
+meshes) is refused with exit code 2 until the mesh slice of the port.
+The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or
+as a P3 PPM to stdout; progress and "Done." go to stderr.
 """
 from __future__ import annotations
 
@@ -91,6 +93,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "at <=16 spp on top of the beauty pass")
     p.add_argument("--denoise-radius", type=int, default=3, metavar="R",
                    help="denoiser window radius (window is (2R+1)^2)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard sample waves over N devices (0 = one device; "
+                        "device meshes are not ported yet, so N > 0 is "
+                        "refused)")
+    p.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save the accumulator every N waves")
+    p.add_argument("--bvh", action="store_true",
+                   help="intersect via BVH traversal instead of brute force")
+    p.add_argument("--progressive", action="store_true",
+                   help="emit output as it renders: with --out -, the PPM "
+                        "streams its rows as they are final (all of them at "
+                        "the end: the port renders no bands); with --out "
+                        "PATH, PATH is rewritten atomically with the current "
+                        "estimate after every wave or chunk")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the render to "
+                        "DIR/trace.json")
+    p.add_argument("--serve", action="store_true",
+                   help="run as a long-lived render server: JSONL requests "
+                        "on stdin, responses on stdout (utils/server.py); "
+                        "renders after the first reuse the built kernels "
+                        "and scenes")
+    p.add_argument("--supervise", type=int, default=0, metavar="N",
+                   help="run the render in a child process and retry up to "
+                        "N times if it crashes; long renders auto-checkpoint, "
+                        "so each retry resumes mid-render")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda runs the CUDA kernels; cpu their plain "
                         "PyTorch versions")
@@ -99,8 +128,52 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _supervised(args, argv) -> int:
+    """Re-run the same render in child processes (``python -m
+    tpu_ray_torch`` without ``--supervise``) until one succeeds.
+
+    A crashed child leaves its checkpoint behind (the auto checkpoint, keyed
+    by the render's configuration, or ``--checkpoint``), so the next
+    identical attempt resumes instead of restarting.  A child writes its
+    image only after a successful render, so a crash emits nothing."""
+    import subprocess
+
+    out = []
+    skip = False
+    for a in (argv if argv is not None else sys.argv[1:]):
+        if skip:
+            skip = False
+        elif a == "--supervise":
+            skip = True
+        elif not a.startswith("--supervise="):
+            out.append(a)
+    for attempt in range(args.supervise + 1):
+        if attempt:
+            print(f"[supervise] retry {attempt}/{args.supervise} "
+                  "(resuming from auto checkpoint if one was written)",
+                  file=sys.stderr)
+        rc = subprocess.call([sys.executable, "-m", "tpu_ray_torch"] + out)
+        if rc == 0:
+            return 0
+    print(f"[supervise] giving up after {args.supervise + 1} attempts",
+          file=sys.stderr)
+    return 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+
+    if args.devices:
+        print("--devices: device meshes are not ported yet (a later slice "
+              "of the port); render on one device without it",
+              file=sys.stderr)
+        return 2
+    if args.supervise > 0 and not args.list_scenes:
+        return _supervised(args, argv)
+    if args.serve:
+        from .server import serve
+
+        return serve(device=args.device)
 
     from ..core import film
     from ..models.scenes import SCENES
@@ -132,13 +205,27 @@ def main(argv=None) -> int:
     aov_engine = args.engine if args.engine in ("xla", "pallas") else "xla"
     if args.aov:
         return _write_aovs(args, scene, camera, aov_engine)
+    from .profiling import profile_trace
+
+    prog = None
+    if args.progressive:
+        if args.adaptive:
+            print("[progressive] ignoring --progressive: adaptive renders "
+                  "have no fixed wave schedule", file=sys.stderr)
+        else:
+            prog = film.ProgressiveOutput(args.out, args.width, args.height)
     t_start = time.perf_counter()
-    img = render(scene, camera, args.width, args.height, args.spp,
-                 max_depth=args.max_depth, seed=args.seed,
-                 rays_per_wave=args.rays_per_wave,
-                 samples_per_wave=args.samples_per_wave,
-                 rr_depth=args.rr_depth, device=args.device, progress=True,
-                 mode=args.mode, engine=args.engine, adaptive=args.adaptive)
+    with profile_trace(args.profile):
+        img = render(scene, camera, args.width, args.height, args.spp,
+                     max_depth=args.max_depth, seed=args.seed,
+                     rays_per_wave=args.rays_per_wave,
+                     samples_per_wave=args.samples_per_wave,
+                     rr_depth=args.rr_depth, device=args.device,
+                     progress=True, mode=args.mode, engine=args.engine,
+                     adaptive=args.adaptive, bvh=args.bvh,
+                     checkpoint_path=args.checkpoint,
+                     checkpoint_every=args.checkpoint_every,
+                     on_partial=prog.update if prog else None)
     elapsed = time.perf_counter() - t_start
     if args.denoise:
         from ..aov import render_aovs
@@ -152,7 +239,10 @@ def main(argv=None) -> int:
                       device=args.device).cpu().numpy()
         print("denoised (cross-bilateral, AOV-guided, "
               f"r={args.denoise_radius})", file=sys.stderr)
-    film.write_image(img, None if args.out == "-" else args.out)
+    if prog is not None:
+        prog.finish(img)
+    else:
+        film.write_image(img, None if args.out == "-" else args.out)
     if args.time:
         print(f"render wall time: {elapsed:.3f}s", file=sys.stderr)
     print("Done.", file=sys.stderr)
@@ -178,9 +268,14 @@ def _write_aovs(args, scene, camera, engine) -> int:
         print("--aov writes one PNG per buffer; pass --out PATH",
               file=sys.stderr)
         return 2
-    ignored = [flag for flag, on in (("--adaptive", args.adaptive),
-                                     ("--mode", args.mode != "auto"),
-                                     ("--rr-depth", args.rr_depth)) if on]
+    ignored = [flag for flag, on in (
+        ("--bvh", args.bvh),
+        ("--checkpoint", args.checkpoint),
+        ("--checkpoint-every", args.checkpoint_every),
+        ("--adaptive", args.adaptive),
+        ("--mode", args.mode != "auto"),
+        ("--rr-depth", args.rr_depth),
+    ) if on]
     if ignored:
         print(f"[aov] ignoring {', '.join(ignored)}: AOV passes are "
               "single-device first-hit sweeps (band-tiled under the "
