@@ -3,9 +3,9 @@
 Drives ``tpu_ray_torch``'s paths (the pool renderer with the wavefront
 kernels and with the whole-wave megakernel, the work-queue renderer, the
 plain wavefront, BVH traversal, checkpoint / resume, the CLI's
-``--supervise`` and ``--progressive``, the render server, and the
-first-hit AOV pass with the denoiser) through its ten CUDA kernels at full
-width, and fails unless every phase passes:
+``--supervise`` and ``--progressive``, the render server, the first-hit
+AOV pass with the denoiser, and device meshes) through its ten CUDA
+kernels at full width, and fails unless every phase passes:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit; the auto
    checkpoints are cleared, so none shortens a timed render;
@@ -67,7 +67,8 @@ width, and fails unless every phase passes:
    brute-force sweep plus media (hits equal, prims equal but on equal-t
    ties, t within rtol 1e-5), with the node visits and leaf pairs per ray
    its twin counts, its graph-replayed time beside the dense sweep's on the
-   same rays, and its bound from those counts;
+   same rays, and its bound from those counts (each equal-t tie printed
+   with its ray, for ``tools/torch_bvh_tie.py``);
 4. the eight non-strict golden configs rendered on the card (the image
    scenes with the cyan stand-in they were made with), held to the
    cross-engine criterion against ``tests/goldens/<name>.npy``, and an
@@ -131,7 +132,22 @@ width, and fails unless every phase passes:
    wave; ``serve()`` in this process (ping, warm, two identical cornell
    500x500 64 spp renders, one with ``bvh``, one with ``denoise``, stats,
    quit), each image bit-equal to the direct render, with the first and
-   second renders' walls;
+   second renders' walls; book1-final 600x400 16 spp with ``engine="mxu"``
+   (bit-equal to the ``TPU_RAY_SWEEP_MXU=1`` render, its mean within 2% of
+   the dense render's and its share of pixels close at 2e-3 printed) and
+   at the JAX package's mxu test configuration (32x24, 8 spp, depth 8) held
+   to that test's criteria (more than 95% of pixels close at 2e-3, the
+   mean within 2%); then device meshes
+   whose entries are all ``cuda:0`` (``make_mesh(device=[...])``; the
+   rounds' schedule and keying, not scaling), each against the
+   single-device render of the same request at the JAX mesh tests'
+   tolerances with both walls: cornell 500x500 64 spp in 8 waves on the
+   pool and the megakernel (D = 2, rtol 1e-4 / atol 1e-5),
+   next-week-final 400x400 16 spp on the queue (D = 3: a sharded 15-sample
+   chunk and a 1-sample chunk on ``mesh[0]``; rtol 1e-5 / atol 1e-6),
+   cornell 500x500 adaptive tol 0.03 budget 1000 on the queue backend
+   (D = 2, sample counts equal), a per-round resume bit-equal, and
+   ``make_mesh(2)`` raising on the one card;
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -507,6 +523,15 @@ def check_bvh(name, width, height, spp, iters):
         f"per ray {json.dumps({k: round(v, 3) for k, v in per_ray.items()})}"
         f"; kernel {ms:.4f} ms, dense sweep {sweep_ms:.4f} ms, plain "
         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # the equal-t ties, each with its ray bit for bit (float.hex), so that
+    # tools/torch_bvh_tie.py can run it through the JAX package's traversal
+    for lane in (idx_diff & (bt == ft)).nonzero().flatten()[:4].tolist():
+        log("bvh tie: " + json.dumps(dict(
+            scene=name, iters=iters, lane=lane, slot=int(lanes[lane]),
+            key=[int(k) for k in ki],
+            ray=[float(v).hex() for v in rays[:, lane].tolist()],
+            t=float(bt[lane]).hex(), sweep_prim=int(fi[lane]),
+            bvh_prim=int(bi[lane]))))
     if not twin_equal:
         raise AssertionError(f"bvh kernel differs from its twin on {what}")
     if hit_mismatch or bad_t or bad_i:
@@ -1824,6 +1849,143 @@ def serve_full(d):
     return out, counts
 
 
+# --- device meshes: every entry cuda:0 on the one card, so the walls measure
+# the rounds' schedule and keying, not scaling --------------------------------
+def mesh_render(what, expect, absent, fn):
+    """``fn()`` timed with the launch counts set to 0 before and read after:
+    (its result, wall, counts).  ``full_width`` times its render alone and
+    returns that wall with the image."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return img, wall, read_counts(what, expect, absent)
+
+
+def hold_mesh(what, single, meshed, rtol, atol):
+    """The mesh render against the single-device render of the same request
+    at the JAX package's mesh-test tolerance."""
+    a, b = (np.asarray(x[0] if isinstance(x, tuple) else x)
+            for x in (single, meshed))
+    err = float(np.abs(a - b).max())
+    equal = bool(np.array_equal(a, b))
+    log(f"  {what}: mesh vs single device max abs diff {err:.3e} "
+        f"(rtol {rtol} / atol {atol}), bit-equal {equal}")
+    np.testing.assert_allclose(b, a, rtol=rtol, atol=atol)
+    return err, equal
+
+
+def mesh_full(d):
+    """Full-width renders on meshes whose entries are all ``cuda:0``, each
+    held to the single-device render of the same request, each wall beside
+    the single-device wall (one render each): cornell 500x500 64 spp in 8
+    waves (``samples_per_wave=2``) on the pool and the megakernel, D = 2 (4
+    rounds); next-week-final 400x400 16 spp on the queue, D = 3 (a chunk of
+    15 samples, 5 a device, and a 1-sample chunk on ``mesh[0]``); cornell
+    500x500 ``adaptive`` tol 0.03 budget 1000 on the queue backend, D = 2
+    (equal sample counts); the pool render resumed from a per-round
+    checkpoint (a crash injected before round 2), bit-equal; and
+    ``make_mesh(2)`` on this one-card machine raises."""
+    from tpu_ray_torch.parallel.mesh import make_mesh
+
+    out, counts = {}, {}
+    if torch.cuda.device_count() == 1:
+        try:
+            make_mesh(2)
+        except RuntimeError as e:
+            log(f"  make_mesh(2) on one card raised: {e}")
+        else:
+            raise AssertionError("make_mesh(2) on one card did not raise")
+    mesh2 = make_mesh(device=["cuda:0"] * 2)
+    mesh3 = make_mesh(device=["cuda:0"] * 3)
+    for engine, path, expect, absent in (
+            ("auto", "mesh_pool", ("sweep", "pool_step"), ("megakernel",)),
+            ("mega", "mesh_mega", ("megakernel",), ("sweep", "pool_step"))):
+        # an interval with no path: no auto checkpoint, which the 8-wave
+        # single-device render would take (a film save a wave) and the
+        # 4-round mesh render would not
+        kw = dict(samples_per_wave=2, engine=engine, checkpoint_every=1)
+        single, _, n_1 = mesh_render(
+            f"{path} single device", expect, absent,
+            lambda: full_width("cornell", 500, 500, 64, **kw))
+        single, wall_1 = single[:2]
+        img, _, counts[path] = mesh_render(
+            f"{path} D=2", expect, absent,
+            lambda: full_width("cornell", 500, 500, 64, mesh=mesh2, **kw))
+        img, wall = img[:2]
+        if engine == "mega" and counts[path]["megakernel"] != 8:
+            raise AssertionError("the mesh megakernel render did not launch "
+                                 "one megakernel a wave")
+        err, equal = hold_mesh(f"cornell engine={engine} D=2", single, img,
+                               1e-4, 1e-5)
+        out[path] = dict(wall_s=wall, single_wall_s=wall_1, max_abs_diff=err,
+                         bit_equal=equal, single_launches=n_1)
+        if engine == "auto":
+            full_pool = img
+    single, _, n_1 = mesh_render(
+        "mesh_queue single device", ("sweep", "pool_step"), ("megakernel",),
+        lambda: full_width("next-week-final", 400, 400, 16, mode="queue"))
+    single, wall_1 = single[:2]
+    img, _, counts["mesh_queue"] = mesh_render(
+        "mesh_queue D=3", ("sweep", "pool_step"), ("megakernel",),
+        lambda: full_width("next-week-final", 400, 400, 16, mode="queue",
+                           mesh=mesh3))
+    img, wall = img[:2]
+    err, equal = hold_mesh("next-week-final queue D=3", single, img, 1e-5,
+                           1e-6)
+    out["mesh_queue"] = dict(wall_s=wall, single_wall_s=wall_1,
+                             max_abs_diff=err, bit_equal=equal,
+                             single_launches=n_1)
+    scene, cam = scene_and_camera("cornell", 500, 500)
+    kw = dict(spp_max=1000, tol=0.03, max_depth=50, seed=SEED,
+              return_spp=True)
+    single, wall_1, n_1 = mesh_render(
+        "mesh_adaptive_queue single device", ("sweep", "pool_step"),
+        ("megakernel",), lambda: adaptive.render_adaptive(
+            scene, cam, 500, 500, mode="queue", **kw))
+    meshed, wall, counts["mesh_adaptive_queue"] = mesh_render(
+        "mesh_adaptive_queue D=2", ("sweep", "pool_step"), ("megakernel",),
+        lambda: adaptive.render_adaptive(scene, cam, 500, 500, mesh=mesh2,
+                                         **kw))
+    same_n = bool(np.array_equal(single[1], meshed[1]))
+    log(f"  adaptive cornell queue D=2: sample counts equal {same_n} (spp "
+        f"{int(single[1].min())}-{int(single[1].max())}, mean "
+        f"{float(single[1].mean()):.2f}); walls mesh {wall:.3f} s, single "
+        f"{wall_1:.3f} s")
+    if not same_n:
+        raise AssertionError("adaptive mesh sample counts differ from the "
+                             "single-device render's")
+    err, equal = hold_mesh("adaptive cornell queue D=2", single, meshed,
+                           1e-4, 1e-5)
+    out["mesh_adaptive_queue"] = dict(
+        wall_s=wall, single_wall_s=wall_1, max_abs_diff=err,
+        bit_equal=equal, counts_equal=same_n,
+        spp_mean=float(single[1].mean()), single_launches=n_1)
+    what = "mesh resume pool D=2"
+    ck = os.path.join(d, "mesh.npz")
+    kw = dict(samples_per_wave=2, mesh=mesh2)
+    reset_counts()
+    interrupted(what, lambda: with_env(
+        {"TPU_RAY_CRASH_AFTER_WAVE": "2"},
+        lambda: full_width("cornell", 500, 500, 64, checkpoint_path=ck,
+                           checkpoint_every=1, **kw)), RuntimeError)
+    img = resumed(what, "resuming at round 2", lambda: full_width(
+        "cornell", 500, 500, 64, checkpoint_path=ck, progress=True, **kw)[0])
+    counts["mesh_resume"] = read_counts(what, ("sweep", "pool_step"))
+    out["mesh_resume_bit_equal"] = same = bool(np.array_equal(img,
+                                                              full_pool))
+    log(f"  {what}: resumed image bit-equal to the uninterrupted one {same}")
+    if not same:
+        raise AssertionError(f"{what}: the resumed render differs")
+    for k, v in out.items():
+        if isinstance(v, dict):
+            log(f"  {k}: mesh wall {v['wall_s']:.3f} s, single device "
+                f"{v['single_wall_s']:.3f} s")
+    return out, counts
+
+
 def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2009,6 +2171,46 @@ def main() -> int:
         raise AssertionError("the matrix-product render's mean moved")
     log(f"  matrix-product pool wall {wall_x:.3f} s")
     reset_counts()
+    img_e, wall_e, _ = full_width("book1-final", 600, 400, 16, engine="mxu")
+    n_mxu_engine = read_counts("engine=mxu pool", ("sweep_sphere_mxu",
+                                                   "pool_step"))
+    close = float(np.isclose(img_b, img_e, rtol=2e-3, atol=2e-3).mean())
+    mean_rel = abs(float(img_e.mean()) - mean_b) / mean_b
+    # the JAX package's mxu render criteria (tests/test_intersect.py:339-
+    # 350: more than 95% of pixels close at 2e-3, the mean within 2%) at
+    # that test's configuration; at full width and depth 50 the share of
+    # close pixels is printed, and the image must be the one the
+    # matrix-product sweep gave above under its environment switch
+    b = SCENES["book1-final"]
+    small = {e: render(b.build(seed=SEED, earth=None), b.camera(32, 24), 32,
+                       24, 8, max_depth=8, seed=5, engine=e)
+             for e in ("xla", "mxu")}
+    close_s = float(np.isclose(small["xla"], small["mxu"], rtol=2e-3,
+                               atol=2e-3).mean())
+    mean_rel_s = abs(float(small["mxu"].mean() / small["xla"].mean()) - 1)
+    # the size tools/torch_mxu_engine_share.py reads on the CPU
+    mid = {e: render(b.build(seed=SEED, earth=None), b.camera(150, 100),
+                     150, 100, 16, max_depth=50, seed=SEED, engine=e)
+           for e in ("xla", "mxu")}
+    mxu_engine = dict(wall_s=wall_e, close_share=close, mean_rel=mean_rel,
+                      bit_equal_env_switch=bool(np.array_equal(img_e,
+                                                               img_x)),
+                      jax_test_config_close_share=close_s,
+                      jax_test_config_mean_rel=mean_rel_s,
+                      close_share_150x100=float(np.isclose(
+                          mid["xla"], mid["mxu"], rtol=2e-3,
+                          atol=2e-3).mean()))
+    log(f"  book1-final engine=mxu vs dense: {close:.4%} of pixels close "
+        f"(rtol/atol 2e-3), mean rel diff {mean_rel:.3e}; bit-equal to the "
+        f"TPU_RAY_SWEEP_MXU=1 render {mxu_engine['bit_equal_env_switch']}; "
+        f"at 32x24 8 spp depth 8 seed 5 {close_s:.4%} close, mean rel diff "
+        f"{mean_rel_s:.3e}; at 150x100 16 spp depth 50 "
+        f"{mxu_engine['close_share_150x100']:.4%} close")
+    if not mxu_engine["bit_equal_env_switch"] or mean_rel > 0.02 \
+            or close_s <= 0.95 or mean_rel_s > 0.02:
+        raise AssertionError("engine=mxu fails the JAX package's mxu "
+                             "criteria against the dense sweep")
+    reset_counts()
     img_sp, _, _ = full_width("cornell", 500, 500, 64, sampler="sobol")
     n_sobol_pool = read_counts("sobol pool", ("sweep", "pool_step"))
     reset_counts()
@@ -2107,6 +2309,7 @@ def main() -> int:
         ck_out, n_ck = checkpoint_full(d)
         cli_out, n_cli = cli_full(d)
         serve_out, n_serve = serve_full(d)
+        mesh_out, n_mesh = mesh_full(d)
     paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
              "wave": n_wave, "mega_pool": n_mega, "masked_queue": n_masked,
              "mxu_pool": n_mxu, "sobol_pool": n_sobol_pool,
@@ -2117,8 +2320,8 @@ def main() -> int:
              "adaptive_mega": n_adaptive_mega,
              "adaptive_queue": n_adaptive_queue,
              "sobol_b0_queue": b0.pop("counts"),
-             "checker_tex_pool": n_tex, **n_aov, **n_bvh, **n_ck, **n_cli,
-             **n_serve}
+             "checker_tex_pool": n_tex, "mxu_engine_pool": n_mxu_engine,
+             **n_aov, **n_bvh, **n_ck, **n_cli, **n_serve, **n_mesh}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -2209,6 +2412,8 @@ def main() -> int:
     log(f"checkpoint resumes bit-equal: {json.dumps(ck_out)}")
     log(f"cli: {json.dumps(cli_out)}")
     log(f"serve: {json.dumps(serve_out)}")
+    log(f"mesh renders (cuda:0 entries): {json.dumps(mesh_out)}")
+    log(f"engine=mxu: {json.dumps(mxu_engine)}")
     log(f"megakernel, one wave, 2 samples/slot depth 8: cornell-smoke "
         f"{json.dumps(mg_smoke)}; two-perlin-spheres "
         f"{json.dumps(mg_perlin)}; book1-final {json.dumps(mg_book1)}")

@@ -451,7 +451,8 @@ def test_megakernel_pool_backend_matches_wavefront_pool(pool_renders):
 
 def test_render_adaptive_entry_points():
     """render(adaptive=TOL) is render_adaptive with spp as the budget (mode
-    not read); meshes and the packing bounds raise."""
+    not read); a mesh renders on the queue backend
+    (tests/test_torch_mesh.py); the packing bounds raise."""
     spec = SCENES["two-spheres"]
     args = (spec.build(), spec.camera(10, 8), 10, 8)
     img = render(*args, spp=32, max_depth=4, seed=3, adaptive=0.05,
@@ -460,8 +461,11 @@ def test_render_adaptive_entry_points():
     ref = pad.render_adaptive(*args, spp_max=32, tol=0.05, max_depth=4,
                               seed=3, device="cpu")
     np.testing.assert_array_equal(img, ref)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pad.render_adaptive(*args, mesh=object(), device="cpu")
+    from tpu_ray_torch.parallel.mesh import make_mesh
+
+    meshed = pad.render_adaptive(*args, spp_max=32, tol=0.05, max_depth=4,
+                                 seed=3, mesh=make_mesh(2, "cpu"))
+    assert meshed.shape == (8, 10, 3) and np.isfinite(meshed).all()
     with pytest.raises(ValueError, match="pixels"):
         pad.render_adaptive(args[0], args[1], 1024, 257, device="cpu")
     with pytest.raises(ValueError, match="spp"):

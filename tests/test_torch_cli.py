@@ -132,9 +132,14 @@ def test_render_flags_reach_render(calls, tmp_path):
     assert calls["checkpoint_path"] is None and calls["checkpoint_every"] == 0
 
 
-def test_devices_is_refused(capsys):
-    assert cli.main(["--device", "cpu", "--devices", "2"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_devices_is_refused(capsys, monkeypatch):
+    """--devices N is refused (exit code 2) where N cards are not present;
+    tests/test_torch_mesh.py renders it on cpu entries."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert cli.main(["--devices", "2"]) == 2
+    assert "2 CUDA devices asked for, 1 present" in capsys.readouterr().err
 
 
 def test_bvh_flag_renders_the_bvh_image(capsys):

@@ -844,3 +844,39 @@ def test_bvh_render_on_the_card_matches_the_cpu(card):
     close = (err < 1e-4).all(axis=-1)
     assert 1.0 - close.mean() <= 0.02
     np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,engine", [("pool", "auto"), ("pool", "mega"),
+                                         ("queue", "auto"), ("wave", "auto")])
+def test_mesh_render_on_the_card_matches_one_device(card, mode, engine):
+    """A mesh of two ``cuda:0`` entries (the mesh schedule on one card)
+    renders the single-device image up to the f32 order of the sum over
+    devices (tests/test_megakernel.py:119's tolerance), through the
+    kernels."""
+    from tpu_ray_torch.parallel.mesh import make_mesh
+
+    spec = SCENES["cornell"]
+    scene, cam = spec.build(seed=1024), spec.camera(32, 24)
+    kw = dict(spp=6, max_depth=6, seed=5, mode=mode, engine=engine,
+              rays_per_wave=32 * 24, samples_per_wave=2)
+    one = render(scene, cam, 32, 24, **kw)
+    launches = sw.sweep.launches + mega.trace_pool_mega.launches
+    meshed = render(scene, cam, 32, 24,
+                    mesh=make_mesh(device=["cuda:0", "cuda:0"]), **kw)
+    assert sw.sweep.launches + mega.trace_pool_mega.launches > launches
+    np.testing.assert_allclose(meshed, one, rtol=1e-4, atol=1e-5)
+
+
+def test_adaptive_mesh_on_the_card_counts_equal_one_device(card):
+    from tpu_ray_torch.adaptive import render_adaptive
+    from tpu_ray_torch.parallel.mesh import make_mesh
+
+    spec = SCENES["cornell"]
+    scene, cam = spec.build(seed=1024), spec.camera(40, 32)
+    kw = dict(spp_max=64, tol=0.05, max_depth=6, seed=4, return_spp=True,
+              rays_per_wave=1024)
+    a, na = render_adaptive(scene, cam, 40, 32, mode="queue", **kw)
+    b, nb = render_adaptive(scene, cam, 40, 32,
+                            mesh=make_mesh(device=["cuda:0"] * 4), **kw)
+    np.testing.assert_array_equal(nb, na)
+    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)

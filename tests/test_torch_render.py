@@ -97,10 +97,11 @@ def test_render_without_device_needs_a_card():
 # slice's big scenes, image textures and queue mode, the strict estimator
 # and the Sobol' sampler of the seventh, adaptive sampling of the eighth,
 # checkers with textured children and images on lights of the ninth, BVH
-# traversal, checkpoints and progressive output of the tenth
+# traversal, checkpoints and progressive output of the tenth, device
+# meshes of the eleventh
 NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol",
                 "adaptive", "checker-fancy", "image-on-emissive", "bvh",
-                "checkpoint", "progressive")
+                "checkpoint", "progressive", "mesh")
 
 
 @pytest.mark.parametrize("what", ["next-week-final", "image", "strict",
@@ -108,14 +109,15 @@ NOW_RENDERED = ("next-week-final", "image", "queue", "strict", "sobol",
                                   "adaptive", "checkpoint", "progressive",
                                   "checker-fancy", "image-on-emissive"])
 def test_out_of_slice_inputs_raise(what, tmp_path):
-    """Inputs outside the port (device meshes) raise NotImplementedError;
-    the ones later slices took in (a scene over 512 prims, image textures,
-    queue mode, the strict estimator, the Sobol' sampler, adaptive
-    sampling, checkers with textured children, an image on a light, BVH
-    traversal, a checkpoint path, an on_partial callback) render a finite
-    image instead."""
+    """Inputs outside the port would raise NotImplementedError; the ones
+    later slices took in (a scene over 512 prims, image textures, queue
+    mode, the strict estimator, the Sobol' sampler, adaptive sampling,
+    checkers with textured children, an image on a light, BVH traversal, a
+    checkpoint path, an on_partial callback, a device mesh) render a
+    finite image instead."""
     from tpu_ray_torch.models import objects as ob
     from tpu_ray_torch.models.compile import build_scene
+    from tpu_ray_torch.parallel.mesh import make_mesh
 
     spec = SCENES["cornell"]
     scene, cam, kw = spec.build(), spec.camera(8, 6), {}
@@ -142,7 +144,7 @@ def test_out_of_slice_inputs_raise(what, tmp_path):
             ob.ImageTexture(img)))])
         assert scene.image_on_emissive
     else:
-        kw = {"bvh": dict(bvh=True), "mesh": dict(mesh=object()),
+        kw = {"bvh": dict(bvh=True), "mesh": dict(mesh=make_mesh(2, "cpu")),
               "queue": dict(mode="queue"), "adaptive": dict(adaptive=0.01),
               "checkpoint": dict(checkpoint_path=str(tmp_path / "x.npz")),
               "progressive": dict(on_partial=print)}[what]

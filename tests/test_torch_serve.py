@@ -83,7 +83,7 @@ def test_errors_never_raise(srv, tmp_path):
                     "bogus_key": 1})
     assert r["ok"] is False and "bogus_key" in r["error"]
     r = srv.handle({"scene": "cornell", "out": str(tmp_path / "c.png"),
-                    "devices": 2})
+                    "devices": -1})
     assert r["ok"] is False and "devices" in r["error"]
 
 

@@ -24,10 +24,12 @@ the next round.  Two backends, picked like the uniform renderer's modes
   doubles each round, and the variance of the replicate slot means is
   combined across rounds by inverse variance.
 
-The CUDA kernels run on the card (the sweep and the pool step, or the
-megakernel); the worklist expansion and the reductions are torch on the
-render's device, the statistics numpy.  ``trace_queue`` and
-:func:`_pool_round` are looked up in this module at call time.
+On a device mesh the queue backend renders, each round's worklist shared
+out over the devices.  The CUDA kernels run on the card (the sweep and the
+pool step, or the megakernel); the worklist expansion and the reductions
+are torch on the render's device, the statistics numpy.  ``trace_queue``,
+``trace_queue_wl_mesh`` and :func:`_pool_round` are looked up in this
+module at call time.
 """
 from __future__ import annotations
 
@@ -40,8 +42,10 @@ import torch
 
 from .core import rng
 from .integrator import (WL_SAMP_BITS, WL_SAMP_MASK, SceneKernels,
-                         trace_pool_mega, trace_pool_staged, trace_queue)
+                         trace_pool_mega, trace_pool_staged, trace_queue,
+                         trace_queue_wl_mesh)
 from .ops.shade import StepConfig
+from .parallel import mesh as mesh_mod
 
 # tone-map-space error floor: pixels darker than FLOOR**2 in linear RGB are
 # judged against FLOOR, so black pixels don't demand infinite samples
@@ -53,8 +57,14 @@ WL_QUANT = 16
 # demand spills into later rounds
 ROUND_ITEMS = 32_000_000
 # the JAX package's worklist shape buckets (its compiled programs are cached
-# by shape).  This port pads nothing: padding is inert, it keys no draw
+# by shape).  On one device this port pads nothing: padding is inert, it
+# keys no draw.  On a mesh the pad sets each device's shard of work ids, so
+# the JAX package's pad rule is kept exactly (:func:`mesh_pad`)
 PAD_LADDER = tuple((1 << 16) << (2 * i) for i in range(6))
+# the JAX package's queue lane caps above 512 prims (``tpu_ray/renderer.py:
+# 34-47``): its pad rule reads its lane count, these caps included
+XLA_BIG_SCENE_LANES = 160_000
+PALLAS_LANE_PRIM_BUDGET = 550_000_000
 # replicate slots per pixel on the pool backend: each round's variance
 # estimate has POOL_REPS - 1 degrees of freedom
 POOL_REPS = 8
@@ -145,6 +155,34 @@ def _build_worklist(extra: np.ndarray, n: np.ndarray):
     return packed, block_pix
 
 
+def jax_queue_lanes(n_prims: int, P: int, spp: int, rays_per_wave: int,
+                    engine: str) -> int:
+    """The lane count R of the JAX package's ``plan_queue`` for ``engine``
+    (the resolved name): its caps above 512 prims, then ``max(1024,
+    min(cap, P * spp))``."""
+    cap = rays_per_wave
+    if n_prims > 512 and engine in ("xla", "mxu"):
+        cap = min(cap, XLA_BIG_SCENE_LANES)
+    elif n_prims > 512 and engine == "pallas":
+        cap = min(cap, int(max(160_000, min(
+            1 << 20, PALLAS_LANE_PRIM_BUDGET // max(n_prims, 1)))))
+    return max(1024, min(cap, P * spp))
+
+
+def mesh_pad(n_work: int, R: int, D: int) -> int:
+    """The worklist pad of a D-device round (``tpu_ray/adaptive.py:
+    248-265``): at least the items, R lanes a device and one
+    ``WL_QUANT`` block a device; the next ``PAD_LADDER`` bucket (else a
+    whole number of blocks), rounded up to ``D * WL_QUANT``.  Device d's
+    work ids start at ``d * pad / D``, so this rule decides which ids the
+    round's items get."""
+    unit = D * WL_QUANT
+    floor = max(n_work, R * D, unit)
+    pad = next((p for p in PAD_LADDER if p >= floor),
+               -(-floor // WL_QUANT) * WL_QUANT)
+    return -(-pad // unit) * unit
+
+
 def render_adaptive(scene, camera, width: int, height: int, *,
                     spp_max: int = 1000, tol: float = 0.01,
                     max_depth: int = 50, seed: int = 1024,
@@ -163,15 +201,21 @@ def render_adaptive(scene, camera, width: int, height: int, *,
     or "auto", resolved by :func:`tpu_ray_torch.renderer.resolve_mode`
     (which announces any demotion on stderr).  ``engine="mega"`` runs each
     pool slab as one megakernel launch.  ``shade`` is accepted for the JAX
-    signature; this port has one shading, the fused step.  Device meshes
-    are a later slice and raise ``NotImplementedError``.  Runs on the card
-    unless ``device="cpu"``."""
+    signature; this port has one shading, the fused step.  Runs on the
+    card unless ``device="cpu"``.
+
+    With ``mesh`` (:func:`tpu_ray_torch.parallel.mesh.make_mesh`;
+    ``device`` is not read) the queue backend renders, as in the JAX
+    package (the worklist is what the mesh shares out): each round's
+    worklist is padded by :func:`mesh_pad` and split over the devices
+    (:func:`~tpu_ray_torch.integrator.trace_queue_wl_mesh`).  Every item
+    draws what it draws on one device, so the statistics, the allocations
+    and the image are the single-device queue backend's up to the f32 order
+    of the per-round sum over devices.  ``scene`` may be a dict of its
+    copies by device."""
     from .renderer import (resolve_device, resolve_engine,
                            resolve_mode)
 
-    if mesh is not None:
-        raise NotImplementedError("adaptive sampling over a device mesh is "
-                                  "not ported yet (a later slice)")
     P = width * height
     if P > (1 << (32 - WL_SAMP_BITS)):
         raise ValueError(
@@ -183,8 +227,17 @@ def render_adaptive(scene, camera, width: int, height: int, *,
     if mode not in ("auto", "pool", "queue"):
         raise ValueError(f"adaptive sampling runs mode 'auto', 'pool' or "
                          f"'queue', not {mode!r}")
+    if mesh is not None:
+        scenes = mesh_mod.replicate(scene, mesh)
+        scene = scenes[mesh[0]]
     engine = resolve_engine(scene, engine)
-    mode = resolve_mode(scene, mode, engine)
+    if mesh is None:
+        mode = resolve_mode(scene, mode, engine)
+        scene = scene.to(resolve_device(device))
+        dev = scene.device
+        scenes = {dev: scene}
+    else:
+        mode, dev = "queue", mesh[0]
     if camera.sampler == "sobol-b0" and mode == "pool":
         # the queue backend's rounds take the first-bounce override, as the
         # JAX package's do; the pool backend keeps hashed scatter draws
@@ -192,15 +245,21 @@ def render_adaptive(scene, camera, width: int, height: int, *,
               "runs on the XLA work-queue path; the adaptive pool backend "
               "keeps the sobol camera dims with hashed scatter draws",
               file=sys.stderr)
-    dev = resolve_device(device)
-    scene = scene.to(dev)
+    kerns = {}
+    for d in mesh_mod.distinct(tuple(scenes)):
+        with mesh_mod.device_guard(d):
+            kerns[d] = SceneKernels.create(scenes[d], engine=engine)
     kw = dict(spp_max=spp_max, tol=tol, max_depth=max_depth, seed=seed,
               rays_per_wave=rays_per_wave, engine=engine,
               pilot_spp=pilot_spp, round_cap=round_cap,
-              max_rounds=max_rounds, rr_depth=rr_depth, progress=progress,
-              kern=SceneKernels.create(scene))
-    run = _render_adaptive_pool if mode == "pool" else _render_adaptive_queue
-    s, n = run(scene, camera, width, height, **kw)
+              max_rounds=max_rounds, rr_depth=rr_depth, progress=progress)
+    if mode == "pool":
+        s, n = _render_adaptive_pool(scenes[dev], camera, width, height,
+                                     kern=kerns[dev], **kw)
+    else:
+        s, n = _render_adaptive_queue(scenes[dev], camera, width, height,
+                                      kerns=kerns, mesh=mesh, scenes=scenes,
+                                      **kw)
     img = (s / n[:, None]).astype(np.float32).reshape(height, width, 3)
     if return_spp:
         return img, n.reshape(height, width)
@@ -209,9 +268,12 @@ def render_adaptive(scene, camera, width: int, height: int, *,
 
 def _render_adaptive_queue(scene, camera, width, height, *, spp_max, tol,
                            max_depth, seed, rays_per_wave, engine, pilot_spp,
-                           round_cap, max_rounds, rr_depth, progress, kern):
-    """Worklist rounds on the work queue (see render_adaptive); returns
-    the float64 (P, 3) radiance sums and the (P,) sample counts."""
+                           round_cap, max_rounds, rr_depth, progress, kerns,
+                           mesh=None, scenes=None):
+    """Worklist rounds on the work queue (see render_adaptive), on
+    ``scene``'s device or shared out over ``mesh`` (``scenes``: the copies
+    by device; ``kerns``: the tables by device); returns the float64
+    (P, 3) radiance sums and the (P,) sample counts."""
     from .renderer import plan_queue
 
     P = width * height
@@ -222,6 +284,9 @@ def _render_adaptive_queue(scene, camera, width, height, *, spp_max, tol,
     pilot_spp = max(2, min(pilot_spp, spp_max))  # variance needs n >= 2
     pilot_spp = -(-pilot_spp // WL_QUANT) * WL_QUANT
     round_cap = max(WL_QUANT, round_cap // WL_QUANT * WL_QUANT)
+    if mesh is not None:
+        R_pad = jax_queue_lanes(scene.n_prims, P, spp_max, rays_per_wave,
+                                engine)
 
     key = rng.prng_key(seed)
     n = np.zeros(P, np.int64)
@@ -239,14 +304,22 @@ def _render_adaptive_queue(scene, camera, width, height, *, spp_max, tol,
         R, _, epoch_iters, drain = plan_queue(
             scene, width, height, -(-n_work // P), rays_per_wave)
         alloc = _compact_alloc(extra, n, int((extra > 0).sum()))
+        pad = n_work if mesh is None else mesh_pad(n_work, R_pad, len(mesh))
         wl, bp = _expand_worklist(
             *(torch.from_numpy(a).to(device=dev, dtype=torch.int64)
-              for a in alloc), n_work // WL_QUANT, P)
-        sums, sqs = trace_queue(
-            scene, camera, width, height, 0, work_s0, rng.fold_in(key, rnd),
-            max_depth, R, cam_salt=seed, epoch_iters=epoch_iters,
-            drain_levels=drain, rr_depth=rr_depth, worklist=wl,
-            n_work=n_work, wl_block_pix=bp, kern=kern)
+              for a in alloc), pad // WL_QUANT, P)
+        kw = dict(cam_salt=seed, epoch_iters=epoch_iters, drain_levels=drain,
+                  rr_depth=rr_depth)
+        if mesh is None:
+            sums, sqs = trace_queue(
+                scene, camera, width, height, 0, work_s0,
+                rng.fold_in(key, rnd), max_depth, R, worklist=wl,
+                n_work=n_work, wl_block_pix=bp, kern=kerns[dev], **kw)
+        else:
+            sums, sqs = trace_queue_wl_mesh(
+                scenes, camera, width, height, work_s0,
+                rng.fold_in(key, rnd), max_depth, R, mesh, wl, n_work, bp,
+                kerns=kerns, **kw)
         both = torch.stack((sums, sqs)).cpu().numpy().astype(np.float64)
         s += both[0]
         s2 += both[1]

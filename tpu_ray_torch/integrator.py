@@ -47,7 +47,9 @@ and a remote worker's round trip; here the plane is written directly and
 the counters are read once per epoch.  In worklist mode (adaptive
 sampling, :mod:`tpu_ray_torch.adaptive`) the work items come from a packed
 list of (pixel, absolute sample) entries, and the plane is reduced per
-pixel into radiance sums and square sums.
+pixel into radiance sums and square sums.  :func:`trace_queue_mesh` and
+:func:`trace_queue_wl_mesh` share a chunk's samples or a worklist's items
+out over the devices of a mesh (:mod:`tpu_ray_torch.parallel.mesh`).
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ from .ops.shade import (N_FSTATE, N_ISTATE, RR_COL, RR_PMIN, StepConfig,
                         camera_uniforms, pool_step)
 from .ops.sweep import (MxuPack, SweepBlocks, mxu_pack, sweep_blocks,
                         sweep_table, use_mask_cull, use_mxu, use_sort)
+from .parallel import mesh as mesh_mod
 
 # compaction ladder (integrator.py COMPACT_* constants, kept identical:
 # the ladder decides nothing about the estimate, but the port keeps the
@@ -134,12 +137,16 @@ class SceneKernels:
 
     @classmethod
     def create(cls, scene: SceneData, sort: bool | None = None,
-               bvh: BVHArrays | None = None) -> "SceneKernels":
+               bvh: BVHArrays | None = None,
+               engine: str = "xla") -> "SceneKernels":
         """``sort``: the sorted sweep on or off; ``None`` reads
         ``TPU_RAY_SORT`` (off unless ``1``).  The environment is read here,
         once: ``TPU_RAY_CULL_STYLE`` other than ``compact`` makes a sorted
         sweep mask-gated, ``TPU_RAY_SWEEP_MXU=1`` sends the static-sphere
-        range through the matrix-product sweep.  With ``bvh`` (a
+        range through the matrix-product sweep.  ``engine="mxu"`` (the
+        resolved engine) does the same on a scene without moving spheres;
+        with moving spheres every range keeps the dense sweep, as the JAX
+        package's ``mxu`` engine does.  With ``bvh`` (a
         :class:`~tpu_ray_torch.ops.bvh.BVHArrays` of the scene) every
         intersect traverses the tree and the sweep switches are not
         read."""
@@ -150,11 +157,11 @@ class SceneKernels:
                        bvh=BVHTables.create(scene, bvh, geo, media))
         sort = use_sort(sort) and scene.n_solid > 0
         n_ss = scene.n_sphere_static
+        mxu = use_mxu() or (engine == "mxu" and not scene.has_moving)
         return cls(geo=geo, media=media,
                    blocks=sweep_blocks(scene) if sort else None,
                    masked=sort and use_mask_cull(),
-                   mxu=mxu_pack(geo, 0, n_ss) if use_mxu() and n_ss > 0
-                   else None)
+                   mxu=mxu_pack(geo, 0, n_ss) if mxu and n_ss > 0 else None)
 
     def intersect(self, scene: SceneData, rays, kd, lane_ids):
         """The closest hits with this render's tables: BVH traversal when
@@ -343,7 +350,8 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
 def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
                kern: SceneKernels, k_isect, k_scat, cam_salt: int,
                work_base: int, total: int, width: int, height: int,
-               worklist: torch.Tensor | None = None) -> QueueState:
+               worklist: torch.Tensor | None = None,
+               work_id0: int | None = None) -> QueueState:
     """One queue iteration: trace + fused step + flush dead + inject fresh.
 
     ``cfg`` is a step configuration with ``n_samples = 0`` (the step
@@ -354,10 +362,12 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     ``worklist`` ((Wl,) int64 packed entries, Wl >= ``total``) replaces the
     uniform work map: item w renders pixel ``worklist[w] >> WL_SAMP_BITS``
     at absolute sample ``worklist[w] & WL_SAMP_MASK``; path ids stay keyed
-    by ``w + work_base``."""
+    by ``w + work_base``, or by ``w + work_id0`` when that is given (a
+    mesh shard's first global work id, ``trace_queue_wl_mesh``)."""
     m = st.work.shape[0]
     dev = st.work.device
-    sid = _to_i32_bits(rng.path_ids(st.work + work_base, st.istate[0]))
+    id0 = work_base if work_id0 is None else work_id0
+    sid = _to_i32_bits(rng.path_ids(st.work + id0, st.istate[0]))
     bt, bi = kern.intersect(scene, st.fstate[:7], k_isect, sid)
     zeros2 = torch.zeros((2, m), dtype=torch.float32, device=dev)
     was_active = st.istate[2] > 0
@@ -431,7 +441,7 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
                 cam_salt: int = 0, epoch_iters: int = 8, drain_levels=(),
                 progress_cb=None, rr_depth: int = 0, worklist=None,
                 n_work=None, wl_block_pix=None,
-                kern: SceneKernels | None = None):
+                kern: SceneKernels | None = None, work_id0: int | None = None):
     """Render ``width * height * chunk_spp`` camera samples with a work-queue
     pool of ``R`` lanes; returns the (H*W, 3) radiance sum over the chunk's
     samples.
@@ -456,7 +466,9 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
     pixel over the dispatched items: :func:`worklist_sums_blocked` when
     ``wl_block_pix`` gives the per-block pixels of a pixel-major,
     ``WL_QUANT``-blocked list, else :func:`worklist_sums`.  ``chunk_s0``
-    still offsets the path ids, so callers advance it between rounds."""
+    still offsets the path ids, so callers advance it between rounds;
+    ``work_id0`` replaces that offset (``chunk_s0 * W * H``) with the
+    first global work id of a mesh shard (:func:`trace_queue_wl_mesh`)."""
     P = width * height
     dev = scene.device
     if worklist is not None:
@@ -500,7 +512,7 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
             for _ in range(epoch_iters):
                 st = queue_body(st, scene, cfg, kern, k_isect, k_scat,
                                 cam_salt, work_base, total, width, height,
-                                worklist)
+                                worklist, work_id0)
         raise RuntimeError("trace_queue: epoch cap exceeded")
 
     st = run(st, drain_levels[0] if drain_levels else 0)
@@ -513,6 +525,99 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
         return worklist_sums(st.plane, worklist, P)
     # sample-major reduction in a fixed order, whatever the schedule was
     return st.plane[:, :total].reshape(3, chunk_spp, P).sum(dim=1).T
+
+
+# --- the work queue over a device mesh ----------------------------------------
+#
+# The queue's draws are keyed by global (work item, bounce) and (pixel, global
+# sample) ids, and each item's radiance is written, not added, into its own
+# plane column.  So sharing a chunk's samples (or a worklist's items) out over
+# devices is the same operation as cutting them into chunks on one device:
+# device d runs the single-device queue on its own share with its own lanes,
+# and the partial sums are folded in device order at the end (the JAX
+# package's one psum, ``tpu_ray/integrator.py:1124-1150, :1347-1357``).  The
+# host drives the devices one after another, and each device's queue reads
+# its counters once an epoch, so on distinct cards the shares do not overlap
+# yet; the JAX package steps every device's epoch before it reads any counter.
+
+def trace_queue_mesh(scenes, camera, width: int, height: int, chunk_spp: int,
+                     chunk_s0: int, key, max_depth: int, R: int, mesh,
+                     kerns: dict | None = None, progress_cb=None, **kw):
+    """:func:`trace_queue` over a device mesh: device d renders the chunk's
+    global samples ``[chunk_s0 + d * spp_d, chunk_s0 + (d + 1) * spp_d)``,
+    ``spp_d = chunk_spp / D``; returns the chunk's (H*W, 3) radiance sum on
+    ``mesh[0]``, the single-device chunk's up to f32 summation order.
+
+    ``scenes``: the scene, or its copies by device
+    (:func:`~tpu_ray_torch.parallel.mesh.replicate`); ``kerns``: each
+    device's :class:`SceneKernels` (made from its copy when omitted).  ``R``
+    lanes a device; the other keywords go to :func:`trace_queue`."""
+    D = len(mesh)
+    if chunk_spp % D:
+        raise ValueError(f"chunk_spp {chunk_spp} not divisible by {D} "
+                         "devices")
+    P = width * height
+    spp_d = chunk_spp // D
+    scenes = mesh_mod.replicate(scenes, mesh)
+    if kerns is None:
+        kerns = {dev: SceneKernels.create(sc) for dev, sc in scenes.items()}
+    parts = []
+    for d, dev in enumerate(mesh):
+        cb = None
+        if progress_cb is not None:
+            def cb(frontier, total, done=d * P * spp_d):
+                progress_cb(done + frontier, P * chunk_spp)
+        with mesh_mod.device_guard(dev):
+            parts.append(trace_queue(
+                scenes[dev], camera, width, height, spp_d,
+                chunk_s0 + d * spp_d, key, max_depth, R, progress_cb=cb,
+                kern=kerns[dev], **kw))
+    return mesh_mod.reduce_films(parts, mesh)
+
+
+def trace_queue_wl_mesh(scenes, camera, width: int, height: int,
+                        chunk_s0: int, key, max_depth: int, R: int, mesh,
+                        worklist: torch.Tensor, n_work: int,
+                        wl_block_pix: torch.Tensor,
+                        kerns: dict | None = None, drain_levels=(), **kw):
+    """:func:`trace_queue` in worklist mode over a device mesh: the (Wl,)
+    worklist splits into D contiguous shards of ``wl_d = Wl / D`` items
+    (and ``wl_block_pix`` alike); device d dispatches its first
+    ``clip(n_work - d * wl_d, 0, wl_d)`` items with path ids keyed from the
+    global work id ``chunk_s0 * W * H + d * wl_d``, so every item draws
+    what the single-device round draws.  Returns the per-pixel (radiance
+    sums, square sums), each (H*W, 3) on ``mesh[0]``: each shard's blocked
+    reduction, summed in device order.  ``Wl`` must split into D shards of
+    whole ``WL_QUANT`` blocks (``adaptive``'s pad rule sees to it).  ``R``
+    caps each device's lanes; the other keywords go to
+    :func:`trace_queue`."""
+    D = len(mesh)
+    Wl, nb = int(worklist.shape[0]), int(wl_block_pix.shape[0])
+    if Wl % D or nb % D:
+        raise ValueError(f"worklist of {Wl} items in {nb} blocks does not "
+                         f"split over {D} devices")
+    wl_d, nb_d = Wl // D, nb // D
+    P = width * height
+    scenes = mesh_mod.replicate(scenes, mesh)
+    if kerns is None:
+        kerns = {dev: SceneKernels.create(sc) for dev, sc in scenes.items()}
+    parts = []
+    for d, dev in enumerate(mesh):
+        n_d = min(max(int(n_work) - d * wl_d, 0), wl_d)
+        R_d = max(1024, min(R, n_d))
+        with mesh_mod.device_guard(dev):
+            sums = trace_queue(
+                scenes[dev], camera, width, height, 0, chunk_s0, key,
+                max_depth, R_d, worklist=worklist[d * wl_d:(d + 1) * wl_d
+                                                  ].to(dev),
+                n_work=n_d,
+                wl_block_pix=wl_block_pix[d * nb_d:(d + 1) * nb_d].to(dev),
+                drain_levels=tuple(m for m in drain_levels if m < R_d),
+                kern=kerns[dev],
+                work_id0=(int(chunk_s0) * P + d * wl_d) & rng.M32, **kw)
+            parts.append(torch.stack(sums))
+    out = mesh_mod.reduce_films(parts, mesh)
+    return out[0], out[1]
 
 
 def worklist_sums(plane: torch.Tensor, worklist: torch.Tensor, P: int):

@@ -2,8 +2,10 @@
 
 Port of ``tpu_ray/renderer.py``: ``resolve_engine``, ``resolve_mode``,
 ``plan_pool`` / ``plan_queue``, ``_pixel_grid``, ``_slot_ids``,
-``_film_add``, ``make_wave_fn``, ``_render_queue`` and ``render``, which
-hands ``adaptive=TOL`` to :func:`tpu_ray_torch.adaptive.render_adaptive`.
+``make_wave_fn``, ``_render_queue`` and ``render``, which hands
+``adaptive=TOL`` to :func:`tpu_ray_torch.adaptive.render_adaptive`, and
+the rounds of its device meshes (``mesh=``, the JAX package's
+``make_round_fn``).
 
 * ``mode="pool"`` (``"auto"`` up to 512 prims): the ray pool.
   ``plan_pool`` and its constants are kept identical to the JAX package's
@@ -29,11 +31,11 @@ those two.  The JAX package's band tiling (``_row0``, ``_rows``,
 not carry (``resolve_mode`` sends such scenes to the queue), so no row is
 final before the render is.
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
-without a CUDA device they raise.  Device meshes raise
-``NotImplementedError``; nothing falls back to another path but
-``engine="mega"`` on a scene the megakernel does not cover, which renders
-on the wavefront pool and says so, as in the JAX package.
+Entry points run on the card unless the caller passes ``device="cpu"``
+(or a mesh of ``cpu`` entries); without a CUDA device they raise.  Nothing
+falls back to another path but ``engine="mega"`` on a scene the
+megakernel does not cover, which renders on the wavefront pool and says
+so, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -51,12 +53,14 @@ from .adaptive import render_adaptive
 from .core import rng
 from .core.camera import Camera
 from .integrator import (COMPACT_FLOOR, COMPACT_MIN, SceneKernels, trace,
-                         trace_pool_mega, trace_pool_staged, trace_queue)
+                         trace_pool_mega, trace_pool_staged, trace_queue,
+                         trace_queue_mesh)
 from .models.scene_data import SceneData
 from .ops.bvh import build_bvh
 from .ops.intersect import pack_rays
 from .ops.megakernel import supported as mega_supported
 from .ops.shade import StepConfig
+from .parallel import mesh as mesh_mod
 from .utils.profiling import WaveTimer
 
 QUEUE_MIN_PRIMS = 512    # mode="auto" picks the work queue above this
@@ -105,18 +109,16 @@ ENGINES = ("auto", "xla", "mxu", "pallas", "mega")
 
 def resolve_engine(scene: SceneData, engine: str = "auto") -> str:
     """The JAX package's engine names on this port.  ``"auto"``, ``"xla"``
-    and ``"pallas"`` all mean the wavefront path through the one
-    hand-written sweep: the port has no second sweep engine, so ``"auto"``
-    resolves to ``"xla"`` and the other two come back as given.  ``"mega"``
-    is the whole-wave megakernel on scenes it supports; on any other scene
-    it falls back to ``"xla"``, as the JAX package does, and says so on
-    stderr.  ``"mxu"`` (the JAX package's chunk-centred XLA sweep, not a
-    kernel) is not ported and raises ``NotImplementedError``."""
+    and ``"pallas"`` all mean the wavefront path through the dense
+    hand-written sweep, so ``"auto"`` resolves to ``"xla"`` and the other
+    two come back as given.  ``"mxu"`` sends the static spheres through the
+    matrix-product sweep (:meth:`~tpu_ray_torch.integrator.SceneKernels.
+    create`; the JAX package's chunk-centred expanded quadratic, here
+    centred on the range).  ``"mega"`` is the whole-wave megakernel on
+    scenes it supports; on any other scene it falls back to ``"xla"``, as
+    the JAX package does, and says so on stderr."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "mxu":
-        raise NotImplementedError("the chunk-centred 'mxu' sweep engine is "
-                                  "not ported yet")
     if engine == "mega":
         if mega_supported(scene):
             return "mega"
@@ -129,7 +131,8 @@ def resolve_engine(scene: SceneData, engine: str = "auto") -> str:
 
 
 def resolve_mode(scene: SceneData, mode: str = "auto",
-                 engine: str = "auto", bvh: bool = False) -> str:
+                 engine: str = "auto", bvh: bool = False, mesh=None,
+                 spp: int | None = None) -> str:
     """``"auto"`` -> the work queue for scenes of more than 512 prims, the
     pool otherwise.  A pool request for a bigger scene is demoted to the
     queue and announced on stderr: the pool's plan above 512 prims is a
@@ -139,7 +142,11 @@ def resolve_mode(scene: SceneData, mode: str = "auto",
     demoted to the pool, where the JAX package renders it (so the noise is
     its noise), and announced too.  Above 512 prims ``bvh`` stays on the
     queue, whose intersects then traverse the tree; a stderr line says
-    that the JAX package would render it on its banded pool.
+    that the JAX package would render it on its banded pool.  With a
+    ``mesh`` of D devices, a queue request whose ``spp`` is unknown or
+    below D is demoted to the pool, as in the JAX package; above 512 prims
+    it stays on the queue as one single-device chunk, and a stderr line
+    says that the JAX package would render it on its banded pool.
     ``mode="wave"`` keeps the plain wavefront whatever the engine, as in
     the JAX package."""
     if mode not in ("auto", "pool", "queue", "wave"):
@@ -161,11 +168,25 @@ def resolve_mode(scene: SceneData, mode: str = "auto",
         print("tpu_ray_torch: demoting mode=queue to the wave pool: bvh "
               "runs on the pool integrator", file=sys.stderr)
         return "pool"
+    short = mode == "queue" and mesh is not None and (spp is None
+                                                      or spp < len(mesh))
+    need = (f"sharding the work queue needs spp >= the "
+            f"{0 if mesh is None else len(mesh)}-device mesh (got {spp})")
     if big:
+        if short:
+            print(f"tpu_ray_torch: {need}; {scene.n_prims} prims render on "
+                  "the work queue as one single-device chunk; the JAX "
+                  "package would render this request on its banded pool, "
+                  "whose lane caps this port does not carry",
+                  file=sys.stderr)
         return mode
     if mode == "queue" and resolve_engine(scene, engine) == "mega":
         print("tpu_ray_torch: demoting mode=queue to the wave pool: the "
               "megakernel runs on the pool integrator", file=sys.stderr)
+        return "pool"
+    if short:
+        print(f"tpu_ray_torch: demoting mode=queue to the wave pool: {need}",
+              file=sys.stderr)
         return "pool"
     return mode
 
@@ -230,12 +251,6 @@ def slot_ids(width: int, height: int, k: int, device="cpu") -> torch.Tensor:
            ).reshape(-1) & rng.M32
     ids = torch.where(ids >= 1 << 31, ids - (1 << 32), ids)
     return ids.to(torch.int32).to(device)
-
-
-def film_add(accum: torch.Tensor, rad: torch.Tensor, k_pool: int,
-             height: int, width: int) -> torch.Tensor:
-    """Accumulate a wave's (3, R) per-slot radiance into the (H, W, 3) film."""
-    return accum + rad.T.reshape(k_pool, height, width, 3).sum(dim=0)
 
 
 # --- checkpoints --------------------------------------------------------------
@@ -334,45 +349,74 @@ def _save_checkpoint(path, accum: np.ndarray, done: int, tag: str) -> None:
 
 # --- the render loops -----------------------------------------------------------
 
-def _render_queue(scene, camera, width, height, spp, max_depth, seed,
-                  rays_per_wave, rr_depth, progress, sort, bvh, engine,
-                  checkpoint_path, checkpoint_every, on_partial):
+def _render_queue(scenes, kerns, camera, width, height, spp, max_depth, seed,
+                  rays_per_wave, rr_depth, progress, bvh, engine,
+                  checkpoint_path, checkpoint_every, on_partial, mesh):
     """Work-queue render: sample chunks sized by the film-plane budget, one
     key for every chunk (draws are keyed by global work item and bounce),
-    a checkpoint and ``on_partial`` after each chunk but the last."""
+    a checkpoint and ``on_partial`` after each chunk but the last.
+
+    ``scenes`` / ``kerns``: the scene and its tables by device.  With a
+    ``mesh`` of D devices each chunk holds a multiple of D samples, shared
+    out by :func:`~tpu_ray_torch.integrator.trace_queue_mesh` (the plane
+    budget is a device's); ``spp % D`` samples are left for a last chunk on
+    ``mesh[0]``, as in the JAX package (``tpu_ray/renderer.py:406-414``)."""
+    devs = mesh if mesh is not None else tuple(scenes)
+    scene = scenes[devs[0]]
     P = width * height
     R, chunk_spp, epoch_iters, drain = plan_queue(scene, width, height, spp,
                                                   rays_per_wave)
-    n_chunks = spp // chunk_spp
-    kern = SceneKernels.create(scene, sort, bvh)
+    D = 0 if mesh is None else len(mesh)
+    if mesh is None:
+        chunks = [chunk_spp] * (spp // chunk_spp)
+    else:
+        chunk_spp = D * _largest_divisor_leq(
+            spp // D, max(1, QUEUE_PLANE_BYTES // (P * 12)))
+        chunks = [chunk_spp] * (spp // D * D // chunk_spp)
+        if spp % D:
+            chunks.append(spp % D)
+    n_chunks = len(chunks)
+    starts = np.cumsum([0] + chunks).tolist()
     k_queue = rng.fold_in(rng.prng_key(seed), 0x5EED)
     tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
-                      f"queue|{engine}|{chunk_spp}x{n_chunks}|rr{rr_depth}"
-                      f"|bvh{int(bvh is not None)}")
+                      f"queue|{engine}|{chunk_spp}x{n_chunks}r{chunks[-1]}"
+                      f"|d{D}|rr{rr_depth}|bvh{int(bvh)}")
     path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
                                          tag, n_chunks, 2, 1)
     film, start = (None, 0)
     if path:
-        film, start = _load_checkpoint(path, tag, scene.device, progress,
-                                       "chunk")
+        film, start = _load_checkpoint(path, tag, devs[0], progress, "chunk")
     if film is None:
-        film = torch.zeros((P, 3), dtype=torch.float32, device=scene.device)
+        film = torch.zeros((P, 3), dtype=torch.float32, device=devs[0])
 
+    kw = dict(cam_salt=seed, epoch_iters=epoch_iters, rr_depth=rr_depth)
     for c in range(start, n_chunks):
-        def cb(frontier, total, done=c * P * chunk_spp):
+        cs, s0 = chunks[c], starts[c]
+
+        def cb(frontier, total, done=s0 * P):
             pct = 100.0 * (done + frontier) / (P * spp)
             print(f"\rRendering {pct:5.1f}%", end="", file=sys.stderr)
 
-        film = film + trace_queue(
-            scene, camera, width, height, chunk_spp, c * chunk_spp, k_queue,
-            max_depth, R, cam_salt=seed, epoch_iters=epoch_iters,
-            drain_levels=drain, progress_cb=cb if progress else None,
-            rr_depth=rr_depth, kern=kern)
+        cb = cb if progress else None
+        if mesh is not None and cs % D == 0:
+            R_d, _, _, drain_d = plan_queue(scene, width, height, cs // D,
+                                            rays_per_wave)
+            part = trace_queue_mesh(
+                scenes, camera, width, height, cs, s0, k_queue, max_depth,
+                R_d, mesh, kerns=kerns, drain_levels=drain_d, progress_cb=cb,
+                **kw)
+        else:
+            with mesh_mod.device_guard(devs[0]):
+                part = trace_queue(
+                    scene, camera, width, height, cs, s0, k_queue, max_depth,
+                    R, drain_levels=drain, progress_cb=cb,
+                    kern=kerns[devs[0]], **kw)
+        film = film + part
         if path and every and (c + 1) % every == 0 and c + 1 < n_chunks:
             _save_checkpoint(path, film.cpu().numpy(), c + 1, tag)
         if on_partial is not None and c + 1 < n_chunks:
             on_partial(film.cpu().numpy().reshape(height, width, 3)
-                       / ((c + 1) * chunk_spp), 0)
+                       / (s0 + cs), 0)
     if progress:
         print("", file=sys.stderr)
     if auto:
@@ -383,9 +427,10 @@ def _render_queue(scene, camera, width, height, spp, max_depth, seed,
 def _wave_step(scene, camera, width, height, spp, max_depth, seed,
                rays_per_wave, rr_depth, kern):
     """Plain-wavefront schedule (``make_wave_fn``): (k samples per pixel a
-    wave, waves, step(accum, w)).  Camera samples are drawn by lane
-    position from ``jax.random``-equal streams of ``split(fold_in(
-    PRNGKey(seed), wave), 3)``, so it takes the uniform sampler only."""
+    wave, waves, wave(w) -> the wave's (H, W, 3) film).  Camera samples are
+    drawn by lane position from ``jax.random``-equal streams of
+    ``split(fold_in(PRNGKey(seed), wave), 3)``, so it takes the uniform
+    sampler only."""
     if camera.sampler != "uniform":
         raise ValueError(
             "mode='wave' draws camera samples by lane position, not by "
@@ -400,7 +445,7 @@ def _wave_step(scene, camera, width, height, spp, max_depth, seed,
     cam = camera.to(dev)
     base_key = rng.prng_key(seed)
 
-    def step(accum, w):
+    def wave(w):
         k_jit, k_cam, k_path = rng.split(rng.fold_in(base_key, w), 3)
         R = xy.shape[1]
         jitter = rng.uniform(k_jit, (R, 2), dev)
@@ -409,15 +454,16 @@ def _wave_step(scene, camera, width, height, spp, max_depth, seed,
         ro, rd, rt = cam.rays_from_uniforms(u, v, rng.uniform(k_cam, (R, 3),
                                                               dev))
         rad = trace(scene, cfg, pack_rays(ro, rd, rt), k_path, kern=kern)
-        return film_add(accum, rad, k, height, width)
+        return rad.T.reshape(k, height, width, 3).sum(dim=0)
 
-    return k, spp // k, step
+    return k, spp // k, wave
 
 
 def _pool_step(scene, camera, width, height, spp, max_depth, seed,
                rays_per_wave, samples_per_wave, rr_depth, kern, mega):
     """Pool schedule (``plan_pool``): (samples per pixel a wave, waves,
-    step(accum, w)); ``mega`` runs each wave as one megakernel launch."""
+    wave(w) -> the wave's (H, W, 3) film); ``mega`` runs each wave as one
+    megakernel launch."""
     dev = scene.device
     k_pool, s_wave, n_waves = plan_pool(scene, width, height, spp,
                                         rays_per_wave, samples_per_wave)
@@ -429,13 +475,13 @@ def _pool_step(scene, camera, width, height, spp, max_depth, seed,
                              rr_depth=rr_depth, n_samples=s_wave,
                              cam_salt=seed)
 
-    def step(accum, w):
+    def wave(w):
         cfg = dataclasses.replace(cfg0, sample0=(w * s_wave) & rng.M32)
         rad, _ = trace_wave(scene, cfg, xy, sids, rng.fold_in(base_key, w),
                             kern)
-        return film_add(accum, rad, k_pool, height, width)
+        return rad.T.reshape(k_pool, height, width, 3).sum(dim=0)
 
-    return k_pool * s_wave, n_waves, step
+    return k_pool * s_wave, n_waves, wave
 
 
 def render(scene: SceneData, camera: Camera, width: int, height: int,
@@ -450,7 +496,8 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
 
     ``mode``: "auto" (the work queue above 512 prims, else the pool),
     "pool", "queue" or "wave".  ``engine``: "auto", "xla" or "pallas" for
-    the wavefront kernels, "mega" for one megakernel launch per pool wave
+    the wavefront kernels, "mxu" for the matrix-product sweep of the
+    static spheres, "mega" for one megakernel launch per pool wave
     (:func:`resolve_engine`).  ``sort`` sends the closest-hit sweep
     through the sorted, compacted-list kernel (the same image bit for bit;
     ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  ``bvh``: ``True``
@@ -463,32 +510,47 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     ``mode``, ``samples_per_wave``, ``sort``, the checkpoint and
     ``on_partial`` are not read.
 
+    ``mesh`` (:func:`tpu_ray_torch.parallel.mesh.make_mesh`, D devices)
+    renders on every device of the mesh, and ``device`` is not read; the
+    image is on the host as always.  Pool and wave renders go in rounds:
+    round w renders global waves ``w * D + d`` on device d, each drawing
+    what the single-device render's wave of that index draws, and adds
+    their films summed in device order.  The last round's waves past the
+    wave count are skipped; the JAX package renders them at weight 0,
+    which adds nothing unless a wave is not finite.  The queue shares each
+    chunk's samples out over the devices
+    (:func:`~tpu_ray_torch.integrator.trace_queue_mesh`).  So the image is
+    the single-device render's up to f32 summation order.  ``scene`` may
+    then also be a dict of its copies by device (a caller's cache), so
+    that nothing is copied per call.
+
     ``checkpoint_path`` makes the render resumable: the film is saved every
-    ``checkpoint_every`` waves (pool, wave) or chunks (queue), and a later
-    call of the same render resumes from it (a file of another render is
-    set aside and said so).  Renders of at least ``AUTO_CHECKPOINT_WAVES``
-    waves (two chunks on the queue) checkpoint by default under
+    ``checkpoint_every`` waves (pool, wave), rounds (on a mesh) or chunks
+    (queue), and a later call of the same render resumes from it (a file
+    of another render, the mesh's size included, is set aside and said
+    so).  Renders of at least ``AUTO_CHECKPOINT_WAVES`` waves or rounds
+    (two chunks on the queue) checkpoint by default under
     :func:`checkpoint_dir`, a file removed when the render completes.
-    ``on_partial(img, rows_final)`` is called after every wave or chunk but
-    the last with the current mean estimate; ``rows_final`` is 0 (no row
-    is final before the render is).  ``TPU_RAY_CRASH_AFTER_WAVE=N`` in
-    the environment makes a fresh (not resumed) pool or wave render raise
-    before wave N.  ``mesh`` (device meshes) is a later slice of the port
-    and raises ``NotImplementedError``.  ``camera.sampler`` picks the
+    ``on_partial(img, rows_final)`` is called after every wave, round or
+    chunk but the last with the current mean estimate; ``rows_final`` is 0
+    (no row is final before the render is).  ``TPU_RAY_CRASH_AFTER_WAVE=N``
+    in the environment makes a fresh (not resumed) pool or wave render
+    raise before wave (on a mesh: round) N.  ``camera.sampler`` picks the
     camera sample ("uniform", "sobol", "sobol-b0"; the pool and queue
     modes) and ``scene.strict`` the strict reference estimator.
     """
-    if mesh is not None:
-        raise NotImplementedError("device meshes are not ported yet (a "
-                                  "later slice of the port)")
     if adaptive and adaptive > 0:
         return render_adaptive(
             scene, camera, width, height, spp_max=spp, tol=adaptive,
             max_depth=max_depth, seed=seed, rays_per_wave=rays_per_wave,
             engine=engine, rr_depth=rr_depth, progress=progress,
-            device=device)
+            mesh=mesh, device=device)
+    if mesh is not None:
+        scenes = mesh_mod.replicate(scene, mesh)
+        scene = scenes[mesh[0]]
     engine = resolve_engine(scene, engine)
-    mode = resolve_mode(scene, mode, engine, bvh=bool(bvh))
+    mode = resolve_mode(scene, mode, engine, bvh=bool(bvh), mesh=mesh,
+                        spp=spp)
     if camera.sampler == "sobol-b0" and mode != "queue":
         # the first-bounce override runs on the work queue only, as in the
         # JAX package; the pool and the megakernel keep the Sobol' camera
@@ -496,55 +558,82 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
         print("tpu_ray_torch: sampler=sobol-b0's bounce-dim override only "
               f"runs on the XLA work-queue path; mode={mode} keeps the sobol "
               "camera dims with hashed scatter draws", file=sys.stderr)
-    dev = resolve_device(device)
-    scene = scene.to(dev)
-    bvh = (build_bvh(scene) if bvh is True else bvh.to(dev)) if bvh else None
-    if mode == "queue":
-        return _render_queue(scene, camera, width, height, spp, max_depth,
-                             seed, rays_per_wave, rr_depth, progress, sort,
-                             bvh, engine, checkpoint_path, checkpoint_every,
-                             on_partial)
-    kern = SceneKernels.create(scene, sort, bvh)
-    if mode == "wave":
-        wave_spp, n_waves, step = _wave_step(
-            scene, camera, width, height, spp, max_depth, seed,
-            rays_per_wave, rr_depth, kern)
+    if mesh is None:
+        scene = scene.to(resolve_device(device))
+        devs = (scene.device,)
+        scenes = {scene.device: scene}
     else:
-        # with a BVH the megakernel's own sweep cannot run: the wavefront
-        # pool renders, as the JAX package's trace_pool does
-        wave_spp, n_waves, step = _pool_step(
-            scene, camera, width, height, spp, max_depth, seed,
-            rays_per_wave, samples_per_wave, rr_depth, kern,
-            engine == "mega" and bvh is None)
+        devs = mesh
+    dev = devs[0]
+    tree = (build_bvh(scenes[dev]) if bvh is True else bvh) if bvh else None
+    kerns = {}
+    for d in mesh_mod.distinct(devs):
+        with mesh_mod.device_guard(d):
+            kerns[d] = SceneKernels.create(
+                scenes[d], sort, None if tree is None else tree.to(d),
+                engine)
+    if mode == "queue":
+        return _render_queue(scenes, kerns, camera, width, height, spp,
+                             max_depth, seed, rays_per_wave, rr_depth,
+                             progress, tree is not None, engine,
+                             checkpoint_path, checkpoint_every, on_partial,
+                             mesh)
+    waves = {}
+    for d in mesh_mod.distinct(devs):
+        if mode == "wave":
+            wave_spp, n_waves, waves[d] = _wave_step(
+                scenes[d], camera, width, height, spp, max_depth, seed,
+                rays_per_wave, rr_depth, kerns[d])
+        else:
+            # with a BVH the megakernel's own sweep cannot run: the
+            # wavefront pool renders, as the JAX package's trace_pool does
+            wave_spp, n_waves, waves[d] = _pool_step(
+                scenes[d], camera, width, height, spp, max_depth, seed,
+                rays_per_wave, samples_per_wave, rr_depth, kerns[d],
+                engine == "mega" and tree is None)
+    D = len(devs)
+    n_units = -(-n_waves // D)
+
+    def step(accum, w):
+        parts = []
+        for d, dv in enumerate(devs):
+            if w * D + d < n_waves:
+                with mesh_mod.device_guard(dv):
+                    parts.append(waves[dv](w * D + d))
+        return accum + mesh_mod.reduce_films(parts, devs)
+
     tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
-                      f"{mode}|{engine}|{wave_spp}|{n_waves}|rr{rr_depth}"
-                      f"|bvh{int(bvh is not None)}")
+                      f"{mode}|{engine}|{wave_spp}|{n_waves}"
+                      f"|d{0 if mesh is None else D}|rr{rr_depth}"
+                      f"|bvh{int(tree is not None)}")
     path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
-                                         tag, n_waves, AUTO_CHECKPOINT_WAVES,
-                                         max(1, n_waves // 8))
+                                         tag, n_units, AUTO_CHECKPOINT_WAVES,
+                                         max(1, n_units // 8))
+    unit = "wave" if mesh is None else "round"
     accum, start = (None, 0)
     if path:
-        accum, start = _load_checkpoint(path, tag, dev, progress, "wave")
+        accum, start = _load_checkpoint(path, tag, dev, progress, unit)
     if accum is None:
         accum = torch.zeros((height, width, 3), dtype=torch.float32,
                             device=dev)
     # fault injection for the supervision tests: a fresh (not resumed)
-    # render dies before wave N; a resumed one carries on past it
+    # render dies before wave (round) N; a resumed one carries on past it
     crash_after = int(os.environ.get("TPU_RAY_CRASH_AFTER_WAVE", -1))
     timer = WaveTimer(enabled=progress)
-    for w in range(start, n_waves):
+    for w in range(start, n_units):
         if w == crash_after and start == 0:
-            raise RuntimeError(f"injected crash before wave {w} "
+            raise RuntimeError(f"injected crash before {unit} {w} "
                                "(TPU_RAY_CRASH_AFTER_WAVE)")
         if progress:
-            print(f"\rRendering wave {w + 1} of {n_waves}", end="",
+            print(f"\rRendering {unit} {w + 1} of {n_units}", end="",
                   file=sys.stderr)
         timer.start()
         accum = step(accum, w)
         if path and every and (w + 1) % every == 0:
             _save_checkpoint(path, accum.cpu().numpy(), w + 1, tag)
-        if on_partial is not None and w + 1 < n_waves:
-            on_partial(accum.cpu().numpy() / min((w + 1) * wave_spp, spp), 0)
+        if on_partial is not None and w + 1 < n_units:
+            done = min((w + 1) * D, n_waves)
+            on_partial(accum.cpu().numpy() / min(done * wave_spp, spp), 0)
         timer.stop()
     img = accum.cpu().numpy()
     if progress:

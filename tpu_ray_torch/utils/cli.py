@@ -8,8 +8,9 @@ The flags of the JAX CLI (``--scene``, ``--width``, ``--height``,
 ``--checkpoint``, ``--checkpoint-every``, ``--progressive``,
 ``--profile``, ``--serve``, ``--supervise``, ``--time``) with the same
 defaults, choices, checks and file names, plus ``--device``: the card by
-default, ``cpu`` for the plain PyTorch versions.  ``--devices N`` (device
-meshes) is refused with exit code 2 until the mesh slice of the port.
+default, ``cpu`` for the plain PyTorch versions.  ``--devices N`` renders
+on a mesh of the first N cards (N ``cpu`` entries with ``--device cpu``;
+fewer cards than N exit with code 2).
 The image goes to ``--out`` (.png/.ppm tone-mapped, .pfm/.hdr linear) or
 as a P3 PPM to stdout; progress and "Done." go to stderr.
 """
@@ -65,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "below TOL (try 0.01); --spp becomes the per-pixel "
                         "budget cap.  A different quality contract than the "
                         "reference's fixed spp (tpu_ray_torch/adaptive.py); "
-                        "single-device only")
+                        "with --devices, each round's worklist shards over "
+                        "the mesh")
     p.add_argument("--mode", default="auto",
                    choices=("auto", "pool", "queue", "wave"),
                    help="integrator: persistent work queue, ray pool with "
@@ -76,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto / xla / pallas: the wavefront kernels; mega: "
                         "one whole-wave megakernel launch per pool wave "
                         "(scenes of at most 512 prims without image "
-                        "textures); mxu is not ported")
+                        "textures); mxu: the static spheres through the "
+                        "matrix-product (tensor-core) sweep")
     p.add_argument("--aov", default=None, metavar="LIST",
                    help="render first-hit feature buffers instead of the "
                         "beauty pass: comma list from albedo,normal,depth,"
@@ -94,9 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--denoise-radius", type=int, default=3, metavar="R",
                    help="denoiser window radius (window is (2R+1)^2)")
     p.add_argument("--devices", type=int, default=0,
-                   help="shard sample waves over N devices (0 = one device; "
-                        "device meshes are not ported yet, so N > 0 is "
-                        "refused)")
+                   help="shard sample waves over N devices (0 = single "
+                        "device)")
     p.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="save the accumulator every N waves")
@@ -163,11 +165,6 @@ def _supervised(args, argv) -> int:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.devices:
-        print("--devices: device meshes are not ported yet (a later slice "
-              "of the port); render on one device without it",
-              file=sys.stderr)
-        return 2
     if args.supervise > 0 and not args.list_scenes:
         return _supervised(args, argv)
     if args.serve:
@@ -205,6 +202,16 @@ def main(argv=None) -> int:
     aov_engine = args.engine if args.engine in ("xla", "pallas") else "xla"
     if args.aov:
         return _write_aovs(args, scene, camera, aov_engine)
+    mesh = None
+    if args.devices:
+        from ..parallel.mesh import make_mesh
+
+        try:
+            mesh = make_mesh(args.devices, args.device)
+        except (RuntimeError, ValueError) as e:
+            print(f"--devices: {e}", file=sys.stderr)
+            return 2
+
     from .profiling import profile_trace
 
     prog = None
@@ -222,7 +229,7 @@ def main(argv=None) -> int:
                      samples_per_wave=args.samples_per_wave,
                      rr_depth=args.rr_depth, device=args.device,
                      progress=True, mode=args.mode, engine=args.engine,
-                     adaptive=args.adaptive, bvh=args.bvh,
+                     adaptive=args.adaptive, bvh=args.bvh, mesh=mesh,
                      checkpoint_path=args.checkpoint,
                      checkpoint_every=args.checkpoint_every,
                      on_partial=prog.update if prog else None)

@@ -16,8 +16,9 @@ Protocol (one JSON object per line), the JAX package's:
 Any CLI render flag is accepted as a key (max_depth, seed, engine, mode,
 sampler, estimator, rr_depth, adaptive, bvh, devices, rays_per_wave,
 samples_per_wave, denoise, denoise_radius), with the CLI's defaults;
-``devices`` other than 0 is refused (device meshes are a later slice of
-the port).  ``out`` is required (stdout is the response channel, so images
+``devices`` N renders on a mesh of N devices of the server's kind (the
+first N cards, or N ``cpu`` entries), with the scene cached on each.
+``out`` is required (stdout is the response channel, so images
 go to files).  Control requests: {"cmd": "ping"} -> liveness, {"cmd":
 "warm", "scene": ...} -> render one sample per pool slot (the queue: the
 full request) without writing an image, so the kernels are built and the
@@ -48,13 +49,15 @@ _DEFAULTS = dict(
 class RenderServer:
     """Caches built scenes by (name, seed, estimator, earthmap), on the
     render device (``device``: the card by default, ``"cpu"`` for the
-    plain PyTorch versions)."""
+    plain PyTorch versions), and their copies on the other devices of the
+    meshes requests ask for."""
 
     def __init__(self, device=None):
         from ..renderer import resolve_device
 
         self.device = resolve_device(device)
         self._scenes = {}
+        self._copies = {}    # (scene key, device) -> the scene there
         self._earth = {}
         self._renders = 0
         self._warms = 0
@@ -74,6 +77,22 @@ class RenderServer:
                 scene = scene.replace(strict=True)
             self._scenes[key] = scene.to(self.device)
         return self._scenes[key]
+
+    def _on_mesh(self, key, mesh) -> dict:
+        """The cached scene ``key`` on every device of ``mesh``, each copy
+        made once."""
+        from ..parallel.mesh import distinct
+
+        scene = self._scenes[key]
+        out = {}
+        for dev in distinct(mesh):
+            if dev == scene.device:
+                out[dev] = scene
+            else:
+                if (key, dev) not in self._copies:
+                    self._copies[(key, dev)] = scene.to(dev)
+                out[dev] = self._copies[(key, dev)]
+        return out
 
     def handle(self, req: dict) -> dict:
         """One request -> one response dict (never raises)."""
@@ -115,16 +134,16 @@ class RenderServer:
         if cmd == "render" and not out:
             raise ValueError("missing 'out' (images go to files; "
                              "stdout is the response channel)")
-        if cfg["devices"]:
-            raise ValueError("devices: device meshes are not ported yet (a "
-                             "later slice of the port)")
-
         from .. import renderer
         from ..core import film
         from ..models.scenes import SCENES
+        from ..parallel.mesh import make_mesh
 
-        scene = self._get_scene(req["scene"], cfg["seed"], cfg["estimator"],
-                                req.get("earthmap"))
+        mesh = (make_mesh(cfg["devices"], self.device.type)
+                if cfg["devices"] else None)
+        key = (req["scene"], cfg["seed"], cfg["estimator"],
+               req.get("earthmap"))
+        scene = self._get_scene(*key)
         camera = SCENES[req["scene"]].camera(cfg["width"], cfg["height"])
         if cfg["sampler"] != "uniform":
             camera = camera.replace(sampler=cfg["sampler"])
@@ -135,14 +154,17 @@ class RenderServer:
             # as the full render; the queue's warm is the full request
             mode = renderer.resolve_mode(
                 scene, cfg["mode"], renderer.resolve_engine(
-                    scene, cfg["engine"]), bvh=bool(cfg["bvh"]))
+                    scene, cfg["engine"]), bvh=bool(cfg["bvh"]), mesh=mesh,
+                spp=kw["spp"])
             if mode != "queue":
                 kw["spp"] = renderer.plan_pool(
                     scene, cfg["width"], cfg["height"], kw["spp"],
                     cfg["rays_per_wave"], cfg["samples_per_wave"])[0]
         t0 = time.perf_counter()
-        img = renderer.render(scene, camera, cfg["width"], cfg["height"],
-                              device=self.device, progress=False, **kw)
+        img = renderer.render(
+            scene if mesh is None else self._on_mesh(key, mesh), camera,
+            cfg["width"], cfg["height"], device=self.device, mesh=mesh,
+            progress=False, **kw)
         wall = time.perf_counter() - t0
         resp = {"ok": True, "wall_s": round(wall, 4),
                 "width": cfg["width"], "height": cfg["height"]}
