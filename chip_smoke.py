@@ -4,8 +4,9 @@ Drives ``tpu_ray_torch``'s paths (the pool renderer with the wavefront
 kernels and with the whole-wave megakernel, the work-queue renderer, the
 plain wavefront, BVH traversal, checkpoint / resume, the CLI's
 ``--supervise`` and ``--progressive``, the render server, the first-hit
-AOV pass with the denoiser, and device meshes) through its ten CUDA
-kernels at full width, and fails unless every phase passes:
+AOV pass with the denoiser, device meshes, and the pool plan above 512
+prims with its row bands) through its ten CUDA kernels at full width, and
+fails unless every phase passes:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit; the auto
    checkpoints are cleared, so none shortens a timed render;
@@ -117,10 +118,21 @@ kernels at full width, and fails unless every phase passes:
    500x500 64 spp on the pool; ``render_aovs`` of cornell 500x500 at 16
    spp and ``denoise`` of the 64-spp pool render on the card, then the
    CLI's ``--aov all`` and ``--denoise`` at that size, each with its wall;
-   ``bvh=True``: cornell 500x500 64 spp and book1-final 600x400 16 spp on
-   the pool, next-week-final 400x400 16 spp on the queue, each against the
-   brute-force render of the same call (cross-engine criterion; bit-equal
-   or not is printed) with no sweep launch; checkpoint / resume, each
+   ``bvh=True``: cornell 500x500 64 spp, book1-final 600x400 16 spp and
+   next-week-final 400x400 16 spp (the 160000-lane pool) on the pool, each
+   against the brute-force pool render of the same call (cross-engine
+   criterion; bit-equal or not is printed) with no sweep launch; the pool
+   plan above 512 prims (``bands:``), each render's bands, plans and
+   launches printed: (a) next-week-final 400x400 16 spp on the pool, plan
+   (1, 2, 8), beside the queue render (one estimator), (b) 600x400 16 spp
+   one sample a wave in bands of 266 and 134 rows, bit-equal to the
+   unbanded render of the same plan, its rows reported final exact and
+   ending at 400, (c) the same with the default plans (1, 2, 8) and (1, 4,
+   4), (d) the same with ``bvh=True`` (no sweep launch), (e) cornell
+   500x500 16 spp in four forced 125-row bands on the wavefront pool and
+   the megakernel, each bit-equal to its unbanded render, (f) a mesh of
+   two ``cuda:0`` entries at 600x400 1 spp, demoted from the queue to the
+   banded pool, against the single-device render; checkpoint / resume, each
    resumed image bit-equal to the uninterrupted one: cornell 500x500 64 spp
    in 8 waves on the pool and with ``engine="mega"`` (a crash injected by
    ``TPU_RAY_CRASH_AFTER_WAVE=5``, resumed at wave 4) and next-week-final
@@ -1390,8 +1402,9 @@ def full_width(name, width, height, spp, sampler="uniform", strict=False,
     if img.shape != (height, width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{name}: bad image {img.shape}")
     bright = float(to_rgb8(img).mean())
+    shown = {k: v for k, v in kw.items() if not callable(v)}
     log(f"render {name}{variant(sampler, strict)} {width}x{height} {spp} spp "
-        f"depth 50 seed {seed} {kw}: wall "
+        f"depth 50 seed {seed} {shown}: wall "
         f"{wall:.3f} s, {width * height * spp / wall:.4g} samples/s, mean "
         f"8-bit {bright:.2f}")
     return img, wall, bright
@@ -1593,12 +1606,13 @@ BVH_ABSENT = ("sweep", "sweep_compact", "sweep_masked", "sweep_sphere_mxu",
 
 def bvh_full():
     """Each ``BVH_FULL`` render with ``bvh=True`` beside the brute-force
-    render of the same call: the cross-engine criterion, whether they are
-    bit-equal, and no sweep launch in the bvh render (cornell and
-    book1-final on the pool, next-week-final on the queue)."""
+    render of the same call on the pool: the cross-engine criterion,
+    whether they are bit-equal, and no sweep launch in the bvh render
+    (next-week-final's ``bvh`` renders on the 160000-lane pool, as in the
+    JAX package)."""
     out, counts = {}, {}
     for name, w, h, spp in BVH_FULL:
-        img_f, wall_f, _ = full_width(name, w, h, spp)
+        img_f, wall_f, _ = full_width(name, w, h, spp, mode="pool")
         reset_counts()
         img_b, wall_b, _ = full_width(name, w, h, spp, bvh=True)
         counts[f"bvh_{name}"] = read_counts(f"bvh {name}", ("bvh",
@@ -1626,7 +1640,7 @@ def interrupted(what, fn, expect):
     raise AssertionError(f"{what}: the first call was not interrupted")
 
 
-def resumed(what, message, fn):
+def said(what, message, fn):
     """``fn()`` with stderr captured: it must say ``message``."""
     import contextlib
     import io
@@ -1636,7 +1650,7 @@ def resumed(what, message, fn):
         img = fn()
     if message not in err.getvalue():
         raise AssertionError(f"{what}: no {message!r} on stderr")
-    log(f"  {what}: the second call said {message!r}")
+    log(f"  {what}: stderr said {message!r}")
     return img
 
 
@@ -1659,7 +1673,7 @@ def checkpoint_full(d):
             {"TPU_RAY_CRASH_AFTER_WAVE": "5"},
             lambda: full_width("cornell", 500, 500, 64, checkpoint_path=ck,
                                checkpoint_every=2, **kw)), RuntimeError)
-        img = resumed(what, "resuming at wave 4", lambda: full_width(
+        img = said(what, "resuming at wave 4", lambda: full_width(
             "cornell", 500, 500, 64, checkpoint_path=ck, progress=True,
             **kw)[0])
         counts[f"checkpoint_{'mega' if engine == 'mega' else 'pool'}"] = \
@@ -1688,7 +1702,7 @@ def checkpoint_full(d):
         interrupted(what, lambda: full_width(
             "next-week-final", 400, 400, 16, mode="queue", checkpoint_path=ck,
             checkpoint_every=1, on_partial=stop), Stop)
-        img = resumed(what, "resuming at chunk 2", lambda: full_width(
+        img = said(what, "resuming at chunk 2", lambda: full_width(
             "next-week-final", 400, 400, 16, mode="queue", checkpoint_path=ck,
             progress=True)[0])
         counts["checkpoint_queue"] = read_counts(what, ("sweep", "pool_step"))
@@ -1849,6 +1863,145 @@ def serve_full(d):
     return out, counts
 
 
+# --- the pool plan above 512 prims: lane caps, the per-wave sample budget
+# and row bands ---------------------------------------------------------------
+def band_plans(name, width, height, spp, rays_per_wave=1 << 20,
+               samples_per_wave=64, engine="xla", _band_cap=None):
+    """[(row0, rows, (k_pool, s_wave, waves)), ...]: the bands ``render``
+    makes of the request (one, the frame, when it does not band) and each
+    band's ``plan_pool``."""
+    scene = SCENES[name].build(seed=SEED, earth=None)
+    cap = (renderer.lane_cap(scene.n_prims, engine) if _band_cap is None
+           else _band_cap)
+    band_h = height if cap is None or width * height <= cap \
+        else max(1, cap // width)
+    return [(r0, min(band_h, height - r0),
+             plan_pool(scene, width, min(band_h, height - r0), spp,
+                       rays_per_wave, samples_per_wave, engine))
+            for r0 in range(0, height, band_h)]
+
+
+def band_render(what, want_plans, expect, absent, name, width, height, spp,
+                **kw):
+    """A full-width render (depth 50) with its plan checked against
+    ``want_plans`` and printed, its launches counted alone, and the rows
+    its ``on_partial`` reported final, each equal to the finished image's
+    rows: (image, wall, counts, rows)."""
+    plans = band_plans(name, width, height, spp, **{
+        k: kw[k] for k in ("rays_per_wave", "samples_per_wave", "engine",
+                           "_band_cap") if k in kw})
+    if [(rows, plan) for _, rows, plan in plans] != want_plans:
+        raise AssertionError(f"{what}: bands and plans {plans}, not "
+                             f"{want_plans}")
+    rows, final = [], []
+
+    def report(im, rf):
+        rows.append(rf)
+        final.append(im[:rf].copy())
+
+    reset_counts()
+    img, wall, _ = full_width(name, width, height, spp, on_partial=report,
+                              **kw)
+    counts = read_counts(what, expect, absent)
+    if not all(np.array_equal(f, img[:len(f)]) for f in final):
+        raise AssertionError(f"{what}: a row reported final differs from "
+                             "the finished image's")
+    log(f"  {what}: {len(plans)} band(s), (rows, (k_pool, s_wave, waves)) "
+        f"{[(r, p) for _, r, p in plans]}; sweep launches "
+        f"{counts['sweep']}, step launches {counts['pool_step']}, bvh "
+        f"{counts['bvh']}, megakernel {counts['megakernel']}; wall "
+        f"{wall:.3f} s; rows reported final {sorted(set(rows))}")
+    return img, wall, counts, rows
+
+
+def hold_bits(what, a, b):
+    same = bool(np.array_equal(a, b))
+    log(f"  {what}: bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{what}: the images differ")
+
+
+def bands_full():
+    """The JAX package's pool plan above 512 prims at full width, each
+    render's plan and launches printed: (a) next-week-final 400x400 16 spp
+    on the pool, 160000 lanes, beside the queue render (one estimator,
+    other noise); (b) 600x400 16 spp one sample a wave in bands of 266 and
+    134 rows, bit-equal to the unbanded render of the same plan
+    (``_band_cap``), its reported rows exact and ending at 400; (c) the
+    same with the default samples a wave, each band its own plan; (d) the
+    same with ``bvh=True`` (no sweep launch) against (c); (e) cornell
+    500x500 16 spp forced into four 125-row bands on the wavefront pool
+    and the megakernel, each bit-equal to its unbanded render; (f) a mesh
+    of two ``cuda:0`` entries at 600x400 1 spp, which the JAX package
+    demotes from its queue to its pool, against the single-device banded
+    render."""
+    from tpu_ray_torch.parallel.mesh import make_mesh
+
+    nw, out, counts = "next-week-final", {}, {}
+    pool = ("sweep", "pool_step")
+    img_a, wall_a, counts["bands_a_pool"], _ = band_render(
+        "(a) next-week-final 400x400 pool", [(400, (1, 2, 8))], pool,
+        ("megakernel",), nw, 400, 400, 16, mode="pool")
+    img_q, wall_q, _ = full_width(nw, 400, 400, 16, mode="queue")
+    same_estimator(img_a, img_q, "(a) pool vs queue", share_cap=1.0)
+    out["a"] = dict(pool_s=wall_a, queue_s=wall_q)
+    kw = dict(mode="pool", samples_per_wave=1)
+    img_b, wall_b, counts["bands_b"], rows = band_render(
+        "(b) next-week-final 600x400 one sample a wave",
+        [(266, (1, 1, 16)), (134, (1, 1, 16))], pool, ("megakernel",), nw,
+        600, 400, 16, **kw)
+    img_u, wall_u, counts["bands_b_unbanded"], _ = band_render(
+        "(b) unbanded (_band_cap 600*400)", [(400, (1, 1, 16))], pool,
+        ("megakernel",), nw, 600, 400, 16, _band_cap=600 * 400, **kw)
+    hold_bits("(b) banded vs unbanded", img_b, img_u)
+    if rows != sorted(rows) or rows[-1] != 400 or 266 not in rows:
+        raise AssertionError(f"(b): rows reported final {rows}")
+    out["b"] = dict(banded_s=wall_b, unbanded_s=wall_u, rows_final=rows[-1])
+    img_c, wall_c, counts["bands_c"], _ = band_render(
+        "(c) next-week-final 600x400", [(266, (1, 2, 8)), (134, (1, 4, 4))],
+        pool, ("megakernel",), nw, 600, 400, 16, mode="pool")
+    img_d, wall_d, counts["bands_d_bvh"], _ = band_render(
+        "(d) next-week-final 600x400 bvh",
+        [(266, (1, 2, 8)), (134, (1, 4, 4))], ("bvh", "pool_step"),
+        BVH_ABSENT, nw, 600, 400, 16, bvh=True)
+    cross_engine(img_c, img_d, "(d) bvh vs brute force, banded")
+    out["c"] = dict(wall_s=wall_c)
+    out["d"] = dict(wall_s=wall_d, bit_equal_c=bool(np.array_equal(img_c,
+                                                                    img_d)))
+    log(f"  walls: (b) {wall_b:.3f} s, (c) {wall_c:.3f} s, (d) bvh "
+        f"{wall_d:.3f} s; (a) pool {wall_a:.3f} s, queue {wall_q:.3f} s")
+    for engine, expect, absent in (("auto", pool, ("megakernel",)),
+                                   ("mega", ("megakernel",), pool)):
+        kw = dict(rays_per_wave=62500, samples_per_wave=1, engine=engine)
+        plan = [(125, (1, 1, 16))] * 4
+        img_e, wall_e, counts[f"bands_e_{engine}"], _ = band_render(
+            f"(e) cornell 500x500 engine={engine} in bands", plan, expect,
+            absent, "cornell", 500, 500, 16, _band_cap=62500, **kw)
+        img_f, wall_f, _, _ = band_render(
+            f"(e) cornell 500x500 engine={engine} unbanded",
+            [(500, (1, 1, 16))], expect, absent, "cornell", 500, 500, 16,
+            **kw)
+        hold_bits(f"(e) engine={engine} banded vs unbanded", img_e, img_f)
+        if engine == "mega" and counts["bands_e_mega"]["megakernel"] != 64:
+            raise AssertionError("(e): not one megakernel launch a band and "
+                                 "wave")
+        out[f"e_{engine}"] = dict(banded_s=wall_e, unbanded_s=wall_f)
+    mesh2 = make_mesh(device=["cuda:0"] * 2)
+    single, wall_1, _, _ = band_render(
+        "(f) single device", [(266, (1, 1, 1)), (134, (1, 1, 1))], pool,
+        ("megakernel",), nw, 600, 400, 1, mode="pool")
+    meshed, wall, counts["bands_f_mesh"], rows = said(
+        "(f) mesh D=2", "demoting mode=queue to the wave pool: sharding",
+        lambda: band_render("(f) mesh D=2",
+                            [(266, (1, 1, 1)), (134, (1, 1, 1))], pool,
+                            ("megakernel",), nw, 600, 400, 1, mesh=mesh2))
+    err, equal = hold_mesh("(f) next-week-final 600x400 1 spp D=2", single,
+                           meshed, 1e-4, 1e-5)
+    out["f"] = dict(mesh_s=wall, single_s=wall_1, max_abs_diff=err,
+                    bit_equal=equal, rows_final=rows[-1])
+    return out, counts
+
+
 # --- device meshes: every entry cuda:0 on the one card, so the walls measure
 # the rounds' schedule and keying, not scaling --------------------------------
 def mesh_render(what, expect, absent, fn):
@@ -1971,7 +2124,7 @@ def mesh_full(d):
         {"TPU_RAY_CRASH_AFTER_WAVE": "2"},
         lambda: full_width("cornell", 500, 500, 64, checkpoint_path=ck,
                            checkpoint_every=1, **kw)), RuntimeError)
-    img = resumed(what, "resuming at round 2", lambda: full_width(
+    img = said(what, "resuming at round 2", lambda: full_width(
         "cornell", 500, 500, 64, checkpoint_path=ck, progress=True, **kw)[0])
     counts["mesh_resume"] = read_counts(what, ("sweep", "pool_step"))
     out["mesh_resume_bit_equal"] = same = bool(np.array_equal(img,
@@ -2305,6 +2458,7 @@ def main() -> int:
     import tempfile
 
     bvh_out, n_bvh = bvh_full()
+    bands_out, n_bands = bands_full()
     with tempfile.TemporaryDirectory() as d:
         ck_out, n_ck = checkpoint_full(d)
         cli_out, n_cli = cli_full(d)
@@ -2321,7 +2475,8 @@ def main() -> int:
              "adaptive_queue": n_adaptive_queue,
              "sobol_b0_queue": b0.pop("counts"),
              "checker_tex_pool": n_tex, "mxu_engine_pool": n_mxu_engine,
-             **n_aov, **n_bvh, **n_ck, **n_cli, **n_serve, **n_mesh}
+             **n_aov, **n_bvh, **n_bands, **n_ck, **n_cli, **n_serve,
+             **n_mesh}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -2409,6 +2564,7 @@ def main() -> int:
     log(f"sobol-b0 queue: {json.dumps(b0)}")
     log(f"aov and denoise: {json.dumps(aov_out)}")
     log(f"bvh renders: {json.dumps(bvh_out)}")
+    log(f"bands: {json.dumps(bands_out)}")
     log(f"checkpoint resumes bit-equal: {json.dumps(ck_out)}")
     log(f"cli: {json.dumps(cli_out)}")
     log(f"serve: {json.dumps(serve_out)}")

@@ -184,9 +184,11 @@ def test_bvh_render_matches_jax_bvh_render():
     cross_engine(a, b)
 
 
-def test_queue_request_with_bvh(capsys):
-    """At <= 512 prims a queue request with bvh renders on the pool, as in
-    the JAX package; above, on the queue, with a line saying so."""
+def test_queue_request_with_bvh(capsys, monkeypatch):
+    """A queue request with bvh renders on the pool, as in the JAX
+    package: silently for auto up to 512 prims, with a line saying so
+    above, where the pool bands (the lane cap lowered to 16 here: three
+    2-row bands) and equals the unbanded render bit for bit."""
     small = SCENES["cornell"].build()
     big = SCENES["next-week-final"].build(earth=None)
     assert renderer.resolve_mode(small, "queue", bvh=True) == "pool"
@@ -194,8 +196,16 @@ def test_queue_request_with_bvh(capsys):
         capsys.readouterr().err
     assert renderer.resolve_mode(small, "auto", bvh=True) == "pool"
     assert capsys.readouterr().err == ""
-    assert renderer.resolve_mode(big, "auto", bvh=True) == "queue"
-    assert "banded pool" in capsys.readouterr().err
-    img = renderer.render(big, SCENES["next-week-final"].camera(8, 6), 8, 6,
-                          spp=1, max_depth=2, device="cpu", bvh=True)
+    assert renderer.resolve_mode(big, "auto", bvh=True) == "pool"
+    assert "demoting mode=queue to the wave pool: bvh" in \
+        capsys.readouterr().err
+    cam = SCENES["next-week-final"].camera(8, 6)
+    kw = dict(spp=1, max_depth=2, device="cpu", bvh=True)
+    unbanded = renderer.render(big, cam, 8, 6, **kw)
+    monkeypatch.setattr(renderer, "XLA_BIG_SCENE_LANES", 16)
+    rows = []
+    img = renderer.render(big, cam, 8, 6,
+                          on_partial=lambda im, rf: rows.append(rf), **kw)
+    assert rows == [2, 4, 6]
     assert img.shape == (6, 8, 3) and np.isfinite(img).all()
+    np.testing.assert_array_equal(img, unbanded)

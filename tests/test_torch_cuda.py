@@ -880,3 +880,32 @@ def test_adaptive_mesh_on_the_card_counts_equal_one_device(card):
                             mesh=make_mesh(device=["cuda:0"] * 4), **kw)
     np.testing.assert_array_equal(nb, na)
     np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bvh", [False, True])
+def test_banded_pool_on_the_card_matches_the_cpu(card, monkeypatch, bvh):
+    """next-week-final on the pool with the lane cap lowered to 256 (three
+    8-row bands at 32x24, one sample a wave; the lanes pinned to 256, so
+    the frame too plans one slot a pixel): bit-equal to the unbanded
+    render of the same plan on the card, and the CPU's banded render at the
+    cross-engine criterion."""
+    from tpu_ray_torch import renderer
+    from tpu_ray_torch.ops import bvh as bvh_ops
+
+    spec = SCENES["next-week-final"]
+    args = (spec.build(seed=1024, earth=None), spec.camera(32, 24), 32, 24)
+    kw = dict(spp=4, max_depth=6, seed=5, mode="pool", bvh=bvh,
+              rays_per_wave=256, samples_per_wave=1)
+    unbanded = render(*args, device=card, **kw)
+    monkeypatch.setattr(renderer, "XLA_BIG_SCENE_LANES", 256)
+    counter = bvh_ops.intersect_bvh if bvh else sw.sweep
+    launches, rows = counter.launches, []
+    b = render(*args, device=card,
+               on_partial=lambda im, rf: rows.append(rf), **kw)
+    assert counter.launches > launches and rows[-1] == 24 and 8 in rows
+    np.testing.assert_array_equal(b, unbanded)
+    a = render(*args, device="cpu", **kw)
+    err = np.abs(a - b) / (1.0 + np.abs(a))
+    close = (err < 1e-4).all(axis=-1)
+    assert 1.0 - close.mean() <= 0.02
+    np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)

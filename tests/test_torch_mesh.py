@@ -230,8 +230,8 @@ def test_resume_per_round_is_bit_equal(tmp_path, monkeypatch, capsys):
 
 def test_resolve_mode_mesh_demotions(capsys):
     """A queue request with spp unknown or below D goes to the pool (said
-    on stderr); above 512 prims it stays on the queue as one single-device
-    chunk (said too), and renders as the single-device queue does."""
+    on stderr), above 512 prims too, as in the JAX package, and renders as
+    the single-device pool does."""
     small = _cornell()[0]
     mesh = make_mesh(4, "cpu")
     assert resolve_mode(small, "queue", mesh=mesh, spp=2) == "pool"
@@ -246,14 +246,15 @@ def test_resolve_mode_mesh_demotions(capsys):
     assert resolve_mode(small, "queue", "mega", mesh=mesh, spp=2) == "pool"
     assert "megakernel" in capsys.readouterr().err
     big = SCENES["next-week-final"].build(earth=None)
-    assert resolve_mode(big, "auto", mesh=mesh, spp=2) == "queue"
-    err = capsys.readouterr().err
-    assert "single-device chunk" in err and "banded pool" in err
+    assert resolve_mode(big, "auto", mesh=mesh, spp=2) == "pool"
+    assert ("demoting mode=queue to the wave pool: sharding the work queue "
+            "needs spp >= the 4-device mesh (got 2)") in \
+        capsys.readouterr().err
     cam = SCENES["next-week-final"].camera(8, 6)
     kw = dict(spp=1, max_depth=2, seed=3)
     np.testing.assert_array_equal(
         render(big, cam, 8, 6, mesh=make_mesh(2, "cpu"), **kw),
-        render(big, cam, 8, 6, device="cpu", **kw))
+        render(big, cam, 8, 6, device="cpu", mode="pool", **kw))
 
 
 def test_each_share_runs_under_its_device_guard(monkeypatch):

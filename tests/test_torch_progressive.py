@@ -1,6 +1,6 @@
-"""Progressive output on the port (tests/test_progressive.py without its
-banded cases: the port renders no bands, so no row is final before the
-render is).
+"""Progressive output on the port (tests/test_progressive.py; its banded
+cases are in tests/test_torch_bands.py): these renders are unbanded, so no
+row is final before the render is.
 
 ``render(on_partial=...)`` reports the current estimate after every wave
 or chunk but the last, and ``film.ProgressiveOutput`` turns that into a

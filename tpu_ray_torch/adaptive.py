@@ -61,10 +61,6 @@ ROUND_ITEMS = 32_000_000
 # keys no draw.  On a mesh the pad sets each device's shard of work ids, so
 # the JAX package's pad rule is kept exactly (:func:`mesh_pad`)
 PAD_LADDER = tuple((1 << 16) << (2 * i) for i in range(6))
-# the JAX package's queue lane caps above 512 prims (``tpu_ray/renderer.py:
-# 34-47``): its pad rule reads its lane count, these caps included
-XLA_BIG_SCENE_LANES = 160_000
-PALLAS_LANE_PRIM_BUDGET = 550_000_000
 # replicate slots per pixel on the pool backend: each round's variance
 # estimate has POOL_REPS - 1 degrees of freedom
 POOL_REPS = 8
@@ -158,14 +154,13 @@ def _build_worklist(extra: np.ndarray, n: np.ndarray):
 def jax_queue_lanes(n_prims: int, P: int, spp: int, rays_per_wave: int,
                     engine: str) -> int:
     """The lane count R of the JAX package's ``plan_queue`` for ``engine``
-    (the resolved name): its caps above 512 prims, then ``max(1024,
-    min(cap, P * spp))``."""
-    cap = rays_per_wave
-    if n_prims > 512 and engine in ("xla", "mxu"):
-        cap = min(cap, XLA_BIG_SCENE_LANES)
-    elif n_prims > 512 and engine == "pallas":
-        cap = min(cap, int(max(160_000, min(
-            1 << 20, PALLAS_LANE_PRIM_BUDGET // max(n_prims, 1)))))
+    (the resolved name): its lane cap above 512 prims
+    (:func:`tpu_ray_torch.renderer.lane_cap`, which its pad rule reads),
+    then ``max(1024, min(cap, P * spp))``."""
+    from .renderer import lane_cap
+
+    cap = lane_cap(n_prims, engine)
+    cap = rays_per_wave if cap is None else min(rays_per_wave, cap)
     return max(1024, min(cap, P * spp))
 
 
@@ -198,11 +193,12 @@ def render_adaptive(scene, camera, width: int, height: int, *,
     Every pixel receives between ``pilot_spp`` and ``spp_max`` samples;
     sampling stops per pixel once the standard error of its tone-mapped
     value (worst channel) is at most ``tol``.  ``mode``: "queue", "pool"
-    or "auto", resolved by :func:`tpu_ray_torch.renderer.resolve_mode`
-    (which announces any demotion on stderr).  ``engine="mega"`` runs each
-    pool slab as one megakernel launch.  ``shade`` is accepted for the JAX
-    signature; this port has one shading, the fused step.  Runs on the
-    card unless ``device="cpu"``.
+    or "auto"; "auto" is resolved by
+    :func:`tpu_ray_torch.renderer.resolve_mode` (the queue above 512
+    prims), and an explicit mode is kept, as in the JAX package.
+    ``engine="mega"`` runs each pool slab as one megakernel launch.
+    ``shade`` is accepted for the JAX signature; this port has one
+    shading, the fused step.  Runs on the card unless ``device="cpu"``.
 
     With ``mesh`` (:func:`tpu_ray_torch.parallel.mesh.make_mesh`;
     ``device`` is not read) the queue backend renders, as in the JAX
@@ -232,7 +228,9 @@ def render_adaptive(scene, camera, width: int, height: int, *,
         scene = scenes[mesh[0]]
     engine = resolve_engine(scene, engine)
     if mesh is None:
-        mode = resolve_mode(scene, mode, engine)
+        if mode == "auto":
+            # as the JAX package: an explicit "pool" or "queue" stays
+            mode = resolve_mode(scene, "auto", engine, spp=spp_max)
         scene = scene.to(resolve_device(device))
         dev = scene.device
         scenes = {dev: scene}

@@ -123,9 +123,9 @@ class ProgressiveOutput:
     Two modes, chosen by ``path``:
 
     - ``None``/``'-'``: stream P3 PPM rows to stdout (or ``fp``) the moment
-      they are final (all spp accumulated).  The port has no band tiling,
-      so no row is final before the render is: the header goes out with
-      the first update and the rows with :meth:`finish`.
+      they are final (all spp accumulated): a banded render finalises its
+      rows band by band, top to bottom; in an unbanded one no row is final
+      before the render is, so the rows go out with :meth:`finish`.
     - a file path: atomically rewrite the file with the current estimate on
       every update (written under ``<path>.tmp``, then ``os.replace``), so
       a reader never sees a torn image and a crash keeps the latest frame.

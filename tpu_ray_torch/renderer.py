@@ -8,11 +8,16 @@ the rounds of its device meshes (``mesh=``, the JAX package's
 ``make_round_fn``).
 
 * ``mode="pool"`` (``"auto"`` up to 512 prims): the ray pool.
-  ``plan_pool`` and its constants are kept identical to the JAX package's
-  even though they were tuned on a TPU: ``k_pool`` decides the global slot
-  ids and those key every random stream, so any other plan would change
-  the image's noise and the port could no longer be held to the JAX
-  renders and goldens.  With ``engine="mega"`` each wave of the pool is one
+  ``plan_pool`` and its constants, the lane caps and the per-wave sample
+  budget above 512 prims included, are kept identical to the JAX
+  package's even though they were tuned on a TPU: ``k_pool`` decides the
+  global slot ids and those key every random stream, so any other plan
+  would change the image's noise and the port could no longer be held to
+  the JAX renders and goldens.  A frame whose rows exceed the lane cap
+  renders in row bands (``_row0``, ``_rows``, ``_band_cap``, as in the
+  JAX package): each band is a pool render of its rows with the frame's
+  slot ids and pixel bases, so it draws what the whole frame would draw
+  under the band's plan.  With ``engine="mega"`` each wave of the pool is one
   launch of the whole-wave megakernel instead of the host's loop over the
   sweep and the pool step; plan, slot ids and keys are the same, so both
   engines trace the same paths.
@@ -26,10 +31,8 @@ Every mode checkpoints its film (``checkpoint_path``, and by default for
 long renders) and reports partial estimates (``on_partial``) after each
 wave or chunk, in the JAX package's order: save, then report.  The
 accumulator stays on the render's device and comes to the host only for
-those two.  The JAX package's band tiling (``_row0``, ``_rows``,
-``_band_cap``) serves its >512-prim pool lane caps, which this port does
-not carry (``resolve_mode`` sends such scenes to the queue), so no row is
-final before the render is.
+those two.  A banded render reports, with each estimate, the rows of
+the bands already finished as final.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (or a mesh of ``cpu`` entries); without a CUDA device they raise.  Nothing
@@ -64,6 +67,13 @@ from .parallel import mesh as mesh_mod
 from .utils.profiling import WaveTimer
 
 QUEUE_MIN_PRIMS = 512    # mode="auto" picks the work queue above this
+# the JAX package's pool lane caps for scenes of more than 512 prims
+# (``tpu_ray/renderer.py:34-47``): 160000 lanes for the "xla" and "mxu"
+# engines, lanes x prims within a budget for "pallas".  They were set for
+# one TPU worker, but they decide ``k_pool`` and the row bands, so they key
+# the noise and are kept as they are.  Read at call time (tests lower them)
+XLA_BIG_SCENE_LANES = 160_000
+PALLAS_LANE_PRIM_BUDGET = 550_000_000
 # the queue's per-(sample, pixel) film plane is 12 bytes a row; chunks of
 # samples are sized so it stays under this share of the card's 80 GB
 QUEUE_PLANE_BYTES = 8_000_000_000
@@ -104,6 +114,25 @@ def pick_samples_per_wave(width: int, height: int, spp: int,
         spp, max(1, rays_per_wave // max(width * height, 1)))
 
 
+def pallas_lane_cap(n_prims: int) -> int:
+    return int(max(160_000,
+                   min(1 << 20, PALLAS_LANE_PRIM_BUDGET // max(n_prims, 1))))
+
+
+def lane_cap(n_prims: int, engine: str) -> int | None:
+    """The JAX package's lane cap of a scene of ``n_prims`` for the
+    resolved ``engine``: None up to 512 prims, else
+    ``XLA_BIG_SCENE_LANES`` ("xla", "mxu") or ``pallas_lane_cap``
+    ("pallas")."""
+    if n_prims <= 512:
+        return None
+    if engine in ("xla", "mxu"):
+        return XLA_BIG_SCENE_LANES
+    if engine == "pallas":
+        return pallas_lane_cap(n_prims)
+    return None
+
+
 ENGINES = ("auto", "xla", "mxu", "pallas", "mega")
 
 
@@ -132,76 +161,57 @@ def resolve_engine(scene: SceneData, engine: str = "auto") -> str:
 
 def resolve_mode(scene: SceneData, mode: str = "auto",
                  engine: str = "auto", bvh: bool = False, mesh=None,
-                 spp: int | None = None) -> str:
-    """``"auto"`` -> the work queue for scenes of more than 512 prims, the
-    pool otherwise.  A pool request for a bigger scene is demoted to the
-    queue and announced on stderr: the pool's plan above 512 prims is a
-    set of lane caps of one TPU worker that key the noise, which this port
-    does not carry.  A queue request with the megakernel engine (on a scene
-    it supports), or with ``bvh`` on a scene of at most 512 prims, is
-    demoted to the pool, where the JAX package renders it (so the noise is
-    its noise), and announced too.  Above 512 prims ``bvh`` stays on the
-    queue, whose intersects then traverse the tree; a stderr line says
-    that the JAX package would render it on its banded pool.  With a
-    ``mesh`` of D devices, a queue request whose ``spp`` is unknown or
-    below D is demoted to the pool, as in the JAX package; above 512 prims
-    it stays on the queue as one single-device chunk, and a stderr line
-    says that the JAX package would render it on its banded pool.
-    ``mode="wave"`` keeps the plain wavefront whatever the engine, as in
-    the JAX package."""
+                 spp: int | None = None, _rows: int | None = None) -> str:
+    """The JAX package's ``resolve_mode``, decision for decision:
+    ``"auto"`` -> the work queue for scenes of more than 512 prims, the
+    pool otherwise.  A queue request with ``bvh``, with the megakernel
+    engine (on a scene it supports) or for a row band (``_rows``) goes to
+    the pool; so does one on a ``mesh`` of D devices whose ``spp`` is
+    unknown or below D.  The demotion is said on stderr when the queue was
+    asked for or the scene has more than 512 prims.  ``"pool"`` and
+    ``"wave"`` stay as asked."""
     if mode not in ("auto", "pool", "queue", "wave"):
         raise ValueError(f"unknown mode {mode!r}")
     big = scene.n_prims > QUEUE_MIN_PRIMS
+    requested = mode
     if mode == "auto":
         mode = "queue" if big else "pool"
-    elif mode == "pool" and big:
-        print(f"tpu_ray_torch: demoting mode=pool to the work queue: "
-              f"{scene.n_prims} prims (pool mode renders up to "
-              f"{QUEUE_MIN_PRIMS})", file=sys.stderr)
-        mode = "queue"
-    if mode == "queue" and bvh and big:
-        print(f"tpu_ray_torch: bvh on {scene.n_prims} prims renders on the "
-              "work queue; the JAX package would render this request on its "
-              "banded pool, whose lane caps this port does not carry",
-              file=sys.stderr)
-    elif mode == "queue" and bvh:
-        print("tpu_ray_torch: demoting mode=queue to the wave pool: bvh "
-              "runs on the pool integrator", file=sys.stderr)
-        return "pool"
-    short = mode == "queue" and mesh is not None and (spp is None
-                                                      or spp < len(mesh))
-    need = (f"sharding the work queue needs spp >= the "
-            f"{0 if mesh is None else len(mesh)}-device mesh (got {spp})")
-    if big:
-        if short:
-            print(f"tpu_ray_torch: {need}; {scene.n_prims} prims render on "
-                  "the work queue as one single-device chunk; the JAX "
-                  "package would render this request on its banded pool, "
-                  "whose lane caps this port does not carry",
-                  file=sys.stderr)
-        return mode
-    if mode == "queue" and resolve_engine(scene, engine) == "mega":
-        print("tpu_ray_torch: demoting mode=queue to the wave pool: the "
-              "megakernel runs on the pool integrator", file=sys.stderr)
-        return "pool"
-    if short:
-        print(f"tpu_ray_torch: demoting mode=queue to the wave pool: {need}",
-              file=sys.stderr)
-        return "pool"
+    demote = None
+    if mode == "queue" and (bvh or resolve_engine(scene, engine) == "mega"
+                            or _rows is not None):
+        demote = "bvh / megakernel / band slices run on the pool integrator"
+    elif mode == "queue" and mesh is not None and (spp is None
+                                                   or spp < len(mesh)):
+        demote = (f"sharding the work queue needs spp >= the "
+                  f"{len(mesh)}-device mesh (got {spp})")
+    if demote:
+        if requested == "queue" or big:
+            print(f"tpu_ray_torch: demoting mode=queue to the wave pool: "
+                  f"{demote}", file=sys.stderr)
+        mode = "pool"
     return mode
 
 
 def plan_pool(scene: SceneData, width: int, height: int, spp: int,
-              rays_per_wave: int = 1 << 20, samples_per_wave: int = 64):
+              rays_per_wave: int = 1 << 20, samples_per_wave: int = 64,
+              engine: str = "xla"):
     """Pool-mode schedule (k_pool slots/pixel, samples per slot per wave,
-    wave count): the JAX package's plan for scenes of <= 512 prims."""
-    if scene.n_prims > QUEUE_MIN_PRIMS:
-        raise ValueError("plan_pool plans scenes of at most 512 prims; "
-                         "bigger scenes render in queue mode (plan_queue)")
+    wave count): the JAX package's plan.  Above 512 prims the lanes are
+    capped (:func:`lane_cap` for the resolved ``engine``) and the samples
+    per wave by its per-wave time budget, 2.5 s at 4.2e-9 s a (lane, prim,
+    sample); a row band plans with its own rows as ``height``."""
+    engine = resolve_engine(scene, engine)
+    cap = lane_cap(scene.n_prims, engine)
+    if cap is not None:
+        rays_per_wave = min(rays_per_wave, cap)
     k_pool = pick_samples_per_wave(width, height, spp, rays_per_wave)
     s_total = spp // k_pool
     lanes = width * height * k_pool
-    s_budget = max(1, int(2e13 / (lanes * max(scene.n_prims, 1) * 8)))
+    n = max(scene.n_prims, 1)
+    if scene.n_prims > 512:
+        s_budget = max(1, int(2.5 / (lanes * n * 4.2e-9)))
+    else:
+        s_budget = max(1, int(2e13 / (lanes * n * 8)))
     s_wave = _largest_divisor_leq(s_total, min(samples_per_wave, s_budget))
     return k_pool, s_wave, s_total // s_wave
 
@@ -233,20 +243,29 @@ def plan_queue(scene: SceneData, width: int, height: int, spp: int,
     return R, chunk_spp, QUEUE_EPOCH_ITERS, tuple(levels)
 
 
-def pixel_grid(width: int, height: int, k: int, device="cpu"):
-    """(2, k*H*W) pixel-fraction bases: x = col / W, y = (H-1-row) / H
-    (image row 0 is the top of the frame)."""
-    ys = torch.arange(height - 1, -1, -1, dtype=torch.float32,
-                      device=device)[None, :, None].expand(k, height, width)
+def pixel_grid(width: int, height: int, k: int, device="cpu",
+               row0: int = 0, rows: int | None = None):
+    """(2, k*rows*W) pixel-fraction bases of image rows [row0, row0+rows)
+    of the whole frame: x = col / W, y = (H-1-row) / H (image row 0 is the
+    top of the frame)."""
+    rows = height if rows is None else rows
+    ys = torch.arange(height - 1 - row0, height - 1 - row0 - rows, -1,
+                      dtype=torch.float32,
+                      device=device)[None, :, None].expand(k, rows, width)
     xs = torch.arange(width, dtype=torch.float32,
-                      device=device)[None, None, :].expand(k, height, width)
+                      device=device)[None, None, :].expand(k, rows, width)
     return torch.stack([xs.reshape(-1) / width, ys.reshape(-1) / height])
 
 
-def slot_ids(width: int, height: int, k: int, device="cpu") -> torch.Tensor:
-    """Global slot ids k*(H*W) + row*W + col as int32 uint32 bits."""
+def slot_ids(width: int, height: int, k: int, device="cpu", row0: int = 0,
+             rows: int | None = None) -> torch.Tensor:
+    """Global slot ids k*(H*W) + row*W + col of image rows [row0,
+    row0+rows), as int32 uint32 bits: a band's lanes key the draws they
+    would key in the whole frame."""
+    rows = height if rows is None else rows
     ids = (torch.arange(k, dtype=torch.int64)[:, None, None] * (width * height)
-           + torch.arange(height, dtype=torch.int64)[None, :, None] * width
+           + torch.arange(row0, row0 + rows,
+                          dtype=torch.int64)[None, :, None] * width
            + torch.arange(width, dtype=torch.int64)[None, None, :]
            ).reshape(-1) & rng.M32
     ids = torch.where(ids >= 1 << 31, ids - (1 << 32), ids)
@@ -350,7 +369,7 @@ def _save_checkpoint(path, accum: np.ndarray, done: int, tag: str) -> None:
 # --- the render loops -----------------------------------------------------------
 
 def _render_queue(scenes, kerns, camera, width, height, spp, max_depth, seed,
-                  rays_per_wave, rr_depth, progress, bvh, engine,
+                  rays_per_wave, rr_depth, progress, engine,
                   checkpoint_path, checkpoint_every, on_partial, mesh):
     """Work-queue render: sample chunks sized by the film-plane budget, one
     key for every chunk (draws are keyed by global work item and bounce),
@@ -380,7 +399,7 @@ def _render_queue(scenes, kerns, camera, width, height, spp, max_depth, seed,
     k_queue = rng.fold_in(rng.prng_key(seed), 0x5EED)
     tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
                       f"queue|{engine}|{chunk_spp}x{n_chunks}r{chunks[-1]}"
-                      f"|d{D}|rr{rr_depth}|bvh{int(bvh)}")
+                      f"|d{D}|rr{rr_depth}")
     path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
                                          tag, n_chunks, 2, 1)
     film, start = (None, 0)
@@ -460,15 +479,18 @@ def _wave_step(scene, camera, width, height, spp, max_depth, seed,
 
 
 def _pool_step(scene, camera, width, height, spp, max_depth, seed,
-               rays_per_wave, samples_per_wave, rr_depth, kern, mega):
-    """Pool schedule (``plan_pool``): (samples per pixel a wave, waves,
-    wave(w) -> the wave's (H, W, 3) film); ``mega`` runs each wave as one
-    megakernel launch."""
+               rays_per_wave, samples_per_wave, rr_depth, kern, mega, engine,
+               row0, rows):
+    """Pool schedule of image rows [row0, row0+rows) (``plan_pool`` with
+    the band's rows): (samples per pixel a wave, waves, wave(w) -> the
+    wave's (rows, W, 3) film); ``mega`` runs each wave as one megakernel
+    launch."""
     dev = scene.device
-    k_pool, s_wave, n_waves = plan_pool(scene, width, height, spp,
-                                        rays_per_wave, samples_per_wave)
-    xy = pixel_grid(width, height, k_pool, dev)
-    sids = slot_ids(width, height, k_pool, dev)
+    k_pool, s_wave, n_waves = plan_pool(scene, width, rows, spp,
+                                        rays_per_wave, samples_per_wave,
+                                        engine)
+    xy = pixel_grid(width, height, k_pool, dev, row0, rows)
+    sids = slot_ids(width, height, k_pool, dev, row0, rows)
     trace_wave = trace_pool_mega if mega else trace_pool_staged
     base_key = rng.prng_key(seed)
     cfg0 = StepConfig.create(scene, camera, width, height, max_depth,
@@ -479,7 +501,7 @@ def _pool_step(scene, camera, width, height, spp, max_depth, seed,
         cfg = dataclasses.replace(cfg0, sample0=(w * s_wave) & rng.M32)
         rad, _ = trace_wave(scene, cfg, xy, sids, rng.fold_in(base_key, w),
                             kern)
-        return rad.T.reshape(k_pool, height, width, 3).sum(dim=0)
+        return rad.T.reshape(k_pool, rows, width, 3).sum(dim=0)
 
     return k_pool * s_wave, n_waves, wave
 
@@ -491,7 +513,9 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
            mode: str = "auto", bvh=False, mesh=None, adaptive: float = 0.0,
            checkpoint_path=None, on_partial=None,
            sort: bool | None = None, engine: str = "auto",
-           checkpoint_every: int = 0) -> np.ndarray:
+           checkpoint_every: int = 0, _row0: int = 0,
+           _rows: int | None = None,
+           _band_cap: int | None = None) -> np.ndarray:
     """Render to a linear (H, W, 3) float32 image (mean over spp samples).
 
     ``mode``: "auto" (the work queue above 512 prims, else the pool),
@@ -502,8 +526,9 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     through the sorted, compacted-list kernel (the same image bit for bit;
     ``None`` reads ``TPU_RAY_SORT``, off unless ``1``).  ``bvh``: ``True``
     (or a :class:`~tpu_ray_torch.ops.bvh.BVHArrays`) finds closest hits by
-    BVH traversal instead of the sweep (:func:`resolve_mode` for where it
-    renders; with ``engine="mega"`` the wavefront pool renders).
+    BVH traversal instead of the sweep on the pool (:func:`resolve_mode`
+    demotes a queue request; with ``engine="mega"`` the wavefront pool
+    renders).
     ``adaptive`` > 0 renders with per-pixel adaptive sampling at that
     tone-mapped standard error (:func:`tpu_ray_torch.adaptive.
     render_adaptive`): ``spp`` becomes the per-pixel budget cap, and
@@ -532,12 +557,22 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     (two chunks on the queue) checkpoint by default under
     :func:`checkpoint_dir`, a file removed when the render completes.
     ``on_partial(img, rows_final)`` is called after every wave, round or
-    chunk but the last with the current mean estimate; ``rows_final`` is 0
-    (no row is final before the render is).  ``TPU_RAY_CRASH_AFTER_WAVE=N``
-    in the environment makes a fresh (not resumed) pool or wave render
-    raise before wave (on a mesh: round) N.  ``camera.sampler`` picks the
-    camera sample ("uniform", "sobol", "sobol-b0"; the pool and queue
-    modes) and ``scene.strict`` the strict reference estimator.
+    chunk but the last with the current mean estimate of the whole frame;
+    ``rows_final`` is the number of top rows that are final (0 unless the
+    render is banded).  ``TPU_RAY_CRASH_AFTER_WAVE=N`` in the environment
+    makes a fresh (not resumed) pool or wave render raise before wave (on a
+    mesh: round) N.  ``camera.sampler`` picks the camera sample
+    ("uniform", "sobol", "sobol-b0"; the pool and queue modes) and
+    ``scene.strict`` the strict reference estimator.
+
+    Row bands, as in the JAX package: a pool render whose ``width * rows``
+    exceeds the lane cap (:func:`lane_cap`, above 512 prims; or
+    ``_band_cap``, which forces bands at any size) renders bands of
+    ``cap // width`` rows, top to bottom, each a render of its own with
+    ``_row0`` / ``_rows`` (its own plan, checkpoint ``{path}.band{row0}``,
+    progress and injected crash) and the frame's slot ids.  After each band
+    ``on_partial`` gets the frame with ``rows_final`` up to the band's end;
+    within a band, the band's rows above its start.
     """
     if adaptive and adaptive > 0:
         return render_adaptive(
@@ -550,8 +585,8 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
         scene = scenes[mesh[0]]
     engine = resolve_engine(scene, engine)
     mode = resolve_mode(scene, mode, engine, bvh=bool(bvh), mesh=mesh,
-                        spp=spp)
-    if camera.sampler == "sobol-b0" and mode != "queue":
+                        spp=spp, _rows=_rows)
+    if camera.sampler == "sobol-b0" and mode != "queue" and _rows is None:
         # the first-bounce override runs on the work queue only, as in the
         # JAX package; the pool and the megakernel keep the Sobol' camera
         # dims with hashed scatter draws, and say so
@@ -566,6 +601,22 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
         devs = mesh
     dev = devs[0]
     tree = (build_bvh(scenes[dev]) if bvh is True else bvh) if bvh else None
+    rows = height if _rows is None else _rows
+    cap = (lane_cap(scene.n_prims, engine) if _band_cap is None
+           else _band_cap)
+    if mode == "pool" and _rows is None and cap is not None \
+            and width * rows > cap:
+        # each band gets the render's scene copies and tree: nothing is
+        # replicated or built once per band
+        band_kw = dict(max_depth=max_depth, seed=seed,
+                       rays_per_wave=rays_per_wave,
+                       samples_per_wave=samples_per_wave, rr_depth=rr_depth,
+                       device=dev, progress=progress, mode=mode, bvh=tree,
+                       mesh=mesh, sort=sort, engine=engine,
+                       checkpoint_every=checkpoint_every)
+        return _render_bands(scenes if mesh is not None else scene, camera,
+                             width, height, spp, max(1, cap // width),
+                             checkpoint_path, on_partial, band_kw)
     kerns = {}
     for d in mesh_mod.distinct(devs):
         with mesh_mod.device_guard(d):
@@ -575,9 +626,8 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     if mode == "queue":
         return _render_queue(scenes, kerns, camera, width, height, spp,
                              max_depth, seed, rays_per_wave, rr_depth,
-                             progress, tree is not None, engine,
-                             checkpoint_path, checkpoint_every, on_partial,
-                             mesh)
+                             progress, engine, checkpoint_path,
+                             checkpoint_every, on_partial, mesh)
     waves = {}
     for d in mesh_mod.distinct(devs):
         if mode == "wave":
@@ -590,7 +640,7 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
             wave_spp, n_waves, waves[d] = _pool_step(
                 scenes[d], camera, width, height, spp, max_depth, seed,
                 rays_per_wave, samples_per_wave, rr_depth, kerns[d],
-                engine == "mega" and tree is None)
+                engine == "mega" and tree is None, engine, _row0, rows)
     D = len(devs)
     n_units = -(-n_waves // D)
 
@@ -604,8 +654,8 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
 
     tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
                       f"{mode}|{engine}|{wave_spp}|{n_waves}"
-                      f"|d{0 if mesh is None else D}|rr{rr_depth}"
-                      f"|bvh{int(tree is not None)}")
+                      f"|{_row0}:{rows}|d{0 if mesh is None else D}"
+                      f"|rr{rr_depth}|bvh{int(tree is not None)}")
     path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
                                          tag, n_units, AUTO_CHECKPOINT_WAVES,
                                          max(1, n_units // 8))
@@ -614,7 +664,7 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     if path:
         accum, start = _load_checkpoint(path, tag, dev, progress, unit)
     if accum is None:
-        accum = torch.zeros((height, width, 3), dtype=torch.float32,
+        accum = torch.zeros((rows, width, 3), dtype=torch.float32,
                             device=dev)
     # fault injection for the supervision tests: a fresh (not resumed)
     # render dies before wave (round) N; a resumed one carries on past it
@@ -641,3 +691,29 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
     if auto:
         _remove(path)
     return img / spp
+
+
+def _render_bands(scene, camera, width, height, spp, band_h,
+                  checkpoint_path, on_partial, kw) -> np.ndarray:
+    """The frame in bands of ``band_h`` rows, top to bottom
+    (``tpu_ray/renderer.py:600-627``): each band a :func:`render` of rows
+    [row0, row0+bh) with its own checkpoint ``{path}.band{row0}``, its
+    partial estimates composed into the frame, and the rows up to its end
+    reported final once it is done."""
+    frame = np.zeros((height, width, 3), np.float32)
+    for row0 in range(0, height, band_h):
+        bh = min(band_h, height - row0)
+        band_cb = None
+        if on_partial is not None:
+            def band_cb(img, rows_final, r0=row0, bh=bh):
+                full = frame.copy()
+                full[r0:r0 + bh] = img
+                on_partial(full, r0 + rows_final)
+        frame[row0:row0 + bh] = render(
+            scene, camera, width, height, spp,
+            checkpoint_path=(f"{checkpoint_path}.band{row0}"
+                             if checkpoint_path else None),
+            on_partial=band_cb, _row0=row0, _rows=bh, **kw)
+        if on_partial is not None:
+            on_partial(frame.copy(), row0 + bh)
+    return frame

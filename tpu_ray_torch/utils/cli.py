@@ -106,10 +106,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="intersect via BVH traversal instead of brute force")
     p.add_argument("--progressive", action="store_true",
                    help="emit output as it renders: with --out -, the PPM "
-                        "streams its rows as they are final (all of them at "
-                        "the end: the port renders no bands); with --out "
-                        "PATH, PATH is rewritten atomically with the current "
-                        "estimate after every wave or chunk")
+                        "streams its rows as they are final (as each row "
+                        "band finishes; unbanded renders at the end); with "
+                        "--out PATH, PATH is rewritten atomically with the "
+                        "current estimate after every wave, chunk or band")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the render to "
                         "DIR/trace.json")

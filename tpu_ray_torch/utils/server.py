@@ -152,14 +152,15 @@ class RenderServer:
         if cmd == "warm":
             # one sample per pool slot: the same kernels, tables and plan
             # as the full render; the queue's warm is the full request
+            engine = renderer.resolve_engine(scene, cfg["engine"])
             mode = renderer.resolve_mode(
-                scene, cfg["mode"], renderer.resolve_engine(
-                    scene, cfg["engine"]), bvh=bool(cfg["bvh"]), mesh=mesh,
+                scene, cfg["mode"], engine, bvh=bool(cfg["bvh"]), mesh=mesh,
                 spp=kw["spp"])
             if mode != "queue":
                 kw["spp"] = renderer.plan_pool(
                     scene, cfg["width"], cfg["height"], kw["spp"],
-                    cfg["rays_per_wave"], cfg["samples_per_wave"])[0]
+                    cfg["rays_per_wave"], cfg["samples_per_wave"],
+                    engine=engine)[0]
         t0 = time.perf_counter()
         img = renderer.render(
             scene if mesh is None else self._on_mesh(key, mesh), camera,
