@@ -5,12 +5,13 @@ kernels and with the whole-wave megakernel, the work-queue renderer, the
 plain wavefront, BVH traversal, checkpoint / resume, the CLI's
 ``--supervise`` and ``--progressive``, the render server, the first-hit
 AOV pass with the denoiser, device meshes, and the pool plan above 512
-prims with its row bands) through its ten CUDA kernels at full width, and
-fails unless every phase passes:
+prims with its row bands) through its twelve CUDA kernels at full width
+(the media free flight and the work queue's path ids, flush and inject
+among them), and fails unless every phase passes:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit; the auto
    checkpoints are cleared, so none shortens a timed render;
-2. build the seven sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
+2. build the nine sources of ``tpu_ray_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build seconds, the register use and the count of
    tensor-core (HMMA) instructions in the matrix-product sweep's SASS;
 3. ``torch.sqrt`` on the card correctly rounded (``core.vec.sqrt_rn`` takes
@@ -69,7 +70,15 @@ fails unless every phase passes:
    ties, t within rtol 1e-5), with the node visits and leaf pairs per ray
    its twin counts, its graph-replayed time beside the dense sweep's on the
    same rays, and its bound from those counts (each equal-t tie printed
-   with its ray, for ``tools/torch_bvh_tie.py``);
+   with its ray, for ``tools/torch_bvh_tie.py``); the media kernel on the
+   1M bounce-1 lanes of cornell-smoke's and next-week-final's pools, bit
+   for bit against ``merge_media_plain`` (a differing lane printed with
+   its ray), with its bound (48 B a lane); the path-ids kernel and the
+   queue's flush and inject kernels on 1M-lane next-week-final queue
+   states 6 iterations in (hashed camera, sobol, sobol-b0, and a worklist
+   padded past its total), bit for bit against their twins (the plane but
+   its trash column), with their bounds from this state's dying and
+   refilled lanes;
 4. the eight non-strict golden configs rendered on the card (the image
    scenes with the cyan stand-in they were made with), held to the
    cross-engine criterion against ``tests/goldens/<name>.npy``, and an
@@ -159,7 +168,14 @@ fails unless every phase passes:
    chunk and a 1-sample chunk on ``mesh[0]``; rtol 1e-5 / atol 1e-6),
    cornell 500x500 adaptive tol 0.03 budget 1000 on the queue backend
    (D = 2, sample counts equal), a per-round resume bit-equal, and
-   ``make_mesh(2)`` raising on the one card;
+   ``make_mesh(2)`` raising on the one card; last, cornell-smoke 500x500
+   64 spp on the pool (media kernel launches counted, its wall beside PR
+   12's) and the next-week-final queue renders (unsorted, sorted,
+   adaptive) and the cornell sobol-b0 queue render again with
+   ``merge_media``, ``path_ids`` and ``queue_inject`` swapped for their
+   plain twins by this script (``plain_twins``), each bit-equal to the
+   kernels' render; the walls of bands (a), (c) and (d) are printed beside
+   their walls before the media and queue kernels (``WALLS_BEFORE``);
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -169,6 +185,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -192,8 +209,8 @@ from tpu_ray_torch.models import objects as ob  # noqa: E402
 from tpu_ray_torch.models.compile import build_scene  # noqa: E402
 from tpu_ray_torch.models.scenes import SCENES  # noqa: E402
 from tpu_ray_torch.utils import cli  # noqa: E402
-from tpu_ray_torch.ops import (build, bvh, hit_scatter, megakernel,  # noqa: E402
-                               shade, sweep)
+from tpu_ray_torch.ops import (build, bvh, hit_scatter,  # noqa: E402
+                               intersect, megakernel, queue, shade, sweep)
 from tpu_ray_torch.ops.intersect import intersect_ti  # noqa: E402
 from tpu_ray_torch.renderer import (pick_samples_per_wave, pixel_grid,  # noqa: E402
                                     plan_pool, render, resolve_mode,
@@ -564,28 +581,201 @@ STEP_ROWS = {"origin": slice(0, 3), "direction": slice(3, 6),
 
 
 def queue_after(name: str, width: int, height: int, iters: int, earth=None,
-                sampler="uniform"):
+                sampler="uniform", worklist=None):
     """A 1M-lane work queue of ``name`` advanced ``iters`` iterations as
     ``trace_queue`` drives it; returns what the next iteration's kernels
     take: the step configuration with ``n_samples = 0`` (with sampler
     sobol-b0, the first-bounce override under the camera salt), zero
     ``xy``, the hashed path ids as slot ids, and lanes at mixed bounces;
-    with sobol-b0, ``st.lane`` holds each lane's (pixel, global sample)."""
+    with sobol-b0, ``st.lane`` holds each lane's (pixel, global sample).
+    With ``worklist`` ((Wl,) int64 packed entries, ``worklist_items``) the
+    items come from its first Wl - WL_PAD entries, the rest padding."""
     scene, cam = scene_and_camera(name, width, height, earth, sampler)
     R, chunk_spp = 1 << 20, 8
     total = width * height * chunk_spp
+    pad = None
+    if worklist is not None:
+        pad, total = worklist.shape[0], worklist.shape[0] - WL_PAD
     cfg = shade.StepConfig.create(scene, cam, width, height, 50, n_samples=0,
                                   cam_salt=SEED, queue=True)
     kern = SceneKernels.create(scene, False)
     key = rng.fold_in(rng.prng_key(SEED), 0x5EED)
     ki, ks = rng.fold_in(key, 0), rng.fold_in(key, 1)
-    st = _queue_init(R, total, DEV, b0=cfg.b0)
+    st = _queue_init(R, total, DEV, pad, b0=cfg.b0)
     for _ in range(iters):
         st = queue_body(st, scene, cfg, kern, ki, ks, SEED, 0, total, width,
-                        height)
+                        height, worklist)
     sid = _to_i32_bits(rng.path_ids(st.work, st.istate[0]))
     xy = torch.zeros((2, R), dtype=torch.float32, device=DEV)
     return scene, cfg, kern, st, ki, ks, xy, sid
+
+
+# padding entries past a phase-3 worklist's items
+WL_PAD = 100000
+
+
+def worklist_items(width: int, height: int, spp: int):
+    """(W * H * spp,) int64 packed worklist entries of random (pixel,
+    sample) pairs from the seed, as the adaptive rounds pack them."""
+    r = np.random.default_rng(SEED)
+    n = width * height * spp
+    return torch.from_numpy((r.integers(0, width * height, n)
+                             << queue.WL_SAMP_BITS)
+                            | r.integers(0, 1 << queue.WL_SAMP_BITS, n)
+                            ).to(DEV)
+
+
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lanes (last axis) where two tensors differ in any bit."""
+    a, b = a.contiguous(), b.contiguous()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    d = a != b
+    return d if d.dim() == 1 else d.any(dim=0)
+
+
+def check_media(name, width, height, spp, iters):
+    """The media kernel against ``merge_media_plain`` on one full-width
+    pool's rays after ``iters`` iterations (1M lanes), with the solids'
+    hits of the dense sweep kernel and the pool's slot ids: bit-equal on
+    every lane (each differing lane printed with its ray, bit for bit), the
+    twin on these card tensors launching nothing; the kernel timed by graph
+    replay beside the twin.  Bound: 48 B a lane over 3.35 TB/s against
+    ``intersect.media_ops`` a lane over 67 TFLOP/s."""
+    scene, _, kern, st, ki, _ = pool_after(name, width, height, spp, iters)
+    rays, lanes = st.fstate[:7], st.slot
+    R = rays.shape[1]
+    solids = sweep.sweep(rays, kern.geo, sweep._ranges(scene), scene.t_min)
+    run = lambda: intersect.merge_media(scene, rays, ki, lanes, kern.media,
+                                        *solids)
+    plain = lambda: intersect.merge_media_plain(scene, rays, ki, lanes,
+                                                kern.media, *solids)
+    got = run()
+    launches = intersect.merge_media.launches
+    want = plain()
+    torch.cuda.synchronize()
+    if intersect.merge_media.launches != launches:
+        raise AssertionError("the media twin launched the kernel")
+    bad = bits_differ(got[0], want[0]) | bits_differ(got[1], want[1])
+    n_bad = int(bad.sum())
+    fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
+    max_abs = float((got[0][fin] - want[0][fin]).abs().max()) \
+        if int(fin.sum()) else 0.0
+    n_med = int((want[1] >= scene.n_solid).sum())
+    what = f"{name} iters={iters} R={R}"
+    for lane in bad.nonzero().flatten()[:4].tolist():
+        log("media lane: " + json.dumps(dict(
+            scene=name, iters=iters, lane=lane, slot=int(lanes[lane]),
+            key=[int(k) for k in ki],
+            ray=[float(v).hex() for v in rays[:, lane].tolist()],
+            kernel=[float(got[0][lane]).hex(), int(got[1][lane])],
+            plain=[float(want[0][lane]).hex(), int(want[1][lane])])))
+    ms = kernel_ms(run)
+    plain_ms = cuda_ms(plain, 3)
+    t_bytes = R * 48 / HBM_BYTES_PER_S
+    t_ops = R * intersect.media_ops(kern.media, scene.any_transform) \
+        / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"media {what}: lanes differing from the twin {n_bad}, lanes in a "
+        f"medium {n_med}, t max abs err {max_abs:.3e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if n_bad:
+        raise AssertionError(f"the media kernel differs from its twin on "
+                             f"{what}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=max_abs, media_lanes=n_med)
+
+
+def check_inject(name, width, height, iters, sampler="uniform",
+                 worklist=False):
+    """The path-ids kernel and the queue's flush and inject kernels against
+    their twins on a 1M-lane queue state ``iters`` iterations in (with
+    ``worklist``, the items of ``worklist_items`` padded by ``WL_PAD``),
+    after the next iteration's sweep and step: draw ids (also past 2^32),
+    lane state, work items, frontier, sobol-b0 record and every plane
+    column but the twin's trash column bit for bit.  Timed by graph replay
+    (the inject with its step outputs restored before each launch, that
+    copy's own time subtracted).  Bounds: path ids 16 B a lane; the inject
+    24 B a lane, 24 a lane that died, 60 a lane refilled (+8 with a
+    worklist), 16 a lane with sobol-b0, over 3.35 TB/s, against
+    ``queue.inject_ops`` over 67 TFLOP/s."""
+    wl = worklist_items(width, height, 8) if worklist else None
+    scene, cfg, kern, st, ki, ks, xy, sid = queue_after(
+        name, width, height, iters, sampler=sampler, worklist=wl)
+    m = st.work.shape[0]
+    total = wl.shape[0] - WL_PAD if worklist else width * height * 8
+    what = (f"{name}{variant(sampler)}{' worklist' if worklist else ''} "
+            f"iters={iters} R={m}")
+    ids_equal = True
+    for id0 in (0, (1 << 32) - 12345):
+        ids_equal &= torch.equal(queue.path_ids(st.work, id0, st.istate[0]),
+                                 queue.path_ids_plain(st.work, id0,
+                                                      st.istate[0]))
+    bt, bi = kern.intersect(scene, st.fstate[:7], ki, sid)
+    f, i = shade.pool_step(cfg, xy, sid, st.fstate, st.istate, bt, bi, ks,
+                           lane_b0=st.lane)
+    args = lambda fx, ix, plane: (cfg, SEED, st.istate[2], fx, ix, st.work,
+                                  st.frontier, plane, st.lane, wl, total, 0,
+                                  width, height)
+    fk, ik, pk = f.clone(), i.clone(), st.plane.clone()
+    fp, ip, pp = f.clone(), i.clone(), st.plane.clone()
+    got = queue.queue_inject(*args(fk, ik, pk))
+    launches = queue.queue_inject.launches, queue.path_ids.launches
+    want = queue.queue_inject_plain(*args(fp, ip, pp))
+    queue.path_ids_plain(st.work, 0, st.istate[0])
+    torch.cuda.synchronize()
+    if (queue.queue_inject.launches, queue.path_ids.launches) != launches:
+        raise AssertionError("the queue twins launched a kernel")
+    bad = bits_differ(fk, fp) | bits_differ(ik, ip) | bits_differ(
+        got[2], want[2])
+    if cfg.b0:
+        bad |= bits_differ(got[4], want[4])
+    n_bad = int(bad.sum())
+    same = (n_bad == 0 and ids_equal and torch.equal(got[3], want[3])
+            and torch.equal(pk[:, :-1], pp[:, :-1]))
+    free = i[2] == 0
+    died = free & (st.istate[2] > 0)
+    refilled = free & (got[2] != st.work)
+    n_free, n_died, n_ref = (int(x.sum()) for x in (free, died, refilled))
+    for lane in bad.nonzero().flatten()[:4].tolist():
+        log("inject lane: " + json.dumps(dict(
+            what=what, lane=lane, work=[int(st.work[lane]),
+                                        int(got[2][lane]), int(want[2][lane])],
+            kernel=[float(v).hex() for v in fk[:, lane].tolist()],
+            plain=[float(v).hex() for v in fp[:, lane].tolist()])))
+    ids_ms = kernel_ms(lambda: queue.path_ids(st.work, 0, st.istate[0]))
+    ids_plain_ms = cuda_ms(lambda: queue.path_ids_plain(st.work, 0,
+                                                        st.istate[0]), 3)
+    fw, iw, pw = f.clone(), i.clone(), st.plane.clone()
+    restore = lambda: iw.copy_(i)
+    ms = kernel_ms(lambda: (restore(), queue.queue_inject(*args(fw, iw, pw)))
+                   ) - kernel_ms(restore)
+    plain_ms = cuda_ms(lambda: (restore(), queue.queue_inject_plain(
+        *args(fw, iw, pw))), 3)
+    nbytes = (24 * m + 24 * n_died + (68 if worklist else 60) * n_ref
+              + (16 * m if cfg.b0 else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = queue.inject_ops(m, n_ref, cfg.sobol) / FP32_FLOPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    ids_bound_ms = 1e3 * 16 * m / HBM_BYTES_PER_S
+    log(f"queue {what}: frontier {int(st.frontier)} -> {int(want[3])} of "
+        f"{total}, free {n_free}, died {n_died}, refilled {n_ref}; "
+        f"bit-equal to the twins {same} (lanes differing {n_bad}, path ids "
+        f"{ids_equal}); inject {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / m:.1f} B a lane); path "
+        f"ids {ids_ms:.4f} ms, plain {ids_plain_ms:.3f} ms, bound "
+        f"{ids_bound_ms:.4f} ms")
+    if not same:
+        raise AssertionError(f"the queue kernels differ from their twins on "
+                             f"{what}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=0.0, free=n_free,
+                died=n_died, refilled=n_ref, bytes_per_lane=nbytes / m,
+                path_ids=dict(ms=ids_ms, plain_ms=ids_plain_ms,
+                              bound_ms=ids_bound_ms, bound_by="bytes",
+                              max_abs_err=0.0))
 
 
 def check_step(name, width, height, spp, iters, earth=None,
@@ -1342,7 +1532,9 @@ COUNTERS = {"aov": aov.aov_features, "bvh": bvh.intersect_bvh,
             "hit_scatter": hit_scatter.hit_scatter,
             "megakernel": megakernel.trace_pool_mega,
             "sweep_masked": sweep.sweep_masked,
-            "sweep_sphere_mxu": sweep.sweep_sphere_mxu}
+            "sweep_sphere_mxu": sweep.sweep_sphere_mxu,
+            "media": intersect.merge_media, "path_ids": queue.path_ids,
+            "queue_inject": queue.queue_inject}
 PLAIN = {"aov": aov.aov_features_plain, "bvh": bvh.intersect_bvh_plain,
          "sweep": sweep.sweep_plain,
          "tile_lists": sweep.tile_lists_plain,
@@ -1352,7 +1544,14 @@ PLAIN = {"aov": aov.aov_features_plain, "bvh": bvh.intersect_bvh_plain,
          "hit_scatter": hit_scatter.hit_scatter_plain,
          "megakernel": megakernel.trace_pool_mega_plain,
          "sweep_masked": sweep.sweep_masked_plain,
-         "sweep_sphere_mxu": sweep.sweep_sphere_mxu_plain}
+         "sweep_sphere_mxu": sweep.sweep_sphere_mxu_plain,
+         "media": intersect.merge_media_plain,
+         "path_ids": queue.path_ids_plain,
+         "queue_inject": queue.queue_inject_plain}
+# the work queue's kernels, and next-week-final's queue paths (its fog:
+# the media kernel)
+QUEUE = ("path_ids", "queue_inject")
+NW_QUEUE = ("sweep", "pool_step", "media") + QUEUE
 
 
 def reset_counts():
@@ -1418,7 +1617,7 @@ def sobol_b0_full():
     reset_counts()
     img, wall, _ = full_width("cornell", 500, 500, 64, sampler="sobol-b0",
                               mode="queue")
-    counts = read_counts("sobol-b0 queue", ("sweep", "pool_step"))
+    counts = read_counts("sobol-b0 queue", ("sweep", "pool_step") + QUEUE)
     means = [float(full_width("cornell", 500, 500, 64, sampler="sobol",
                               mode="queue", seed=SEED + k)[0].mean())
              for k in range(4)]
@@ -1429,7 +1628,8 @@ def sobol_b0_full():
     if not lo - (hi - lo) <= mean <= hi + (hi - lo):
         raise AssertionError("the sobol-b0 queue render's mean is outside "
                              "the sobol renders' spread")
-    return dict(wall_s=wall, mean=mean, sobol_means=means, counts=counts)
+    return img, dict(wall_s=wall, mean=mean, sobol_means=means,
+                     counts=counts)
 
 
 def aov_full(img):
@@ -1601,7 +1801,7 @@ def uniform_wall(name, width, height, budget, out, **kw):
 BVH_FULL = (("cornell", 500, 500, 64), ("book1-final", 600, 400, 16),
             ("next-week-final", 400, 400, 16))
 BVH_ABSENT = ("sweep", "sweep_compact", "sweep_masked", "sweep_sphere_mxu",
-              "megakernel")
+              "megakernel", "media")
 
 
 def bvh_full():
@@ -1705,7 +1905,7 @@ def checkpoint_full(d):
         img = said(what, "resuming at chunk 2", lambda: full_width(
             "next-week-final", 400, 400, 16, mode="queue", checkpoint_path=ck,
             progress=True)[0])
-        counts["checkpoint_queue"] = read_counts(what, ("sweep", "pool_step"))
+        counts["checkpoint_queue"] = read_counts(what, NW_QUEUE)
     finally:
         renderer.QUEUE_PLANE_BYTES = old
     out["queue"] = same = bool(np.array_equal(img, full))
@@ -1938,7 +2138,7 @@ def bands_full():
     from tpu_ray_torch.parallel.mesh import make_mesh
 
     nw, out, counts = "next-week-final", {}, {}
-    pool = ("sweep", "pool_step")
+    pool = ("sweep", "pool_step", "media")      # next-week-final's fog
     img_a, wall_a, counts["bands_a_pool"], _ = band_render(
         "(a) next-week-final 400x400 pool", [(400, (1, 2, 8))], pool,
         ("megakernel",), nw, 400, 400, 16, mode="pool")
@@ -1970,7 +2170,7 @@ def bands_full():
                                                                     img_d)))
     log(f"  walls: (b) {wall_b:.3f} s, (c) {wall_c:.3f} s, (d) bvh "
         f"{wall_d:.3f} s; (a) pool {wall_a:.3f} s, queue {wall_q:.3f} s")
-    for engine, expect, absent in (("auto", pool, ("megakernel",)),
+    for engine, expect, absent in (("auto", pool[:2], ("megakernel",)),
                                    ("mega", ("megakernel",), pool)):
         kw = dict(rays_per_wave=62500, samples_per_wave=1, engine=engine)
         plan = [(125, (1, 1, 16))] * 4
@@ -2078,11 +2278,11 @@ def mesh_full(d):
         if engine == "auto":
             full_pool = img
     single, _, n_1 = mesh_render(
-        "mesh_queue single device", ("sweep", "pool_step"), ("megakernel",),
+        "mesh_queue single device", NW_QUEUE, ("megakernel",),
         lambda: full_width("next-week-final", 400, 400, 16, mode="queue"))
     single, wall_1 = single[:2]
     img, _, counts["mesh_queue"] = mesh_render(
-        "mesh_queue D=3", ("sweep", "pool_step"), ("megakernel",),
+        "mesh_queue D=3", NW_QUEUE, ("megakernel",),
         lambda: full_width("next-week-final", 400, 400, 16, mode="queue",
                            mesh=mesh3))
     img, wall = img[:2]
@@ -2095,11 +2295,12 @@ def mesh_full(d):
     kw = dict(spp_max=1000, tol=0.03, max_depth=50, seed=SEED,
               return_spp=True)
     single, wall_1, n_1 = mesh_render(
-        "mesh_adaptive_queue single device", ("sweep", "pool_step"),
+        "mesh_adaptive_queue single device", ("sweep", "pool_step") + QUEUE,
         ("megakernel",), lambda: adaptive.render_adaptive(
             scene, cam, 500, 500, mode="queue", **kw))
     meshed, wall, counts["mesh_adaptive_queue"] = mesh_render(
-        "mesh_adaptive_queue D=2", ("sweep", "pool_step"), ("megakernel",),
+        "mesh_adaptive_queue D=2", ("sweep", "pool_step") + QUEUE,
+        ("megakernel",),
         lambda: adaptive.render_adaptive(scene, cam, 500, 500, mesh=mesh2,
                                          **kw))
     same_n = bool(np.array_equal(single[1], meshed[1]))
@@ -2136,6 +2337,101 @@ def mesh_full(d):
         if isinstance(v, dict):
             log(f"  {k}: mesh wall {v['wall_s']:.3f} s, single device "
                 f"{v['single_wall_s']:.3f} s")
+    return out, counts
+
+
+# walls in s of the renders the media and queue kernels move, as this
+# script measured them while the torch twins ran on the card (one H100
+# 80GB HBM3 at 700 W, two calls; PERF.md section 6): the cornell-smoke
+# wavefront pool and the bands (a), (c), (d)
+WALLS_BEFORE = {"cornell-smoke pool": (0.432,),
+                "bands (a) pool": (1.446, 2.226),
+                "bands (c)": (3.934, 4.277), "bands (d) bvh": (0.444, 0.401)}
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """``merge_media``, ``path_ids`` and ``queue_inject`` replaced by their
+    plain twins in the modules whose callers look them up at each call
+    (``ops.intersect.intersect_ti``, ``integrator.queue_body``)."""
+    names = ((intersect, "merge_media", intersect.merge_media_plain),
+             (queue, "path_ids", queue.path_ids_plain),
+             (queue, "queue_inject", queue.queue_inject_plain))
+    saved = [getattr(mod, n) for mod, n, _ in names]
+    for mod, n, twin in names:
+        setattr(mod, n, twin)
+    try:
+        yield
+    finally:
+        for (mod, n, _), fn in zip(names, saved):
+            setattr(mod, n, fn)
+
+
+def twins_full(img_q, img_s, img_aq, n_aq, img_b0):
+    """The phase-5 renders whose paths run the media or queue kernels, each
+    rendered again with those three wrappers replaced by their plain twins
+    (``plain_twins``: torch on the card) and held bit-equal: cornell-smoke
+    500x500 64 spp on the pool (rendered here first, its launches counted,
+    its wall beside ``WALLS_BEFORE``), next-week-final 400x400 100 spp on
+    the queue unsorted and sorted, the adaptive next-week-final queue (tol
+    0.03, budget 1000; count maps too) and cornell 500x500 64 spp sobol-b0
+    on the queue.  A render that differs is printed with its share of differing
+    pixels and held to the cross-engine criterion; the block fails after
+    all five."""
+    nw = "next-week-final"
+    reset_counts()
+    img_cs, wall_cs, _ = full_width("cornell-smoke", 500, 500, 64)
+    counts = {"media_pool": read_counts(
+        "cornell-smoke pool", ("sweep", "pool_step", "media"),
+        ("megakernel",) + QUEUE)}
+    log(f"  cornell-smoke 500x500 64 spp pool wall {wall_cs:.3f} s (before "
+        f"the media kernel: {WALLS_BEFORE['cornell-smoke pool'][0]:.3f} s)")
+    scene, cam = scene_and_camera(nw, 400, 400)
+    renders = (
+        ("cornell-smoke 500x500 64 spp pool", img_cs,
+         lambda: full_width("cornell-smoke", 500, 500, 64)[0]),
+        ("next-week-final 400x400 100 spp queue", img_q,
+         lambda: full_width(nw, 400, 400, 100, mode="queue", sort=False)[0]),
+        ("next-week-final 400x400 100 spp sorted queue", img_s,
+         lambda: full_width(nw, 400, 400, 100, mode="queue", sort=True)[0]),
+        ("adaptive next-week-final 400x400 queue", (img_aq, n_aq),
+         lambda: adaptive.render_adaptive(scene, cam, 400, 400, spp_max=1000,
+                                          tol=0.03, max_depth=50, seed=SEED,
+                                          return_spp=True)),
+        ("cornell 500x500 64 spp sobol-b0 queue", img_b0,
+         lambda: full_width("cornell", 500, 500, 64, sampler="sobol-b0",
+                            mode="queue")[0]))
+    out = {"cornell-smoke pool": dict(
+        wall_s=wall_cs, walls_before_s=WALLS_BEFORE["cornell-smoke pool"])}
+    differ = []
+    for what, want, fn in renders:
+        reset_counts()
+        t0 = time.perf_counter()
+        with plain_twins():
+            got = fn()
+        wall = time.perf_counter() - t0
+        twins = {k: PLAIN[k].calls for k in ("media", "path_ids",
+                                             "queue_inject")}
+        kernels = {k: COUNTERS[k].launches for k in ("media", "path_ids",
+                                                     "queue_inject")}
+        if max(kernels.values()) or not max(twins.values()):
+            raise AssertionError(f"{what}: the twins did not stand in "
+                                 f"({kernels}, {twins})")
+        pairs = list(zip(want, got)) if isinstance(want, tuple) \
+            else [(want, got)]
+        same = all(np.array_equal(a, b) for a, b in pairs)
+        share = float((pairs[0][0] != pairs[0][1]).any(axis=-1).mean())
+        log(f"  {what}: with the plain twins (calls {twins}) {wall:.3f} s; "
+            f"bit-equal to the kernels' render {same} (pixels differing "
+            f"{share:.4%})")
+        if not same:
+            cross_engine(pairs[0][0], pairs[0][1], f"{what} kernels vs twins")
+            differ.append(what)
+        out[what] = dict(bit_equal=same, differing_share=share,
+                         twins_wall_s=wall)
+    if differ:
+        raise AssertionError(f"renders differ from their plain-twin "
+                             f"renders: {differ}")
     return out, counts
 
 
@@ -2219,6 +2515,17 @@ def main() -> int:
           "book1-final bounce 1": check_bvh("book1-final", 600, 400, 16, 1),
           "next-week-final bounce 1": check_bvh("next-week-final", 1000,
                                                 1000, 1, 1)}
+    md = {"cornell-smoke bounce 1": check_media("cornell-smoke", 500, 500, 64,
+                                                1),
+          "next-week-final bounce 1": check_media("next-week-final", 1000,
+                                                  1000, 1, 1)}
+    qi = {"uniform": check_inject("next-week-final", 1000, 1000, 6),
+          "sobol": check_inject("next-week-final", 1000, 1000, 6,
+                                sampler="sobol"),
+          "sobol-b0": check_inject("next-week-final", 1000, 1000, 6,
+                                   sampler="sobol-b0"),
+          "worklist": check_inject("next-week-final", 1000, 1000, 6,
+                                   worklist=True)}
 
     log("phase 4: goldens on the card; image, textured-checker, "
         "emissive-image scenes and AOVs card vs cpu")
@@ -2258,12 +2565,12 @@ def main() -> int:
     reset_counts()
     img_q, wall_q, _ = full_width("next-week-final", 400, 400, 100,
                                   mode="queue", sort=False)
-    n_queue = read_counts("queue", ("sweep", "pool_step"))
+    n_queue = read_counts("queue", NW_QUEUE)
     reset_counts()
     img_s, wall_s, _ = full_width("next-week-final", 400, 400, 100,
                                   mode="queue", sort=True)
     n_sorted = read_counts("sorted queue", ("sweep_compact", "list_pass",
-                                            "pool_step"))
+                                            "pool_step", "media") + QUEUE)
     log(f"  queue walls: unsorted {wall_q:.3f} s, sorted {wall_s:.3f} s; "
         f"images bit-equal {np.array_equal(img_q, img_s)}")
     if not np.array_equal(img_q, img_s):
@@ -2304,7 +2611,7 @@ def main() -> int:
         lambda: full_width("next-week-final", 400, 400, 16, mode="queue",
                            sort=True))
     n_masked = read_counts("masked queue", ("sweep_masked", "list_pass",
-                                            "pool_step"),
+                                            "pool_step", "media") + QUEUE,
                            ("sweep", "sweep_compact"))
     log(f"  masked queue wall {wall_k:.3f} s; image bit-equal to unsorted "
         f"{np.array_equal(img_u, img_k)}")
@@ -2377,18 +2684,20 @@ def main() -> int:
     reset_counts()
     full_width("next-week-final", 400, 400, 16, sampler="sobol",
                mode="queue", sort=False)
-    n_sobol_queue = read_counts("sobol queue", ("sweep", "pool_step"))
+    n_sobol_queue = read_counts("sobol queue", NW_QUEUE)
     reset_counts()
     for name, w, h, spp in STRICT_FULL:
         full_width(name, w, h, spp, strict=True)
-    n_strict = read_counts("strict pool", ("sweep", "pool_step"))
+    n_strict = read_counts("strict pool", ("sweep", "pool_step", "media"))
     reset_counts()
     full_width("cornell-smoke", 500, 500, 64, strict=True, mode="wave")
-    n_strict_wave = read_counts("strict wave", ("sweep", "hit_scatter"))
+    n_strict_wave = read_counts("strict wave", ("sweep", "hit_scatter",
+                                                "media"))
     reset_counts()
     full_width("cornell-smoke", 250, 250, 16, strict=True, engine="mega")
     n_strict_mega = read_counts("strict with engine=mega (falls back)",
-                                ("sweep", "pool_step"), ("megakernel",))
+                                ("sweep", "pool_step", "media"),
+                                ("megakernel",))
     check_card_vs_cpu("cornell 48x48 sobol queue",
                       *scene_and_camera("cornell", 48, 48, sampler="sobol"),
                       48, 48, spp=8, max_depth=8, seed=SEED, mode="queue")
@@ -2396,7 +2705,7 @@ def main() -> int:
                       *scene_and_camera("cornell-smoke", 48, 32,
                                         strict=True),
                       48, 32, spp=8, max_depth=8, seed=SEED)
-    b0 = sobol_b0_full()
+    img_b0, b0 = sobol_b0_full()
     reset_counts()
     full_width("checker-tex", 500, 500, 64)
     n_tex = read_counts("textured-checker pool", ("sweep", "pool_step"))
@@ -2424,9 +2733,9 @@ def main() -> int:
         raise AssertionError("adaptive megakernel and wavefront count maps "
                              "differ on more than 2% of pixels")
     reset_counts()
-    _, _, ad_queue = adaptive_full("next-week-final", 400, 400, 1000, 0.03,
-                                   img_q, rounds)
-    n_adaptive_queue = read_counts("adaptive queue", ("sweep", "pool_step"))
+    img_aq, n_aq, ad_queue = adaptive_full("next-week-final", 400, 400, 1000,
+                                           0.03, img_q, rounds)
+    n_adaptive_queue = read_counts("adaptive queue", NW_QUEUE)
     uniform_wall("next-week-final", 400, 400, 1000, ad_queue, mode="queue")
     nw_scene, nw_cam = scene_and_camera("next-week-final", 100, 100)
     twice = [adaptive.render_adaptive(nw_scene, nw_cam, 100, 100,
@@ -2459,11 +2768,19 @@ def main() -> int:
 
     bvh_out, n_bvh = bvh_full()
     bands_out, n_bands = bands_full()
+    band_walls = (("bands (a) pool", bands_out["a"]["pool_s"]),
+                  ("bands (c)", bands_out["c"]["wall_s"]),
+                  ("bands (d) bvh", bands_out["d"]["wall_s"]))
+    log("  walls (s) against those before the media and queue kernels: "
+        + ", ".join(f"{k} {v:.3f} (before: "
+                    f"{', '.join(f'{w:.3f}' for w in WALLS_BEFORE[k])})"
+                    for k, v in band_walls))
     with tempfile.TemporaryDirectory() as d:
         ck_out, n_ck = checkpoint_full(d)
         cli_out, n_cli = cli_full(d)
         serve_out, n_serve = serve_full(d)
         mesh_out, n_mesh = mesh_full(d)
+    twins_out, n_twins = twins_full(img_q, img_s, img_aq, n_aq, img_b0)
     paths = {"pool": n_pool, "queue": n_queue, "sorted_queue": n_sorted,
              "wave": n_wave, "mega_pool": n_mega, "masked_queue": n_masked,
              "mxu_pool": n_mxu, "sobol_pool": n_sobol_pool,
@@ -2476,7 +2793,7 @@ def main() -> int:
              "sobol_b0_queue": b0.pop("counts"),
              "checker_tex_pool": n_tex, "mxu_engine_pool": n_mxu_engine,
              **n_aov, **n_bvh, **n_bands, **n_ck, **n_cli, **n_serve,
-             **n_mesh}
+             **n_mesh, **n_twins}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -2560,7 +2877,27 @@ def main() -> int:
                       "texture_value, XLA: no TPU kernel; port-only)",
              launches=launches["aov"], launches_by_path=by_path["aov"],
              library_ms=None, variants={"textured checker": av_tex}, **av),
+        dict(name="media", route="cuda", source="tpu_ray_torch/csrc/media.cu",
+             replaces="tpu_ray/ops/intersect.py:172-230 (the media branch of "
+                      "_chunk_t; XLA: no TPU kernel; port-only)",
+             launches=launches["media"], launches_by_path=by_path["media"],
+             library_ms=None,
+             variants={"next-week-final bounce 1":
+                       md["next-week-final bounce 1"]},
+             **md["cornell-smoke bounce 1"]),
+        dict(name="queue_inject", route="cuda",
+             source="tpu_ray_torch/csrc/queue.cu",
+             replaces="tpu_ray/integrator.py:686, :764-849 (_queue_body's "
+                      "path ids, flush and inject; XLA: no TPU kernel; "
+                      "port-only)",
+             launches=launches["queue_inject"],
+             launches_by_path=by_path["queue_inject"],
+             path_ids_launches=launches["path_ids"], library_ms=None,
+             variants={k: v for k, v in qi.items() if k != "uniform"},
+             **qi["uniform"]),
     ]
+    log(f"media and queue kernels against their twins' renders: "
+        f"{json.dumps(twins_out)}")
     log(f"sobol-b0 queue: {json.dumps(b0)}")
     log(f"aov and denoise: {json.dumps(aov_out)}")
     log(f"bvh renders: {json.dumps(bvh_out)}")

@@ -909,3 +909,108 @@ def test_banded_pool_on_the_card_matches_the_cpu(card, monkeypatch, bvh):
     close = (err < 1e-4).all(axis=-1)
     assert 1.0 - close.mean() <= 0.02
     np.testing.assert_allclose(a[close], b[close], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["cornell-smoke", "next-week-final"])
+def test_media_kernel_bit_equal_to_plain(card, name):
+    """The media kernel against its twin on 1M bounce-1 lanes of a pool
+    (the rays, lane ids and solids' hits the pool path gives it), every
+    lane bit for bit; the twin on card tensors launches nothing."""
+    from tpu_ray_torch.ops import intersect as isect
+
+    W, H, K = (500, 500, 4) if name == "cornell-smoke" else (1000, 1000, 1)
+    spec, ps = _build(name, card)
+    cfg = shade.StepConfig.create(ps, spec.camera(W, H), W, H, 8,
+                                  n_samples=1, cam_salt=7)
+    st = init_pool_state(pixel_grid(W, H, K, card), slot_ids(W, H, K, card))
+    R = st.slot.shape[0]
+    none = (torch.empty(R, device=card),
+            torch.zeros(R, dtype=torch.int32, device=card))
+    st.fstate, st.istate = shade.pool_step(cfg, st.xy, st.slot, st.fstate,
+                                           st.istate, *none, (0, 0),
+                                           init=True)
+    kern = SceneKernels.create(ps)
+    bt, bi = kern.intersect(ps, st.fstate[:7], (3, 4), st.slot)
+    st.fstate, st.istate = shade.pool_step(cfg, st.xy, st.slot, st.fstate,
+                                           st.istate, bt, bi, (5, 6))
+    rays = st.fstate[:7]
+    solids = sw.sweep(rays, kern.geo, sw._ranges(ps), ps.t_min)
+    launches = isect.merge_media.launches
+    t, i = isect.merge_media(ps, rays, (7, 8), st.slot, kern.media, *solids)
+    assert isect.merge_media.launches == launches + 1
+    tp, ip = isect.merge_media_plain(ps, rays, (7, 8), st.slot, kern.media,
+                                     *solids)
+    assert isect.merge_media.launches == launches + 1
+    assert torch.equal(t, tp) and torch.equal(i, ip)
+    assert int((i >= ps.n_solid).sum()) > 1000
+
+
+def _queue_state(card, sampler, worklist_mode):
+    """A 4096-lane cornell queue a few iterations into a render on the
+    card, and what its next queue_inject takes: uniform, sobol, sobol-b0
+    or (``worklist_mode``) a worklist of random (pixel, sample) entries
+    whose last 1000 are padding past its total."""
+    from tpu_ray_torch.integrator import WL_SAMP_BITS
+    from tpu_ray_torch.ops import queue as q
+
+    W, H, m = 48, 32, 4096
+    spec, ps = _build("cornell", card)
+    cam = spec.camera(W, H).replace(sampler=sampler)
+    cfg = shade.StepConfig.create(ps, cam, W, H, 8, n_samples=0, cam_salt=7,
+                                  queue=True)
+    kern = SceneKernels.create(ps)
+    worklist = None
+    total = pad = W * H * 8
+    if worklist_mode:
+        r = np.random.default_rng(9)
+        worklist = torch.from_numpy(
+            (r.integers(0, W * H, pad) << WL_SAMP_BITS)
+            | r.integers(0, 1 << WL_SAMP_BITS, pad)).to(card)
+        total = pad - 1000
+    st = _queue_init(m, total, card, pad, b0=cfg.b0)
+    key = rng.fold_in(rng.prng_key(5), 0x5EED)
+    ki, ks = rng.fold_in(key, 0), rng.fold_in(key, 1)
+    for _ in range(4):
+        st = queue_body(st, ps, cfg, kern, ki, ks, 7, 3 * W * H, total, W, H,
+                        worklist)
+    sid = q.path_ids(st.work, 3 * W * H, st.istate[0])
+    bt, bi = kern.intersect(ps, st.fstate[:7], ki, sid)
+    zeros2 = torch.zeros((2, m), dtype=torch.float32, device=card)
+    f, i = shade.pool_step(cfg, zeros2, sid, st.fstate, st.istate, bt, bi,
+                           ks, lane_b0=st.lane)
+    return cfg, st, f, i, worklist, total, W, H
+
+
+@pytest.mark.parametrize("sampler,worklist_mode", [
+    ("uniform", False), ("sobol", False), ("sobol-b0", False),
+    ("uniform", True)])
+def test_queue_kernels_bit_equal_to_plain(card, sampler, worklist_mode):
+    """path_ids and queue_inject against their twins on a queue state a few
+    iterations in: the draw ids, the lane state, the work items, the
+    frontier, the sobol-b0 record and every plane column but the twin's
+    trash column, bit for bit."""
+    from tpu_ray_torch.ops import queue as q
+
+    cfg, st, f, i, worklist, total, W, H = _queue_state(card, sampler,
+                                                        worklist_mode)
+    for id0 in (3 * W * H, (1 << 32) - 5):
+        launches = q.path_ids.launches
+        sid = q.path_ids(st.work, id0, st.istate[0])
+        assert q.path_ids.launches == launches + 1
+        assert torch.equal(sid, q.path_ids_plain(st.work, id0, st.istate[0]))
+    args = lambda fx, ix, plane: (
+        cfg, 7, st.istate[2], fx, ix, st.work, st.frontier, plane, st.lane,
+        worklist, total, 3 * W * H, W, H)
+    pk, pp = st.plane.clone(), st.plane.clone()
+    launches = q.queue_inject.launches
+    got = q.queue_inject(*args(f.clone(), i.clone(), pk))
+    assert q.queue_inject.launches == launches + 1
+    want = q.queue_inject_plain(*args(f.clone(), i.clone(), pp))
+    assert q.queue_inject.launches == launches + 1
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    if cfg.b0:
+        assert torch.equal(got[4], want[4])
+    assert torch.equal(pk[:, :-1], pp[:, :-1])
+    free = i[2] == 0
+    assert int(free.sum()) > 100 and int(want[3]) > int(st.frontier)

@@ -59,14 +59,16 @@ import numpy as np
 import torch
 
 from .core import rng
-from .core.vec import sqrt_rn
 from .models.scene_data import SceneData
+from .ops import queue as queue_ops
 from .ops.bvh import BVHArrays, BVHTables, intersect_bvh
 from .ops.hit_scatter import hit_scatter
 from .ops.intersect import intersect_ti, media_rows
 from .ops.megakernel import trace_pool_mega  # noqa: F401  (re-exported)
+from .ops.queue import (  # noqa: F401  (re-exported)
+    WL_SAMP_BITS, WL_SAMP_MASK, _to_i32_bits)
 from .ops.shade import (N_FSTATE, N_ISTATE, RR_COL, RR_PMIN, StepConfig,
-                        camera_uniforms, pool_step)
+                        pool_step)
 from .ops.sweep import (MxuPack, SweepBlocks, mxu_pack, sweep_blocks,
                         sweep_table, use_mask_cull, use_mxu, use_sort)
 from .parallel import mesh as mesh_mod
@@ -296,15 +298,6 @@ def trace(scene: SceneData, cfg: StepConfig, rays: torch.Tensor, key,
 
 # --- the work queue ---------------------------------------------------------
 
-# Worklist packing (adaptive sampling): one item per entry, the pixel id in
-# the high bits and the pixel's ABSOLUTE sample index in the low
-# WL_SAMP_BITS, as in the JAX package.  Entries are uint32 values held in
-# int64, because CPU torch has no ``>>`` for uint32.  The adaptive loop
-# checks the bounds: at most 2^18 pixels and 2^14 - 1 samples a pixel.
-WL_SAMP_BITS = 14
-WL_SAMP_MASK = (1 << WL_SAMP_BITS) - 1
-
-
 @dataclass
 class QueueState:
     """The queue's lanes (pool-state layout: ``fstate`` rows 10:13 hold the
@@ -342,11 +335,6 @@ def _queue_init(R: int, total: int, dev, pad: int | None = None,
               else None))
 
 
-def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) as the int32 with the same low 32 bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
 def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
                kern: SceneKernels, k_isect, k_scat, cam_salt: int,
                work_base: int, total: int, width: int, height: int,
@@ -367,61 +355,15 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     m = st.work.shape[0]
     dev = st.work.device
     id0 = work_base if work_id0 is None else work_id0
-    sid = _to_i32_bits(rng.path_ids(st.work + id0, st.istate[0]))
+    sid = queue_ops.path_ids(st.work, id0, st.istate[0])
     bt, bi = kern.intersect(scene, st.fstate[:7], k_isect, sid)
     zeros2 = torch.zeros((2, m), dtype=torch.float32, device=dev)
-    was_active = st.istate[2] > 0
     f, i = pool_step(cfg, zeros2, sid, st.fstate, st.istate, bt, bi, k_scat,
                      lane_b0=st.lane)
-
-    # flush: each work item dies exactly once, so its radiance is written
-    died = was_active & (i[2] == 0)
-    st.plane.index_copy_(1, torch.where(died, st.work,
-                                        st.plane.shape[1] - 1), f[10:13])
-
-    # inject: free lanes take the next work items off the frontier
-    free = i[2] == 0
-    ranks = torch.cumsum(free.to(torch.int64), dim=0) - 1
-    w_new = st.frontier + torch.where(free, ranks, 0)
-    valid = free & (w_new < total)
-    P = width * height
-    if worklist is None:
-        pix = torch.where(valid, w_new % P, 0)
-        gsample = ((work_base // P) + torch.where(valid, w_new // P, 0)
-                   ) & rng.M32
-    else:
-        packed = worklist[torch.where(valid, w_new, 0)]
-        pix = torch.where(valid, packed >> WL_SAMP_BITS, 0)
-        gsample = torch.where(valid, packed & WL_SAMP_MASK, 0)
-    # camera stream keyed by (pixel, global sample), the pool regen's draws
-    # with the pixel id as the slot word (hashed, or the Sobol' point of the
-    # plain global sample)
-    u0, u1, u2, u3, u4 = camera_uniforms(cfg.sobol, pix, gsample,
-                                         cam_salt & rng.M32)
-    sx = ((pix % width).to(torch.float32) + u0) * cfg.inv_w
-    sy = ((height - 1 - pix // width).to(torch.float32) + u1) * cfg.inv_h
-    cam = [float(c) for c in cfg.cam]
-    r = cam[18] * sqrt_rn(u2)
-    phi = rng.TWO_PI * u3
-    rc, rs = r * torch.cos(phi), r * torch.sin(phi)
-    off = [rc * cam[12 + a] + rs * cam[15 + a] for a in range(3)]
-    t_new = cam[19] + float(np.float32(cam[20]) - np.float32(cam[19])) * u4
-    new = torch.stack(
-        [cam[a] + off[a] for a in range(3)]
-        + [cam[3 + a] + sx * cam[6 + a] + sy * cam[9 + a] - cam[a] - off[a]
-           for a in range(3)] + [t_new])
-    f[0:7] = torch.where(valid, new, f[0:7])
-    f[7:10] = torch.where(valid, 1.0, f[7:10])
-    f[10:13] = torch.where(valid, 0.0, f[10:13])
-    i[0] = torch.where(valid, 0, i[0])
-    i[2] = (~free | valid).to(torch.int32)
-    frontier = torch.clamp(st.frontier + free.sum(), max=total)
-    lane = st.lane
-    if cfg.b0:
-        lane = torch.where(valid, torch.stack([_to_i32_bits(pix),
-                                               _to_i32_bits(gsample)]), lane)
-    return QueueState(f, i, torch.where(valid, w_new, st.work), frontier,
-                      st.plane, lane)
+    f, i, work, frontier, lane = queue_ops.queue_inject(
+        cfg, cam_salt, st.istate[2], f, i, st.work, st.frontier, st.plane,
+        st.lane, worklist, total, work_base, width, height)
+    return QueueState(f, i, work, frontier, st.plane, lane)
 
 
 def queue_compact(st: QueueState, m: int) -> QueueState:

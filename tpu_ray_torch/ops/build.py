@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 SOURCES = ("sweep", "sweep_compact", "sweep_mxu", "pool_step", "megakernel",
-           "aov", "bvh")
+           "aov", "bvh", "media", "queue")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -31,7 +31,7 @@ import torch
 from ..core import rng
 from ..models.scene_data import SceneData
 from .build import load_fn
-from .intersect import INF, media_rows, merge_media
+from .intersect import INF, media_rows, merge_media_plain
 from .shade import (N_FSTATE, N_ISTATE, StepConfig, _params, pool_step_plain,
                     table_ptrs)
 from .sweep import _ranges, sweep_plain, sweep_table
@@ -112,8 +112,8 @@ def trace_pool_mega_plain(scene: SceneData, cfg: StepConfig, xy, slot,
             bt = torch.full((R,), INF, dtype=torch.float32, device=dev)
             bi = none_i
         if scene.has_media:
-            bt, bi = merge_media(scene, rays, keys[it, 2:4], slot, media,
-                                 bt, bi)
+            bt, bi = merge_media_plain(scene, rays, keys[it, 2:4], slot,
+                                       media, bt, bi)
         f, i = pool_step_plain(cfg, xy, slot, f, i, bt.contiguous(),
                                bi.to(torch.int32).contiguous(),
                                keys[it, 0:2])

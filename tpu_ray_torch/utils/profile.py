@@ -59,7 +59,8 @@ def main(argv=None) -> int:
         return 1
 
     from ..models.scenes import SCENES
-    from ..ops import build, hit_scatter, megakernel, shade, sweep
+    from ..ops import (build, hit_scatter, intersect, megakernel, queue,
+                       shade, sweep)
     from ..renderer import render
 
     build.build_all()
@@ -75,7 +76,9 @@ def main(argv=None) -> int:
                 "sweep_sphere_mxu": sweep.sweep_sphere_mxu,
                 "pool_step": shade.pool_step,
                 "hit_scatter": hit_scatter.hit_scatter,
-                "megakernel": megakernel.trace_pool_mega}
+                "megakernel": megakernel.trace_pool_mega,
+                "media": intersect.merge_media, "path_ids": queue.path_ids,
+                "queue_inject": queue.queue_inject}
     for fn in counters.values():
         fn.launches = 0
     megakernel.read_stats("cuda")
