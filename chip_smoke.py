@@ -65,12 +65,18 @@ among them), and fails unless every phase passes:
    the textured-checker scene, with its bound (68 B a lane); the BVH
    traversal kernel on cornell's 1M camera rays and bounce-1 rays,
    book1-final's 960k bounce-1 rays and next-week-final's 1M bounce-1 rays
-   (its fog in the tree): bit-equal to its plain twin, against the
-   brute-force sweep plus media (hits equal, prims equal but on equal-t
-   ties, t within rtol 1e-5), with the node visits and leaf pairs per ray
-   its twin counts, its graph-replayed time beside the dense sweep's on the
-   same rays, and its bound from those counts (each equal-t tie printed
-   with its ray, for ``tools/torch_bvh_tie.py``); the media kernel on the
+   (its fog in the tree), under both tie rules: rule VISIT (``bvh=True``)
+   bit-equal to its plain twin and against the brute-force sweep plus
+   media (hits equal, prims equal but on equal-t ties, t within rtol
+   1e-5), rule INDEX (the route) bit-equal in t and prim to
+   ``intersect_ti`` (the dense sweep and media kernels) on every lane and
+   to ``intersect_ti``'s plain path (the torch sweep and media merge) at
+   the dense sweep's criterion, each rule graph-replayed beside the dense
+   sweep and the whole ``intersect_ti`` on the same rays, with its bound
+   from the work its counting form counted (the visit rule's also from its
+   twin's counts; each
+   equal-t tie printed with its ray, for ``tools/torch_bvh_tie.py``, and
+   each lane where INDEX differed); the media kernel on the
    1M bounce-1 lanes of cornell-smoke's and next-week-final's pools, bit
    for bit against ``merge_media_plain`` (a differing lane printed with
    its ray), with its bound (48 B a lane); the path-ids kernel and the
@@ -95,7 +101,13 @@ among them), and fails unless every phase passes:
    pool - cornell 500x500 depth 50 at 64 spp (a 1M-lane pool) and
    book1-final 600x400 at 16 spp; queue - next-week-final (1409 prims)
    400x400, 100 spp, depth 50, unsorted and with the sorted sweep (the two
-   images bit-equal); wave - cornell 500x500, 64 spp, depth 50; a small
+   images bit-equal); the route (scenes of ``BVH_ROUTE_MIN_PRIMS`` prims
+   or more take the BVH kernel under rule INDEX: no sweep or media
+   launch) - that queue render bit-equal to the same render with the
+   route off (the dense sweep and the media kernel), and book1-final
+   600x400 16 spp on the pool (below the count: the dense sweep) bit-equal
+   to the same render with the route forced on, each with both walls;
+   wave - cornell 500x500, 64 spp, depth 50; a small
    queue render on the card against the same render on the CPU; megakernel -
    cornell 500x500 64 spp, book1-final 600x400 16 spp and cornell-smoke
    500x500 64 spp with ``engine="mega"`` (one launch per wave, no sweep or
@@ -198,7 +210,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device")
 
-from tpu_ray_torch import adaptive, aov, renderer  # noqa: E402
+from tpu_ray_torch import adaptive, aov, integrator, renderer  # noqa: E402
 from tpu_ray_torch.core import rng, vec  # noqa: E402
 from tpu_ray_torch.core.film import to_rgb8  # noqa: E402
 from tpu_ray_torch.denoise import denoise  # noqa: E402
@@ -418,10 +430,11 @@ def sweep_flops(scene, R: int) -> float:
     return float(R) * per_ray
 
 
-def hold_sweep(what, R, got, plain):
-    """The dense sweep kernel's (t, i) against its plain version's: at most
-    1e-5 of the rays hit the other way, are out of tolerance in t or name
-    another prim (exact ties aside).  Returns the max abs error in t."""
+def hold_sweep(what, R, got, plain, kernel="sweep"):
+    """The dense sweep kernel's (t, i), or another ``kernel``'s with the
+    sweep's function, against the plain sweep's: at most 1e-5 of the rays
+    hit the other way, are out of tolerance in t or name another prim
+    (exact ties aside).  Returns the max abs error in t."""
     (bt, bi), (pt, pi) = got, plain
     hit_k, hit_p = torch.isfinite(bt), torch.isfinite(pt)
     hit_mismatch = int((hit_k != hit_p).sum())
@@ -432,11 +445,12 @@ def hold_sweep(what, R, got, plain):
     idx_diff = both & (bi != pi)
     ties = int((idx_diff & (bt == pt)).sum())
     bad_i = int(idx_diff.sum()) - ties
-    log(f"sweep {what} R={R}: hits {int(hit_k.sum())}, "
+    log(f"{kernel} {what} R={R}: hits {int(hit_k.sum())}, "
         f"hit mismatches {hit_mismatch}, t max abs err {max_abs:.3e}, "
         f"t out of tol {bad_t}, idx mismatches {bad_i} (+{ties} exact ties)")
     if hit_mismatch > 1e-5 * R or bad_t > 1e-5 * R or bad_i > 1e-5 * R:
-        raise AssertionError(f"sweep kernel disagrees with plain on {what}")
+        raise AssertionError(f"{kernel} kernel disagrees with plain on "
+                             f"{what}")
     return max_abs
 
 
@@ -494,30 +508,65 @@ def check_sweep(name, width, height, spp, iters, parts=()):
     return out
 
 
-def check_bvh(name, width, height, spp, iters):
-    """The BVH kernel on one full-width pool's rays after ``iters``
-    iterations (0: camera rays), held three ways: bit-equal to its plain
-    twin on every lane; against the brute-force sweep plus media
-    (``intersect_ti``: the dense sweep kernel), ``hit`` equal on every
-    lane, ``prim`` equal on every hit lane but equal-t ties (the visit
-    order is not the index order), t within rtol 1e-5; and timed by graph
-    replay beside the dense sweep on the same rays.
+def plain_ti(scene, kern, rays, ki, lanes):
+    """``intersect_ti``'s plain path on card tensors: the dense sweep's and
+    the media merge's torch twins (rule INDEX's plain version)."""
+    bt, bi = sweep.sweep_plain(rays, kern.geo, sweep._ranges(scene),
+                               scene.t_min)
+    if scene.has_media:
+        bt, bi = intersect.merge_media_plain(scene, rays, ki, lanes,
+                                             kern.media, bt, bi)
+    return bt, bi
 
-    Its bound counts the work this run's rays need, which the twin counts:
-    ~25 fp32 operations a node visit plus each leaf pair's math (21 a
-    static sphere, 27 moving, 24 box, 31 quad, ~40 a medium) over 67
-    TFLOP/s, against 36 B a ray (7 floats in, t and id out; 4 B more for
-    the lane id that keys the media draws) over 3.35 TB/s; the larger of
-    the two."""
+
+def bvh_bound(scene, R, flops):
+    """(bound ms, what binds) of a traversal doing ``flops`` over R rays:
+    40 B a ray (7 floats in, t and id out, and the lane id with media)."""
+    t_bytes = R * (36 + (4 if scene.has_media else 0)) / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_bvh(name, width, height, spp, iters):
+    """The BVH kernel's two tie rules on one full-width pool's rays after
+    ``iters`` iterations (0: camera rays).
+
+    Rule VISIT (``bvh=True``): bit-equal to its plain twin on every lane;
+    against the brute-force sweep plus media (``intersect_ti``: the dense
+    sweep and media kernels) ``hit`` equal on every lane, ``prim`` equal on
+    every hit lane but equal-t ties (the visit order is not the index
+    order), t within rtol 1e-5.  Rule INDEX (the route): bit-equal in t and
+    prim to ``intersect_ti`` on every lane, ties included, and held to its
+    plain version (``plain_ti``: the torch sweep and media merge) at the
+    dense sweep kernel's criterion (``hold_sweep``), its max abs error the
+    kernels line's.  Each rule timed by graph replay beside the dense sweep
+    and the whole ``intersect_ti`` (sweep and media kernels) on the same
+    rays.
+
+    Each rule's bound counts the work its kernel did on these rays, which
+    its counting form counts (``stats``): ~25 fp32 operations a child box
+    tested (~40 under INDEX), 2 a stack entry popped, each leaf pair's
+    math (21 a static sphere, 27 moving, 24 box, 31 quad, ~40 a medium)
+    over 67 TFLOP/s, against 36 B a ray (7 floats in, t and id out; 4 B
+    more for the lane id that keys the media draws) over 3.35 TB/s; the
+    larger of the two.  VISIT's bound from its twin's counts (25 a node
+    visit, JAX's lockstep loop) is printed beside it."""
     scene, _, kern, st, ki, _ = pool_after(name, width, height, spp, iters)
     rays, lanes = st.fstate[:7], st.slot
     R = rays.shape[1]
-    tables = bvh.BVHTables.create(scene, None, kern.geo, kern.media)
-    got = bvh.intersect_bvh(scene, tables, rays, ki, lanes)
-    stats = {}
-    plain = bvh.intersect_bvh_plain(scene, tables, rays, ki, lanes, stats)
+    visit = bvh.BVHTables.create(scene, None, kern.geo, kern.media)
+    index = bvh.BVHTables.create(scene, visit.bvh, kern.geo, kern.media,
+                                 rule=bvh.INDEX)
+    got = bvh.intersect_bvh(scene, visit, rays, ki, lanes)
+    twin_stats = {}
+    plain = bvh.intersect_bvh_plain(scene, visit, rays, ki, lanes,
+                                    twin_stats)
     twin_equal = (torch.equal(got[0], plain[0])
                   and torch.equal(got[1], plain[1]))
+    fin = torch.isfinite(got[0]) & torch.isfinite(plain[0])
+    visit_err = (float((got[0][fin] - plain[0][fin]).abs().max())
+                 if int(fin.sum()) else 0.0)
     ft, fi = intersect_ti(scene, rays, ki, lanes, kern.geo, kern.media)
     (bt, bi) = got
     hit_b, hit_f = torch.isfinite(bt), torch.isfinite(ft)
@@ -529,29 +578,51 @@ def check_bvh(name, width, height, spp, iters):
     idx_diff = both & (bi != fi)
     ties = int((idx_diff & (bt == ft)).sum())
     bad_i = int(idx_diff.sum()) - ties
-    what = f"{name} iters={iters} R={R}"
+    it, ii = bvh.intersect_bvh(scene, index, rays, ki, lanes)
+    index_diff = bits_differ(it, ft) | (ii != fi)
+    n_index_diff = int(index_diff.sum())
+    index_err = hold_sweep(f"{name} iters={iters}", R, (it, ii),
+                           plain_ti(scene, kern, rays, ki, lanes),
+                           "bvh INDEX vs plain_ti:")
+    counts = {}
+    for tables in (visit, index):
+        s = torch.zeros(len(bvh.STAT_KEYS), dtype=torch.int64, device=DEV)
+        bvh.intersect_bvh_launch(scene, tables, rays, ki, lanes, s)
+        counts[tables.rule] = dict(zip(bvh.STAT_KEYS, s.tolist()))
+    ms = {t.rule: kernel_ms(lambda: bvh.intersect_bvh(scene, t, rays, ki,
+                                                      lanes))
+          for t in (visit, index)}
     ranges = sweep._ranges(scene)
-    ms = kernel_ms(lambda: bvh.intersect_bvh(scene, tables, rays, ki, lanes))
     sweep_ms = kernel_ms(lambda: sweep.sweep(rays, kern.geo, ranges,
                                              scene.t_min))
-    plain_ms = cuda_ms(lambda: bvh.intersect_bvh_plain(scene, tables, rays,
+    ti_ms = kernel_ms(lambda: intersect_ti(scene, rays, ki, lanes, kern.geo,
+                                           kern.media))
+    plain_ms = cuda_ms(lambda: bvh.intersect_bvh_plain(scene, visit, rays,
                                                        ki, lanes), 1)
-    # bound: the work these rays need, as the twin counted it - 25 flops a
-    # node visit, each leaf pair's flops (bvh.traversal_flops) - over 67
-    # TFLOP/s, against 36 B a ray (+4 B lane id with media) over 3.35 TB/s
-    nbytes = R * (36 + (4 if scene.has_media else 0))
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = bvh.traversal_flops(stats) / FP32_FLOPS_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    per_ray = {k: v / R for k, v in stats.items() if k != "rays"}
-    log(f"bvh {what}: bit-equal to its twin {twin_equal}; against the "
-        f"brute-force sweep + media: hits {int(hit_b.sum())}, hit "
+    plain_ti_ms = cuda_ms(lambda: plain_ti(scene, kern, rays, ki, lanes), 1)
+    bounds = {rule: bvh_bound(scene, R, bvh.kernel_flops(c, rule))
+              for rule, c in counts.items()}
+    twin_bound = bvh_bound(scene, R, bvh.traversal_flops(twin_stats))
+    per_ray = {rule: {k: round(v / R, 3) for k, v in c.items()}
+               for rule, c in counts.items()}
+    twin_per_ray = {k: round(v / R, 3) for k, v in twin_stats.items()
+                    if k != "rays"}
+    what = f"{name} iters={iters} R={R}"
+    log(f"bvh {what}: VISIT bit-equal to its twin {twin_equal}; against "
+        f"the brute-force sweep + media: hits {int(hit_b.sum())}, hit "
         f"mismatches {hit_mismatch}, t max abs err {max_abs:.3e}, t out of "
         f"rtol 1e-5 {bad_t}, prim mismatches {bad_i} (+{ties} exact ties); "
-        f"per ray {json.dumps({k: round(v, 3) for k, v in per_ray.items()})}"
-        f"; kernel {ms:.4f} ms, dense sweep {sweep_ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"INDEX lanes differing from intersect_ti in t or prim "
+        f"{n_index_diff}")
+    log(f"bvh {what}: ms VISIT {ms[bvh.VISIT]:.4f}, INDEX "
+        f"{ms[bvh.INDEX]:.4f}; "
+        f"dense sweep {sweep_ms:.4f}, intersect_ti (sweep + media) "
+        f"{ti_ms:.4f}; plain: lockstep twin {plain_ms:.2f}, intersect_ti's "
+        f"{plain_ti_ms:.2f}; bound VISIT {bounds[bvh.VISIT][0]:.4f} "
+        f"({bounds[bvh.VISIT][1]}; from its twin's counts "
+        f"{twin_bound[0]:.4f}), INDEX {bounds[bvh.INDEX][0]:.4f} "
+        f"({bounds[bvh.INDEX][1]}); kernel counts per ray "
+        f"{json.dumps(per_ray)}, twin's {json.dumps(twin_per_ray)}")
     # the equal-t ties, each with its ray bit for bit (float.hex), so that
     # tools/torch_bvh_tie.py can run it through the JAX package's traversal
     for lane in (idx_diff & (bt == ft)).nonzero().flatten()[:4].tolist():
@@ -560,15 +631,34 @@ def check_bvh(name, width, height, spp, iters):
             key=[int(k) for k in ki],
             ray=[float(v).hex() for v in rays[:, lane].tolist()],
             t=float(bt[lane]).hex(), sweep_prim=int(fi[lane]),
-            bvh_prim=int(bi[lane]))))
+            bvh_prim=int(bi[lane]), index_prim=int(ii[lane]))))
+    for lane in index_diff.nonzero().flatten()[:8].tolist():
+        log("bvh index differs: " + json.dumps(dict(
+            scene=name, iters=iters, lane=lane, slot=int(lanes[lane]),
+            ray=[float(v).hex() for v in rays[:, lane].tolist()],
+            t=float(it[lane]).hex(), prim=int(ii[lane]),
+            sweep_t=float(ft[lane]).hex(), sweep_prim=int(fi[lane]))))
     if not twin_equal:
         raise AssertionError(f"bvh kernel differs from its twin on {what}")
     if hit_mismatch or bad_t or bad_i:
         raise AssertionError(f"bvh disagrees with the brute-force sweep on "
                              f"{what}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=0.0, sweep_ms=sweep_ms,
-                max_abs_err_vs_sweep=max_abs, per_ray=per_ray)
+    if n_index_diff:
+        raise AssertionError(f"bvh rule INDEX differs from intersect_ti on "
+                             f"{n_index_diff} lanes of {what}")
+    return dict(rule=bvh.INDEX, ms=ms[bvh.INDEX], plain_ms=plain_ti_ms,
+                bound_ms=bounds[bvh.INDEX][0],
+                bound_by=bounds[bvh.INDEX][1], max_abs_err=index_err,
+                sweep_ms=sweep_ms, intersect_ti_ms=ti_ms,
+                per_ray=per_ray[bvh.INDEX],
+                visit=dict(ms=ms[bvh.VISIT], plain_ms=plain_ms,
+                           bound_ms=bounds[bvh.VISIT][0],
+                           bound_by=bounds[bvh.VISIT][1],
+                           twin_bound_ms=twin_bound[0],
+                           max_abs_err=visit_err,
+                           max_abs_err_vs_sweep=max_abs, equal_t_ties=ties,
+                           per_ray=per_ray[bvh.VISIT],
+                           twin_per_ray=twin_per_ray))
 
 
 STEP_TOL = {   # tests/test_shade_pallas.py:68-86
@@ -699,7 +789,9 @@ def check_inject(name, width, height, iters, sampler="uniform",
     copy's own time subtracted).  Bounds: path ids 16 B a lane; the inject
     24 B a lane, 24 a lane that died, 60 a lane refilled (+8 with a
     worklist), 16 a lane with sobol-b0, over 3.35 TB/s, against
-    ``queue.inject_ops`` over 67 TFLOP/s."""
+    ``queue.inject_ops`` over 67 TFLOP/s.  The inject's bound is also
+    counted in the 32-byte sectors its scattered accesses touch
+    (``inject_sectors``)."""
     wl = worklist_items(width, height, 8) if worklist else None
     scene, cfg, kern, st, ki, ks, xy, sid = queue_after(
         name, width, height, iters, sampler=sampler, worklist=wl)
@@ -760,6 +852,11 @@ def check_inject(name, width, height, iters, sampler="uniform",
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     ids_bound_ms = 1e3 * 16 * m / HBM_BYTES_PER_S
+    sec_bytes = inject_sectors(st, pk, died, refilled, got[2], wl,
+                               cfg.b0)
+    sec_bound_ms = 1e3 * max(sec_bytes / HBM_BYTES_PER_S, t_ops)
+    log(f"queue {what}: inject bound in 32-byte sectors {sec_bound_ms:.4f} "
+        f"ms ({sec_bytes / m:.1f} B a lane)")
     log(f"queue {what}: frontier {int(st.frontier)} -> {int(want[3])} of "
         f"{total}, free {n_free}, died {n_died}, refilled {n_ref}; "
         f"bit-equal to the twins {same} (lanes differing {n_bad}, path ids "
@@ -773,9 +870,34 @@ def check_inject(name, width, height, iters, sampler="uniform",
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=0.0, free=n_free,
                 died=n_died, refilled=n_ref, bytes_per_lane=nbytes / m,
+                sector_bound_ms=sec_bound_ms,
+                sector_bytes_per_lane=sec_bytes / m,
                 path_ids=dict(ms=ids_ms, plain_ms=ids_plain_ms,
                               bound_ms=ids_bound_ms, bound_by="bytes",
                               max_abs_err=0.0))
+
+
+def inject_sectors(st, plane, died, refilled, new_work, worklist, b0):
+    """Bytes of the 32-byte sectors the flush and inject move on this
+    state: the per-lane arrays whole (24 B a lane: the active flags in,
+    the work items in and out; 16 more with sobol-b0's record), and for
+    the scattered accesses each sector any lane touches - the dying lanes'
+    radiance rows (3) and their plane columns (3 rows, scattered by work
+    item), the refilled lanes' ray, throughput and radiance rows (13) and
+    bounce and active rows (2), and with a worklist the refilled lanes'
+    entries (8 B each)."""
+    m = st.work.shape[0]
+    sec = lambda idx, per=8: int(torch.unique(idx // per).numel())
+    d = died.nonzero().flatten()
+    r = refilled.nonzero().flatten()
+    stride = plane.stride(0)
+    cols = st.work[died]
+    nbytes = 24 * m + (16 * m if b0 else 0) + 32 * (
+        3 * sec(d) + sum(sec(k * stride + cols) for k in range(3))
+        + 15 * sec(r))
+    if worklist is not None:
+        nbytes += 32 * sec(new_work[refilled], 4)
+    return nbytes
 
 
 def check_step(name, width, height, spp, iters, earth=None,
@@ -1548,10 +1670,15 @@ PLAIN = {"aov": aov.aov_features_plain, "bvh": bvh.intersect_bvh_plain,
          "media": intersect.merge_media_plain,
          "path_ids": queue.path_ids_plain,
          "queue_inject": queue.queue_inject_plain}
-# the work queue's kernels, and next-week-final's queue paths (its fog:
-# the media kernel)
+# the work queue's kernels; the default closest hit of a scene of
+# integrator.BVH_ROUTE_MIN_PRIMS prims or more (book1-final, next-week-final:
+# the BVH kernel under rule INDEX, media inside it, no sweep or media
+# kernel); next-week-final's queue paths
 QUEUE = ("path_ids", "queue_inject")
-NW_QUEUE = ("sweep", "pool_step", "media") + QUEUE
+ROUTE = ("bvh", "pool_step")
+ROUTE_ABSENT = ("sweep", "sweep_compact", "sweep_masked", "sweep_sphere_mxu",
+                "media")
+NW_QUEUE = ROUTE + QUEUE
 
 
 def reset_counts():
@@ -1826,6 +1953,57 @@ def bvh_full():
     return out, counts
 
 
+@contextlib.contextmanager
+def route_at(n_prims):
+    """``integrator.BVH_ROUTE_MIN_PRIMS`` set to ``n_prims`` for the renders
+    inside (1 << 62: the route off, every closest hit through the sweeps)."""
+    old = integrator.BVH_ROUTE_MIN_PRIMS
+    integrator.BVH_ROUTE_MIN_PRIMS = n_prims
+    try:
+        yield
+    finally:
+        integrator.BVH_ROUTE_MIN_PRIMS = old
+
+
+def route_full(img_q, wall_q):
+    """The route beside the dense sweep, each pair held bit-equal, with
+    walls and launches: next-week-final 400x400 100 spp on the queue
+    (``img_q``, rendered through the route at ``wall_q``) against the same
+    render with the route off (the dense sweep and the media kernel); and
+    book1-final 600x400 16 spp on the pool, below the route's prim count,
+    against the same render with the route forced on (the count the route
+    was not given: this is where the pool's tail launches lose)."""
+    out, counts = {}, {}
+    nw = ("next-week-final 400x400 100 spp queue", img_q, wall_q,
+          ("sweep", "pool_step", "media") + QUEUE, ("bvh",), 1 << 62,
+          lambda: full_width("next-week-final", 400, 400, 100, mode="queue",
+                             sort=False))
+    reset_counts()
+    img_b, wall_b, _ = full_width("book1-final", 600, 400, 16)
+    counts["book1_pool"] = read_counts("book1-final pool", ("sweep",
+                                                            "pool_step"),
+                                       ("bvh",))
+    book1 = ("book1-final 600x400 16 spp pool", img_b, wall_b, ROUTE,
+             ROUTE_ABSENT, 1,
+             lambda: full_width("book1-final", 600, 400, 16))
+    for what, want, wall, expect, absent, at, fn in (nw, book1):
+        reset_counts()
+        with route_at(at):
+            img, wall_other, _ = fn()
+        read_counts(f"{what}, BVH_ROUTE_MIN_PRIMS={at}", expect, absent)
+        same = bool(np.array_equal(img, want))
+        log(f"  {what}: default {wall:.3f} s, BVH_ROUTE_MIN_PRIMS={at} "
+            f"{wall_other:.3f} s; bit-equal {same}")
+        if not same:
+            share = float((img != want).any(axis=-1).mean())
+            raise AssertionError(f"{what}: the route's render differs from "
+                                 f"the dense sweep's on {share:.4%} of "
+                                 "pixels")
+        out[what] = dict(default_s=wall, other_s=wall_other,
+                         route_min_prims=at, bit_equal=same)
+    return out, counts
+
+
 class Stop(Exception):
     """Raised by an ``on_partial`` to interrupt a render."""
 
@@ -1905,7 +2083,8 @@ def checkpoint_full(d):
         img = said(what, "resuming at chunk 2", lambda: full_width(
             "next-week-final", 400, 400, 16, mode="queue", checkpoint_path=ck,
             progress=True)[0])
-        counts["checkpoint_queue"] = read_counts(what, NW_QUEUE)
+        counts["checkpoint_queue"] = read_counts(what, NW_QUEUE,
+                                                 ROUTE_ABSENT)
     finally:
         renderer.QUEUE_PLANE_BYTES = old
     out["queue"] = same = bool(np.array_equal(img, full))
@@ -2138,28 +2317,29 @@ def bands_full():
     from tpu_ray_torch.parallel.mesh import make_mesh
 
     nw, out, counts = "next-week-final", {}, {}
-    pool = ("sweep", "pool_step", "media")      # next-week-final's fog
+    pool = ROUTE             # next-week-final's default closest hit
+    no_sweep = ("megakernel",) + ROUTE_ABSENT
     img_a, wall_a, counts["bands_a_pool"], _ = band_render(
         "(a) next-week-final 400x400 pool", [(400, (1, 2, 8))], pool,
-        ("megakernel",), nw, 400, 400, 16, mode="pool")
+        no_sweep, nw, 400, 400, 16, mode="pool")
     img_q, wall_q, _ = full_width(nw, 400, 400, 16, mode="queue")
     same_estimator(img_a, img_q, "(a) pool vs queue", share_cap=1.0)
     out["a"] = dict(pool_s=wall_a, queue_s=wall_q)
     kw = dict(mode="pool", samples_per_wave=1)
     img_b, wall_b, counts["bands_b"], rows = band_render(
         "(b) next-week-final 600x400 one sample a wave",
-        [(266, (1, 1, 16)), (134, (1, 1, 16))], pool, ("megakernel",), nw,
+        [(266, (1, 1, 16)), (134, (1, 1, 16))], pool, no_sweep, nw,
         600, 400, 16, **kw)
     img_u, wall_u, counts["bands_b_unbanded"], _ = band_render(
         "(b) unbanded (_band_cap 600*400)", [(400, (1, 1, 16))], pool,
-        ("megakernel",), nw, 600, 400, 16, _band_cap=600 * 400, **kw)
+        no_sweep, nw, 600, 400, 16, _band_cap=600 * 400, **kw)
     hold_bits("(b) banded vs unbanded", img_b, img_u)
     if rows != sorted(rows) or rows[-1] != 400 or 266 not in rows:
         raise AssertionError(f"(b): rows reported final {rows}")
     out["b"] = dict(banded_s=wall_b, unbanded_s=wall_u, rows_final=rows[-1])
     img_c, wall_c, counts["bands_c"], _ = band_render(
         "(c) next-week-final 600x400", [(266, (1, 2, 8)), (134, (1, 4, 4))],
-        pool, ("megakernel",), nw, 600, 400, 16, mode="pool")
+        pool, no_sweep, nw, 600, 400, 16, mode="pool")
     img_d, wall_d, counts["bands_d_bvh"], _ = band_render(
         "(d) next-week-final 600x400 bvh",
         [(266, (1, 2, 8)), (134, (1, 4, 4))], ("bvh", "pool_step"),
@@ -2170,8 +2350,9 @@ def bands_full():
                                                                     img_d)))
     log(f"  walls: (b) {wall_b:.3f} s, (c) {wall_c:.3f} s, (d) bvh "
         f"{wall_d:.3f} s; (a) pool {wall_a:.3f} s, queue {wall_q:.3f} s")
-    for engine, expect, absent in (("auto", pool[:2], ("megakernel",)),
-                                   ("mega", ("megakernel",), pool)):
+    for engine, expect, absent in (
+            ("auto", ("sweep", "pool_step"), ("megakernel", "bvh")),
+            ("mega", ("megakernel",), ("sweep", "pool_step", "bvh"))):
         kw = dict(rays_per_wave=62500, samples_per_wave=1, engine=engine)
         plan = [(125, (1, 1, 16))] * 4
         img_e, wall_e, counts[f"bands_e_{engine}"], _ = band_render(
@@ -2189,12 +2370,12 @@ def bands_full():
     mesh2 = make_mesh(device=["cuda:0"] * 2)
     single, wall_1, _, _ = band_render(
         "(f) single device", [(266, (1, 1, 1)), (134, (1, 1, 1))], pool,
-        ("megakernel",), nw, 600, 400, 1, mode="pool")
+        no_sweep, nw, 600, 400, 1, mode="pool")
     meshed, wall, counts["bands_f_mesh"], rows = said(
         "(f) mesh D=2", "demoting mode=queue to the wave pool: sharding",
         lambda: band_render("(f) mesh D=2",
                             [(266, (1, 1, 1)), (134, (1, 1, 1))], pool,
-                            ("megakernel",), nw, 600, 400, 1, mesh=mesh2))
+                            no_sweep, nw, 600, 400, 1, mesh=mesh2))
     err, equal = hold_mesh("(f) next-week-final 600x400 1 spp D=2", single,
                            meshed, 1e-4, 1e-5)
     out["f"] = dict(mesh_s=wall, single_s=wall_1, max_abs_diff=err,
@@ -2278,11 +2459,11 @@ def mesh_full(d):
         if engine == "auto":
             full_pool = img
     single, _, n_1 = mesh_render(
-        "mesh_queue single device", NW_QUEUE, ("megakernel",),
+        "mesh_queue single device", NW_QUEUE, ("megakernel",) + ROUTE_ABSENT,
         lambda: full_width("next-week-final", 400, 400, 16, mode="queue"))
     single, wall_1 = single[:2]
     img, _, counts["mesh_queue"] = mesh_render(
-        "mesh_queue D=3", NW_QUEUE, ("megakernel",),
+        "mesh_queue D=3", NW_QUEUE, ("megakernel",) + ROUTE_ABSENT,
         lambda: full_width("next-week-final", 400, 400, 16, mode="queue",
                            mesh=mesh3))
     img, wall = img[:2]
@@ -2450,9 +2631,12 @@ def main() -> int:
     secs = build.build_all()
     log(f"phase 2: built {sorted(secs)} in {time.perf_counter() - t0:.2f} s")
     for n, txt in build.build_log.items():
+        fn = ""                 # the entry ptxas reports on (mangled)
         for line in txt.splitlines():
+            if "Function properties for" in line:
+                fn = line.split(" for ", 1)[1].strip()
             if "registers" in line or "spill" in line:
-                log(f"  {n}: {line.strip()}")
+                log(f"  {n}: {fn}: {line.strip()}")
     n_hmma = hmma_count()
     log(f"  sweep_mxu: {n_hmma} HMMA (tensor-core) instructions in its SASS")
     if n_hmma == 0:
@@ -2565,7 +2749,7 @@ def main() -> int:
     reset_counts()
     img_q, wall_q, _ = full_width("next-week-final", 400, 400, 100,
                                   mode="queue", sort=False)
-    n_queue = read_counts("queue", NW_QUEUE)
+    n_queue = read_counts("queue", NW_QUEUE, ROUTE_ABSENT)
     reset_counts()
     img_s, wall_s, _ = full_width("next-week-final", 400, 400, 100,
                                   mode="queue", sort=True)
@@ -2575,6 +2759,7 @@ def main() -> int:
         f"images bit-equal {np.array_equal(img_q, img_s)}")
     if not np.array_equal(img_q, img_s):
         raise AssertionError("sorted and unsorted queue renders differ")
+    route_out, n_route = route_full(img_q, wall_q)
     reset_counts()
     _, _, bright_w = full_width("cornell", 500, 500, 64, mode="wave")
     n_wave = read_counts("wave", ("sweep", "hit_scatter"))
@@ -2684,7 +2869,7 @@ def main() -> int:
     reset_counts()
     full_width("next-week-final", 400, 400, 16, sampler="sobol",
                mode="queue", sort=False)
-    n_sobol_queue = read_counts("sobol queue", NW_QUEUE)
+    n_sobol_queue = read_counts("sobol queue", NW_QUEUE, ROUTE_ABSENT)
     reset_counts()
     for name, w, h, spp in STRICT_FULL:
         full_width(name, w, h, spp, strict=True)
@@ -2735,7 +2920,8 @@ def main() -> int:
     reset_counts()
     img_aq, n_aq, ad_queue = adaptive_full("next-week-final", 400, 400, 1000,
                                            0.03, img_q, rounds)
-    n_adaptive_queue = read_counts("adaptive queue", NW_QUEUE)
+    n_adaptive_queue = read_counts("adaptive queue", NW_QUEUE,
+                                   ROUTE_ABSENT)
     uniform_wall("next-week-final", 400, 400, 1000, ad_queue, mode="queue")
     nw_scene, nw_cam = scene_and_camera("next-week-final", 100, 100)
     twice = [adaptive.render_adaptive(nw_scene, nw_cam, 100, 100,
@@ -2793,7 +2979,7 @@ def main() -> int:
              "sobol_b0_queue": b0.pop("counts"),
              "checker_tex_pool": n_tex, "mxu_engine_pool": n_mxu_engine,
              **n_aov, **n_bvh, **n_bands, **n_ck, **n_cli, **n_serve,
-             **n_mesh, **n_twins}
+             **n_mesh, **n_twins, **n_route}
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     by_path = {k: {p: c[k] for p, c in paths.items() if c[k]}
                for k in COUNTERS}
@@ -2901,6 +3087,7 @@ def main() -> int:
     log(f"sobol-b0 queue: {json.dumps(b0)}")
     log(f"aov and denoise: {json.dumps(aov_out)}")
     log(f"bvh renders: {json.dumps(bvh_out)}")
+    log(f"route (rule INDEX vs the dense sweep): {json.dumps(route_out)}")
     log(f"bands: {json.dumps(bands_out)}")
     log(f"checkpoint resumes bit-equal: {json.dumps(ck_out)}")
     log(f"cli: {json.dumps(cli_out)}")

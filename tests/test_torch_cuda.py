@@ -798,6 +798,93 @@ def test_bvh_kernel_bit_equal_to_plain(card, name):
     torch.testing.assert_close(t[hit], ft[hit], rtol=1e-5, atol=0)
 
 
+def _bvh_rays(ps, card, name):
+    """2^15 rays with origins over the scene, rays from their hits in
+    seeded directions (box faces shared by neighbours give equal-t ties)
+    and three whose every pair misses (NaN origin or direction, zero
+    direction)."""
+    r = np.random.default_rng(13)
+    n = 1 << 15
+    c, half = (0.0, 40.0) if name == "mixed" else (278.0, 300.0)
+    rays = pack_rays(*(torch.from_numpy(a).to(card) for a in (
+        (c + r.uniform(-half, half, (n, 3))).astype(np.float32),
+        r.normal(size=(n, 3)).astype(np.float32),
+        r.random(n).astype(np.float32))))
+    lanes = torch.arange(n, dtype=torch.int32, device=card)
+    t, _ = intersect_ti(ps, rays, (5, 6), lanes)
+    hit = torch.isfinite(t)
+    o = rays[0:3, hit] + t[hit] * rays[3:6, hit]
+    d = torch.from_numpy(r.normal(size=(3, o.shape[1])).astype(
+        np.float32)).to(card)
+    sec = torch.cat([o, d, rays[6:7, hit]])
+    odd = rays[:, :3].clone()         # a NaN origin, a NaN direction, a
+    odd[0, 0] = odd[4, 1] = float("nan")          # zero direction
+    odd[3:6, 2] = 0.0
+    return torch.cat([rays, sec, odd], 1).contiguous()
+
+
+@pytest.mark.parametrize("name", ["next-week-final", "book1-final",
+                                  "cornell-smoke", "mixed"])
+def test_bvh_kernel_both_rules(card, name):
+    """Rule VISIT bit-equal to its lockstep twin and rule INDEX bit-equal
+    to intersect_ti (the dense sweep and media kernels), t and prim on
+    every lane, ties included, in the render's form and the counting form;
+    the counting form counts one root test a ray."""
+    from tpu_ray_torch.ops import bvh
+
+    ps = (_mixed_scene() if name == "mixed"
+          else SCENES[name].build(seed=1024, earth=None)).to(card)
+    rays = _bvh_rays(ps, card, name)
+    R = rays.shape[1]
+    lanes = torch.arange(R, dtype=torch.int32, device=card)
+    kd = (0x1234, 0x9876)
+    visit = bvh.BVHTables.create(ps)
+    index = bvh.BVHTables.create(ps, visit.bvh, visit.geo, visit.media,
+                                 rule=bvh.INDEX)
+    tp, ip = bvh.intersect_bvh_plain(ps, visit, rays, kd, lanes)
+    ft, fi = intersect_ti(ps, rays, kd, lanes)
+    for tables, (wt, wi) in ((visit, (tp, ip)), (index, (ft, fi))):
+        for counting in (False, True):
+            stats = (torch.zeros(len(bvh.STAT_KEYS), dtype=torch.int64,
+                                 device=card) if counting else None)
+            t, i = bvh.intersect_bvh_launch(ps, tables, rays, kd, lanes,
+                                            stats)
+            assert torch.equal(t.view(torch.int32), wt.view(torch.int32)), \
+                (tables.rule, counting)
+            assert torch.equal(i, wi), (tables.rule, counting)
+            if counting:
+                counts = dict(zip(bvh.STAT_KEYS, stats.tolist()))
+                assert counts["roots"] == R and counts["records"] > 0
+
+
+def test_scene_kernels_route_big_scenes_through_the_index_rule(card):
+    """On the card the default intersect of a scene of
+    BVH_ROUTE_MIN_PRIMS prims or more traverses the BVH under rule INDEX
+    and gives intersect_ti's bits; cornell (13 prims) and the sorted sweep
+    keep the sweeps; book1-final (485) too."""
+    from tpu_ray_torch import integrator
+    from tpu_ray_torch.ops import bvh
+
+    ps = SCENES["next-week-final"].build(seed=1024, earth=None).to(card)
+    kern = SceneKernels.create(ps, False)
+    assert kern.bvh is not None and kern.bvh.rule == bvh.INDEX
+    assert SceneKernels.create(ps, True).bvh is None
+    small = SCENES["cornell"].build(seed=1024).to(card)
+    assert small.n_prims < integrator.BVH_ROUTE_MIN_PRIMS
+    assert SceneKernels.create(small, False).bvh is None
+    book1 = SCENES["book1-final"].build(seed=1024).to(card)
+    assert SceneKernels.create(book1, False).bvh is None
+    rays = _bvh_rays(ps, card, "next-week-final")
+    lanes = torch.arange(rays.shape[1], dtype=torch.int32, device=card)
+    launches = bvh.intersect_bvh.launches, sw.sweep.launches
+    t, i = kern.intersect(ps, rays, (7, 8), lanes)
+    assert (bvh.intersect_bvh.launches, sw.sweep.launches) == (
+        launches[0] + 1, launches[1])
+    ft, fi = intersect_ti(ps, rays, (7, 8), lanes)
+    assert torch.equal(t.view(torch.int32), ft.view(torch.int32))
+    assert torch.equal(i, fi)
+
+
 @pytest.mark.parametrize("engine,mode", [("auto", "pool"), ("mega", "pool"),
                                          ("auto", "queue")])
 def test_resume_on_the_card_is_bit_equal(card, monkeypatch, tmp_path,
@@ -888,7 +975,9 @@ def test_banded_pool_on_the_card_matches_the_cpu(card, monkeypatch, bvh):
     8-row bands at 32x24, one sample a wave; the lanes pinned to 256, so
     the frame too plans one slot a pixel): bit-equal to the unbanded
     render of the same plan on the card, and the CPU's banded render at the
-    cross-engine criterion."""
+    cross-engine criterion.  Both renders traverse the BVH kernel: with
+    ``bvh`` under the visit order, without it under the sweep's tie rule
+    (the default closest hit of a scene this large on the card)."""
     from tpu_ray_torch import renderer
     from tpu_ray_torch.ops import bvh as bvh_ops
 
@@ -898,7 +987,7 @@ def test_banded_pool_on_the_card_matches_the_cpu(card, monkeypatch, bvh):
               rays_per_wave=256, samples_per_wave=1)
     unbanded = render(*args, device=card, **kw)
     monkeypatch.setattr(renderer, "XLA_BIG_SCENE_LANES", 256)
-    counter = bvh_ops.intersect_bvh if bvh else sw.sweep
+    counter = bvh_ops.intersect_bvh
     launches, rows = counter.launches, []
     b = render(*args, device=card,
                on_partial=lambda im, rf: rows.append(rf), **kw)

@@ -53,6 +53,7 @@ out over the devices of a mesh (:mod:`tpu_ray_torch.parallel.mesh`).
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,7 +62,7 @@ import torch
 from .core import rng
 from .models.scene_data import SceneData
 from .ops import queue as queue_ops
-from .ops.bvh import BVHArrays, BVHTables, intersect_bvh
+from .ops.bvh import INDEX, BVHArrays, BVHTables, intersect_bvh
 from .ops.hit_scatter import hit_scatter
 from .ops.intersect import intersect_ti, media_rows
 from .ops.megakernel import trace_pool_mega  # noqa: F401  (re-exported)
@@ -121,14 +122,51 @@ def pool_levels(R: int, n_prims: int):
     return levels
 
 
+# From this many prims up the default closest hit on the card traverses the
+# BVH under the sweep's tie rule (ops/bvh.py, rule INDEX: bit for bit the
+# dense sweep and the media merge) instead of sweeping every prim: above
+# 512, the big scenes the JAX package sends to its queue.  The repo's
+# scenes have 1, 2, 4, 8, 13, 485 and 1409 prims.  On one H100 80GB HBM3
+# at 700 W (chip_smoke.py phase 3, 1M rays) the dense sweep wins at 13
+# (cornell: 0.033 against 0.052 ms) and the traversal at 485 (book1-final:
+# 0.395 against ~0.17) and 1409 (next-week-final: 1.35 against ~0.39, the
+# media merge included); but book1-final's pool render loses with it
+# (chip_smoke.py phase 5, the "route" line; utils/profile.py): most of its
+# 200 launches are the tail's small pools, whose time is that of their
+# slowest rays - the few inside the r = 1000 ground sphere, whose margins
+# cover every small sphere - against the sweep's ~21 us.  next-week-final's
+# queue spends half the intersect time or less (PERF.md section 5).
+BVH_ROUTE_MIN_PRIMS = 513
+# the route's tables by scene object, (weak reference, tables): a render's
+# bands, a mesh render's devices and the server's requests each create
+# their SceneKernels from the same immutable scene, and the host's build of
+# the tree and its margins (tens of ms at 1409 prims) is paid once
+_route_tables: dict = {}
+
+
+def _index_tables(scene: SceneData, geo, media) -> BVHTables:
+    """Rule ``INDEX``'s tables of ``scene``, built at its first route."""
+    hit = _route_tables.get(id(scene))
+    if hit is not None and hit[0]() is scene:
+        return hit[1]
+    for k in [k for k, (ref, _) in _route_tables.items() if ref() is None]:
+        del _route_tables[k]
+    tables = BVHTables.create(scene, None, geo, media, rule=INDEX)
+    _route_tables[id(scene)] = (weakref.ref(scene), tables)
+    return tables
+
+
 @dataclass
 class SceneKernels:
     """Per-render tables of the sweeps and the media rows.  This is the one
     place that decides how a render finds its closest hits: ``bvh`` is set
-    when it traverses a BVH (``ops/bvh.py``, no sweep at all), ``blocks``
-    when it uses a sorted sweep, ``masked`` picks the mask-gated kernel over
-    the compacted lists, ``mxu`` is set when the static spheres go through
-    the matrix-product sweep."""
+    when it traverses a BVH (``ops/bvh.py``, no sweep at all: rule
+    ``VISIT`` when the render asked for ``bvh``, rule ``INDEX`` when the
+    default intersect of a scene of ``BVH_ROUTE_MIN_PRIMS`` prims or more
+    on the card takes it), ``blocks`` when it uses a sorted sweep,
+    ``masked`` picks the mask-gated kernel over the compacted lists,
+    ``mxu`` is set when the static spheres go through the matrix-product
+    sweep."""
 
     geo: torch.Tensor
     media: list
@@ -150,8 +188,12 @@ class SceneKernels:
         with moving spheres every range keeps the dense sweep, as the JAX
         package's ``mxu`` engine does.  With ``bvh`` (a
         :class:`~tpu_ray_torch.ops.bvh.BVHArrays` of the scene) every
-        intersect traverses the tree and the sweep switches are not
-        read."""
+        intersect traverses the tree in the JAX package's visit order and
+        the sweep switches are not read.  Otherwise, on the card, with
+        neither sort nor matrix-product sweep and ``BVH_ROUTE_MIN_PRIMS``
+        prims or more, the intersect traverses the scene's tree under rule
+        ``INDEX``: the dense sweep's ``(best_t, best_i)``, bit for bit
+        (the tables built once per scene object)."""
         geo = sweep_table(scene)
         media = media_rows(scene)
         if bvh is not None:
@@ -160,6 +202,11 @@ class SceneKernels:
         sort = use_sort(sort) and scene.n_solid > 0
         n_ss = scene.n_sphere_static
         mxu = use_mxu() or (engine == "mxu" and not scene.has_moving)
+        if not sort and not (mxu and n_ss > 0) \
+                and scene.device.type == "cuda" \
+                and scene.n_prims >= BVH_ROUTE_MIN_PRIMS:
+            tables = _index_tables(scene, geo, media)
+            return cls(geo=tables.geo, media=tables.media, bvh=tables)
         return cls(geo=geo, media=media,
                    blocks=sweep_blocks(scene) if sort else None,
                    masked=sort and use_mask_cull(),

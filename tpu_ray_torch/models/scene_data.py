@@ -44,12 +44,18 @@ class _Tensors:
     fields move together and whose other fields are static."""
 
     def to(self, device):
+        """The copy on ``device``; the object itself when every tensor is
+        already there, so a scene keeps its identity through a render's
+        bands and the server's requests (``integrator.SceneKernels``
+        keeps the route's tables by scene)."""
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, (torch.Tensor, _Tensors)):
-                kw[f.name] = v.to(device)
-        return dataclasses.replace(self, **kw)
+                moved = v.to(device)
+                if moved is not v:
+                    kw[f.name] = moved
+        return dataclasses.replace(self, **kw) if kw else self
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,5 @@
 """BVH: host-side build, flattened arrays, and the closest hit by stack
-traversal - the CUDA kernel (``csrc/bvh.cu``) and its plain twin.
+traversal - the CUDA kernel (``csrc/bvh.cu``) and its plain twins.
 
 Port of ``tpu_ray/ops/bvh.py``.  The build runs on the host in numpy
 (:func:`prim_aabbs`, :func:`build_bvh`: median split of the centroids on the
@@ -11,22 +11,32 @@ The JAX package traverses with one XLA ``while_loop`` in lockstep: every
 step tests one node per ray, runs the leaf's prims, then pushes the right
 child and descends into the left, or pops.  In torch that loop would be
 driven from the host, one sync and ~40 launches a node step.  The card's
-form of the same function is one ray per thread, which
+form of the same function is a ray per thread walking its own path, which
 :func:`intersect_bvh` launches (``csrc/bvh.cu``; no TPU kernel: JAX runs
-XLA here).  :func:`intersect_bvh_plain` is the lockstep loop on tensors,
-used for CPU tensors and as the reference the kernel is held to; it can
-count each ray's node visits and leaf pairs, the work the kernel's bound
-counts.
+XLA here) over the tree packed as pair records (:func:`pack_nodes`: both
+children's boxes in one record).
 
-Both return ``(best_t, best_i)`` in the sweep's format (``ops/intersect.py::
-intersect_ti``): +inf where nothing is hit, int32 prim ids, media included
-(they sit in the tree like solids).  A leaf pair's distance is the sweep's
-pair math (``ops/sweep.py::pair_t``, ``csrc/sweep_pairs.cuh``) on the sweep
-table's row, a medium's the free flight of ``ops/intersect.py::_media_t``
-(``csrc/media.cuh``) with the same per-lane draws, so a pair gives the bits
-the brute-force sweep gives it.  Hits are kept by a strict '<' in visit
-order, as in the JAX package, so equal-t ties may name another prim than
-the sweep's index order does.
+The kernel has two tie rules, one template parameter:
+
+- ``VISIT`` (``bvh=True``): the JAX traversal's function - left-first
+  visits, its strict node test, hits kept by a strict '<' in visit order,
+  so equal-t ties may name another prim than the sweep's index order.
+  Its plain twin :func:`intersect_bvh_plain` is the lockstep loop on
+  tensors; it can count each ray's node visits and leaf pairs.
+- ``INDEX``: the dense sweep's function (``ops/intersect.py::
+  intersect_ti``: the sweep, then the media merge) - on equal t the lower
+  prim id wins, media ids after the solids.  Its node test is
+  conservative (:func:`index_margins`), so it tests every prim the sweep
+  could pick; its plain twin is ``intersect_ti`` itself.  Above
+  ``integrator.BVH_ROUTE_MIN_PRIMS`` prims the default closest hit on the
+  card takes it.
+
+Both return ``(best_t, best_i)`` in the sweep's format: +inf where nothing
+is hit, int32 prim ids, media included (they sit in the tree like solids).
+A leaf pair's distance is the sweep's pair math (``ops/sweep.py::pair_t``,
+``csrc/sweep_pairs.cuh``) on the sweep table's row, a medium's the free
+flight of ``ops/intersect.py::_media_t`` (``csrc/media.cuh``) with the same
+per-lane draws, so a pair gives the bits the brute-force sweep gives it.
 """
 from __future__ import annotations
 
@@ -40,17 +50,42 @@ from ..models.scene_data import (PRIM_BOX, PRIM_MEDIUM_BOX,
                                  PRIM_MEDIUM_SPHERE, PRIM_QUAD, PRIM_SPHERE,
                                  SceneData)
 from .build import load_fn
-from .intersect import INF, MED_EPS, _media_t, media_rows
+from .intersect import INF, MED_EPS, _media_t, intersect_ti, media_rows
 from .shade import build_tables
 from .sweep import FLOPS_PER_PAIR, _check_rays, _ranges, pair_t, sweep_table
 
 STACK_DEPTH = 32
 LEAF_SIZE = 4
+VISIT, INDEX = "visit", "index"      # the kernel's tie rules
 # fp32 operations of one node's slab test (6 subtractions, 6 products, the
 # per-axis min / max, their reductions, the clip against (t_min, best_t)
 # and the compare) and of one medium's free flight, for the kernel's bound
 FLOPS_PER_VISIT = 25
 FLOPS_PER_MEDIUM_PAIR = 40
+# the kernel's work per child box tested (rule INDEX adds the per-ray
+# margin: 3 differences, 2 maxima, the add of h, m = l (A l + B) and the
+# 6 widened faces) and per stack entry popped (a min and the compare)
+FLOPS_PER_CHILD = {VISIT: FLOPS_PER_VISIT, INDEX: FLOPS_PER_VISIT + 15}
+FLOPS_PER_POP = 2
+# rule INDEX's margins (index_margins), in units of u = 2^-24
+_U = 2.0 ** -24
+MARGIN_QUAD = 128 * _U      # over the least sphere radius: A
+MARGIN_LINEAR = 64 * _U     # B
+MARGIN_ABS = 128 * _U       # times |centre| + half diagonal, static
+# the counts of the kernel's counting form (stats=): pair records
+# expanded, root tests, stack entries popped, pairs by kind, rays that ran
+# out of their record budget and tested every prim
+STAT_KEYS = ("records", "roots", "pops", "sphere", "moving", "box", "quad",
+             "medium", "brute")
+
+
+def record_budget(n_prims: int) -> int:
+    """The pair records a lane expands under rule ``INDEX`` before it runs
+    the sweep's loop over every prim instead (``csrc/bvh.cu``): a ray
+    expands 2-25 on average (chip_smoke.py phase 3's counts per ray), but
+    one that starts far from small spheres, as one inside book1-final's
+    r = 1000 ground sphere does, has margins that swallow them all."""
+    return max(64, n_prims // 8)
 
 
 @dataclass(frozen=True)
@@ -175,53 +210,183 @@ def build_bvh(scene: SceneData, leaf_size: int = LEAF_SIZE,
                      n_nodes=len(node_min), leaf_size=leaf_size)
 
 
-def pack_nodes(bvh: BVHArrays) -> torch.Tensor:
-    """The kernel's (M, 8) float32 node rows: min xyz, max xyz, then the
-    bits of two int32 words - (child_l, child_r) of an internal node,
-    (first, -count) of a leaf - so one node is two 16-byte loads."""
-    cnt = bvh.count.cpu().numpy()
-    leaf = cnt > 0
-    a = np.where(leaf, bvh.first.cpu().numpy(), bvh.child_l.cpu().numpy())
-    b = np.where(leaf, -cnt, bvh.child_r.cpu().numpy())
-    rows = np.zeros((bvh.n_nodes, 8), np.float32)
-    rows[:, 0:3] = bvh.node_min.cpu().numpy()
-    rows[:, 3:6] = bvh.node_max.cpu().numpy()
-    rows[:, 6] = a.astype(np.int32).view(np.float32)
-    rows[:, 7] = b.astype(np.int32).view(np.float32)
+def _post_order_boxes(bvh: BVHArrays, lo: np.ndarray, hi: np.ndarray,
+                      rad: np.ndarray):
+    """Each node's float64 box and least sphere radius over its subtree,
+    from the prims' ``lo`` / ``hi`` (N, 3) and ``rad`` (N,; +inf for a prim
+    that is not a sphere).  Children follow their parent in the build's
+    node order, so one pass from the last node up fills every node."""
+    cl, cr = bvh.child_l.cpu().numpy(), bvh.child_r.cpu().numpy()
+    first, count = bvh.first.cpu().numpy(), bvh.count.cpu().numpy()
+    order = bvh.order.cpu().numpy()
+    M = bvh.n_nodes
+    nlo, nhi = np.empty((M, 3)), np.empty((M, 3))
+    rmin = np.empty(M)
+    for n in range(M - 1, -1, -1):
+        if count[n] > 0:
+            ids = order[first[n]:first[n] + count[n]]
+            nlo[n], nhi[n] = lo[ids].min(0), hi[ids].max(0)
+            rmin[n] = rad[ids].min()
+        else:
+            a, b = cl[n], cr[n]
+            if not (a > n and b > n):
+                raise ValueError("BVH children must follow their parent")
+            nlo[n] = np.minimum(nlo[a], nlo[b])
+            nhi[n] = np.maximum(nhi[a], nhi[b])
+            rmin[n] = min(rmin[a], rmin[b])
+    return nlo, nhi, rmin
+
+
+def _up(x) -> np.ndarray:
+    """float32 of ``x`` (float64), rounded up."""
+    return np.nextafter(np.asarray(x, np.float64).astype(np.float32),
+                        np.float32(np.inf))
+
+
+def index_margins(scene: SceneData, bvh: BVHArrays):
+    """Rule ``INDEX``'s boxes: each node's float32 box widened outward, and
+    the terms of the per-ray margin the kernel adds (``csrc/bvh.cu``).
+
+    A node may be culled only if no prim under it can give a hit the dense
+    sweep would keep.  A prim's reported hit point can lie outside its
+    float64 box (``prim_aabbs``) by rounding: a grazing ray can hit a
+    sphere it misses by up to ~9.5 u (L + r)^2 / r (u = 2^-24, L the
+    origin's distance to the centre; the quadratic's ``c`` and ``b`` carry
+    errors of order u L^2), and a quad's plane and (u, v) test, a medium's
+    frame and free flight, and the node's own slab test are off by a few u
+    times the coordinates.  So a node's box is widened in two parts:
+
+    - statically, by ``MARGIN_ABS`` x (|centre| + half diagonal) - the
+      errors that grow with the coordinates - and rounded outward to
+      float32 (``nextafter``), which also covers the float32 rounding of
+      the float64 boxes and the quads past their ``MED_EPS`` pad;
+    - per ray, by m = l (A l + B), l = max_i |o_i - c_i| + h (an L-infinity
+      bound on the origin's distance to any point of the box: c its
+      centre, h its largest half width, so L + r <= sqrt(3) l), A =
+      ``MARGIN_QUAD`` / (least sphere radius under the node; 0 without
+      spheres), B = ``MARGIN_LINEAR``.
+
+    Each margin is three to four times the error it covers.  A box that is
+    too wide costs visits, never bits.  Returns float32 ``lo``, ``hi`` (M,
+    3), ``c`` (M, 3), ``h`` (M,) and ``A`` (M,)."""
+    boxes = prim_aabbs(scene)
+    kind = scene.prims.kind[:scene.n_prims].cpu().numpy()
+    sph = (kind == PRIM_SPHERE) | (kind == PRIM_MEDIUM_SPHERE)
+    rad = np.where(sph, scene.prims.radius[:scene.n_prims].cpu().numpy()
+                   .astype(np.float64), np.inf)
+    lo64, hi64, rmin = _post_order_boxes(bvh, boxes[:, 0], boxes[:, 1], rad)
+    c64 = 0.5 * (lo64 + hi64)
+    pad = MARGIN_ABS * (np.linalg.norm(c64, axis=1)
+                        + 0.5 * np.linalg.norm(hi64 - lo64, axis=1))
+    lo = np.nextafter((lo64 - pad[:, None]).astype(np.float32),
+                      np.float32(-np.inf))
+    hi = _up(hi64 + pad[:, None])
+    c = (0.5 * (lo.astype(np.float64) + hi)).astype(np.float32)
+    h = _up(np.maximum(hi - c.astype(np.float64),
+                       c - lo.astype(np.float64)).max(1))
+    A = np.where(np.isfinite(rmin), _up(MARGIN_QUAD / rmin), np.float32(0))
+    return lo, hi, c, h, A.astype(np.float32)
+
+
+def tree_depth(bvh: BVHArrays) -> int:
+    """The most internal nodes on a path from the root to a leaf: the
+    kernel's stack never holds more entries (each internal ancestor of
+    the current node pushes at most one)."""
+    cl, cr = bvh.child_l.cpu().numpy(), bvh.child_r.cpu().numpy()
+    count = bvh.count.cpu().numpy()
+    depth, todo = 0, [(0, 0)]
+    while todo:
+        n, d = todo.pop()
+        if count[n] > 0:
+            depth = max(depth, d)
+        else:
+            todo += [(cl[n], d + 1), (cr[n], d + 1)]
+    return depth
+
+
+def pack_nodes(bvh: BVHArrays, rule: str = VISIT,
+               scene: SceneData | None = None) -> torch.Tensor:
+    """The kernel's pair records, (1 + internal nodes, 24) float32: record
+    k holds both children of one internal node, so one fetch tests both.
+    Per child, three float4s - (min xyz, ref), (max xyz, A), (c xyz, h) -
+    left child first; rule ``VISIT`` reads the first two of each (the
+    JAX build's float32 boxes, node for node), rule ``INDEX`` all three
+    (the boxes and margins of :func:`index_margins`, which needs the
+    scene).  Record 0 holds the root as its left child (its right half is
+    unused); internal node n of the build is record 1 + its rank among the
+    internal nodes.  A ref is the bits of an int32: a record index (> 0)
+    for an internal child, ~(first << 3 | count) (< 0) for a leaf."""
+    if bvh.leaf_size > 7:
+        raise ValueError("leaves of at most 7 prims fit a child ref")
+    cl, cr = bvh.child_l.cpu().numpy(), bvh.child_r.cpu().numpy()
+    first, count = bvh.first.cpu().numpy(), bvh.count.cpu().numpy()
+    internal = count == 0
+    rec = np.cumsum(internal) * internal          # record of internal node n
+    ref = np.where(internal, rec, ~((first << 3) | count)).astype(np.int32)
+    M = bvh.n_nodes
+    A, c, h = (np.zeros(M, np.float32), np.zeros((M, 3), np.float32),
+               np.zeros(M, np.float32))
+    if rule == VISIT:
+        lo, hi = bvh.node_min.cpu().numpy(), bvh.node_max.cpu().numpy()
+    elif rule == INDEX:
+        if scene is None:
+            raise ValueError("rule INDEX packs the scene's margins")
+        lo, hi, c, h, A = index_margins(scene, bvh)
+    else:
+        raise ValueError(f"unknown tie rule {rule!r}")
+    # per node, its 12 floats as a child: (min, ref), (max, A), (c, h)
+    child = np.zeros((M, 12), np.float32)
+    child[:, 0:3], child[:, 4:7], child[:, 8:11] = lo, hi, c
+    child[:, 3] = ref.view(np.float32)
+    child[:, 7], child[:, 11] = A, h
+    ids = np.flatnonzero(internal)
+    rows = np.zeros((1 + ids.size, 24), np.float32)
+    rows[0, 0:8], rows[0, 16:20] = child[0, 0:8], child[0, 8:12]
+    for half, kids in ((0, cl[ids]), (8, cr[ids])):
+        rows[1:, half:half + 8] = child[kids, 0:8]
+        rows[1:, 16 + half // 2:20 + half // 2] = child[kids, 8:12]
     return torch.from_numpy(rows).to(bvh.device)
 
 
 @dataclass
 class BVHTables:
-    """What a traversal reads, built once per render: the tree, its packed
-    nodes (kernel), the sweep's prim table, the media rows (twin) and the
-    (N, 40) prim table whose media rows the kernel reads (None without
-    media)."""
+    """What a traversal reads, built once per render: the tree, its pair
+    records for one tie rule (kernel), the sweep's prim table, the media
+    rows (twin), the (N, 40) prim table whose media rows the kernel reads
+    (None without media) and the tree's depth."""
 
     bvh: BVHArrays
     nodes: torch.Tensor
     geo: torch.Tensor
     media: list
     tab: torch.Tensor | None
+    rule: str = VISIT
+    depth: int = 1
 
     @classmethod
     def create(cls, scene: SceneData, bvh: BVHArrays | None = None,
                geo: torch.Tensor | None = None,
-               media: list | None = None) -> "BVHTables":
+               media: list | None = None, rule: str = VISIT) -> "BVHTables":
         """Tables on the scene's device; ``bvh`` is built when omitted,
         ``geo`` and ``media`` are the render's sweep table and media rows
-        when it already has them."""
+        when it already has them.  ``rule``: ``VISIT`` (the JAX package's
+        traversal, ``bvh=True``) or ``INDEX`` (the dense sweep's
+        function)."""
         dev = scene.device
         bvh = build_bvh(scene) if bvh is None else bvh.to(dev)
         if bvh.order.shape[0] != scene.n_prims:
             raise ValueError(f"the BVH orders {bvh.order.shape[0]} prims, "
                              f"the scene has {scene.n_prims}")
+        depth = tree_depth(bvh)
+        if depth > STACK_DEPTH:
+            raise ValueError(f"a BVH {depth} internal nodes deep overflows "
+                             f"the JAX traversal's {STACK_DEPTH}-entry stack")
         tab = (torch.from_numpy(build_tables(scene)[0]).to(dev)
                if scene.has_media else None)
-        return cls(bvh=bvh, nodes=pack_nodes(bvh),
+        return cls(bvh=bvh, nodes=pack_nodes(bvh, rule, scene),
                    geo=sweep_table(scene) if geo is None else geo,
                    media=media_rows(scene) if media is None else media,
-                   tab=tab)
+                   tab=tab, rule=rule, depth=max(depth, 1))
 
 
 def _spans(scene: SceneData):
@@ -338,12 +503,16 @@ intersect_bvh_plain.calls = 0
 
 def intersect_bvh(scene: SceneData, tables: BVHTables, rays: torch.Tensor,
                   kd, lane_ids):
-    """Closest hit of every ray by BVH traversal: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  ``rays``: (7, R) float32
-    rows (origin, direction, time); ``kd``: the intersect key's two words;
-    ``lane_ids``: (R,) int32 ids keying the media draws.  Returns
-    (best_t, best_i)."""
+    """Closest hit of every ray by BVH traversal under ``tables.rule``: the
+    CUDA kernel for CUDA tensors; for CPU tensors the plain twin of the
+    rule (:func:`intersect_bvh_plain` for ``VISIT``, ``intersect_ti`` for
+    ``INDEX``).  ``rays``: (7, R) float32 rows (origin, direction, time);
+    ``kd``: the intersect key's two words; ``lane_ids``: (R,) int32 ids
+    keying the media draws.  Returns (best_t, best_i)."""
     if not rays.is_cuda:
+        if tables.rule == INDEX:
+            return intersect_ti(scene, rays, kd, lane_ids, tables.geo,
+                                tables.media)
         return intersect_bvh_plain(scene, tables, rays, kd, lane_ids)
     return intersect_bvh_launch(scene, tables, rays, kd, lane_ids)
 
@@ -352,46 +521,71 @@ intersect_bvh.launches = 0
 
 
 def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
-                         rays: torch.Tensor, kd, lane_ids):
+                         rays: torch.Tensor, kd, lane_ids,
+                         stats: torch.Tensor | None = None):
     """The traversal kernel on CUDA tensors; counts into
-    ``intersect_bvh.launches``.  Returns (best_t, best_i)."""
+    ``intersect_bvh.launches``.  ``stats``, if given, a zeroed (9,) int64
+    tensor on the rays' device, gets the kernel's own counts
+    (``STAT_KEYS``) from its counting form.  Returns (best_t, best_i)."""
     _check_rays(rays)
     R = rays.shape[1]
     dev = rays.device
     need = [rays, tables.nodes, tables.bvh.order, tables.geo, lane_ids]
     if tables.tab is not None:
         need.append(tables.tab)
+    if stats is not None:
+        need.append(stats)
+        if stats.dtype != torch.int64 or stats.shape != (len(STAT_KEYS),):
+            raise ValueError(f"stats must be a ({len(STAT_KEYS)},) int64 "
+                             "tensor")
     if any(not x.is_cuda or x.device != dev for x in need):
         raise ValueError("the BVH kernel takes CUDA tensors on one device")
     if lane_ids.dtype != torch.int32 or lane_ids.shape != (R,) \
             or not lane_ids.is_contiguous():
         raise ValueError("lane_ids must be a contiguous (R,) int32 tensor")
-    if tables.bvh.leaf_size > STACK_DEPTH or tables.nodes.shape[1] != 8:
+    if tables.nodes.dim() != 2 or tables.nodes.shape[1] != 24 \
+            or tables.rule not in (VISIT, INDEX) \
+            or not 1 <= tables.depth <= STACK_DEPTH:
         raise ValueError("malformed BVH tables")
     if scene.has_media and tables.tab is None:
         raise ValueError("a scene with media needs the (N, 40) prim table")
     fn = load_fn("bvh", "tr_bvh", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-        ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     best_t = torch.empty((R,), dtype=torch.float32, device=dev)
     best_i = torch.empty((R,), dtype=torch.int32, device=dev)
     n_ss, n_s, n_sb, n_solid = _ranges(scene)
     err = fn(rays.data_ptr(), R, tables.nodes.data_ptr(),
-             tables.bvh.order.data_ptr(),
+             tables.bvh.order.data_ptr(), scene.n_prims,
              tables.geo.data_ptr() if n_solid else None,
              tables.tab.data_ptr() if tables.tab is not None else None,
              n_ss, n_s, n_sb, n_solid, float(np.float32(scene.t_min)),
              int(kd[0]) & 0xFFFFFFFF, int(kd[1]) & 0xFFFFFFFF,
              lane_ids.data_ptr(), int(bool(scene.any_transform)),
-             tables.bvh.leaf_size, best_t.data_ptr(), best_i.data_ptr(),
+             float(_up(MARGIN_LINEAR)), tables.depth,
+             record_budget(scene.n_prims), int(tables.rule == INDEX),
+             stats.data_ptr() if stats is not None else None,
+             best_t.data_ptr(), best_i.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"BVH kernel launch failed (cudaError {err})")
     intersect_bvh.launches += 1
     return best_t, best_i
+
+
+def kernel_flops(counts: dict, rule: str) -> float:
+    """fp32 operations of the kernel's own work under ``rule``, from its
+    counters (``STAT_KEYS``): every child box tested (two a record
+    expanded, one a root), every stack entry popped, the leaf pairs."""
+    pairs = sum(counts.get(k, 0) * FLOPS_PER_PAIR[k]
+                for k in ("sphere", "moving", "box", "quad"))
+    return ((2 * counts.get("records", 0) + counts.get("roots", 0))
+            * FLOPS_PER_CHILD[rule] + counts.get("pops", 0) * FLOPS_PER_POP
+            + pairs + counts.get("medium", 0) * FLOPS_PER_MEDIUM_PAIR)
 
 
 def traversal_flops(stats: dict) -> float:

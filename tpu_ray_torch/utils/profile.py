@@ -59,8 +59,8 @@ def main(argv=None) -> int:
         return 1
 
     from ..models.scenes import SCENES
-    from ..ops import (build, hit_scatter, intersect, megakernel, queue,
-                       shade, sweep)
+    from ..ops import (build, bvh, hit_scatter, intersect, megakernel,
+                       queue, shade, sweep)
     from ..renderer import render
 
     build.build_all()
@@ -78,7 +78,7 @@ def main(argv=None) -> int:
                 "hit_scatter": hit_scatter.hit_scatter,
                 "megakernel": megakernel.trace_pool_mega,
                 "media": intersect.merge_media, "path_ids": queue.path_ids,
-                "queue_inject": queue.queue_inject}
+                "queue_inject": queue.queue_inject, "bvh": bvh.intersect_bvh}
     for fn in counters.values():
         fn.launches = 0
     megakernel.read_stats("cuda")
