@@ -783,8 +783,9 @@ def check_inject(name, width, height, iters, sampler="uniform",
     their twins on a 1M-lane queue state ``iters`` iterations in (with
     ``worklist``, the items of ``worklist_items`` padded by ``WL_PAD``),
     after the next iteration's sweep and step: draw ids (also past 2^32),
-    lane state, work items, frontier, sobol-b0 record and every plane
-    column but the twin's trash column bit for bit.  Timed by graph replay
+    lane state, work items, frontier, sobol-b0 record, the census cell and
+    every plane column but the twin's trash column bit for bit.  Timed,
+    with the census cell as a render passes it, by graph replay
     (the inject with its step outputs restored before each launch, that
     copy's own time subtracted).  Bounds: path ids 16 B a lane; the inject
     24 B a lane, 24 a lane that died, 60 a lane refilled (+8 with a
@@ -812,9 +813,10 @@ def check_inject(name, width, height, iters, sampler="uniform",
                                   width, height)
     fk, ik, pk = f.clone(), i.clone(), st.plane.clone()
     fp, ip, pp = f.clone(), i.clone(), st.plane.clone()
-    got = queue.queue_inject(*args(fk, ik, pk))
+    ck, cp = st.census.clone(), st.census.clone()
+    got = queue.queue_inject(*args(fk, ik, pk), census=ck)
     launches = queue.queue_inject.launches, queue.path_ids.launches
-    want = queue.queue_inject_plain(*args(fp, ip, pp))
+    want = queue.queue_inject_plain(*args(fp, ip, pp), census=cp)
     queue.path_ids_plain(st.work, 0, st.istate[0])
     torch.cuda.synchronize()
     if (queue.queue_inject.launches, queue.path_ids.launches) != launches:
@@ -825,7 +827,7 @@ def check_inject(name, width, height, iters, sampler="uniform",
         bad |= bits_differ(got[4], want[4])
     n_bad = int(bad.sum())
     same = (n_bad == 0 and ids_equal and torch.equal(got[3], want[3])
-            and torch.equal(pk[:, :-1], pp[:, :-1]))
+            and torch.equal(pk[:, :-1], pp[:, :-1]) and torch.equal(ck, cp))
     free = i[2] == 0
     died = free & (st.istate[2] > 0)
     refilled = free & (got[2] != st.work)
@@ -839,9 +841,10 @@ def check_inject(name, width, height, iters, sampler="uniform",
     ids_ms = kernel_ms(lambda: queue.path_ids(st.work, 0, st.istate[0]))
     ids_plain_ms = cuda_ms(lambda: queue.path_ids_plain(st.work, 0,
                                                         st.istate[0]), 3)
-    fw, iw, pw = f.clone(), i.clone(), st.plane.clone()
+    fw, iw, pw, cw = f.clone(), i.clone(), st.plane.clone(), ck.clone()
     restore = lambda: iw.copy_(i)
-    ms = kernel_ms(lambda: (restore(), queue.queue_inject(*args(fw, iw, pw)))
+    ms = kernel_ms(lambda: (restore(), queue.queue_inject(*args(fw, iw, pw),
+                                                          census=cw))
                    ) - kernel_ms(restore)
     plain_ms = cuda_ms(lambda: (restore(), queue.queue_inject_plain(
         *args(fw, iw, pw))), 3)
@@ -858,7 +861,8 @@ def check_inject(name, width, height, iters, sampler="uniform",
     log(f"queue {what}: inject bound in 32-byte sectors {sec_bound_ms:.4f} "
         f"ms ({sec_bytes / m:.1f} B a lane)")
     log(f"queue {what}: frontier {int(st.frontier)} -> {int(want[3])} of "
-        f"{total}, free {n_free}, died {n_died}, refilled {n_ref}; "
+        f"{total}, free {n_free}, died {n_died}, refilled {n_ref}, census "
+        f"{int(st.census)} -> {int(ck)}; "
         f"bit-equal to the twins {same} (lanes differing {n_bad}, path ids "
         f"{ids_equal}); inject {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}, {nbytes / m:.1f} B a lane); path "

@@ -1103,3 +1103,50 @@ def test_queue_kernels_bit_equal_to_plain(card, sampler, worklist_mode):
     assert torch.equal(pk[:, :-1], pp[:, :-1])
     free = i[2] == 0
     assert int(free.sum()) > 100 and int(want[3]) > int(st.frontier)
+    # the census cell gains the lanes left active, in the kernel and the twin
+    ck, cp = (torch.full((), 5, dtype=torch.int64, device=card)
+              for _ in range(2))
+    got = q.queue_inject(*args(f.clone(), i.clone(), st.plane.clone()),
+                         census=ck)
+    want = q.queue_inject_plain(*args(f.clone(), i.clone(), st.plane.clone()),
+                                census=cp)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert int(ck) == int(cp) == 5 + int(want[1][2].sum())
+
+
+@pytest.mark.parametrize("sampler,worklist_mode", [
+    ("uniform", False), ("sobol-b0", False), ("uniform", True)])
+def test_queue_census_kernel_equals_twin(card, sampler, worklist_mode,
+                                         monkeypatch):
+    """Eight queue iterations from a fresh queue with the kernels and with
+    their plain twins: the same lanes, the same census, and the census is
+    the sum of the active lanes at each later iteration's entry."""
+    from tpu_ray_torch import integrator
+    from tpu_ray_torch.ops import queue as q
+
+    cfg, st0, _, _, worklist, total, W, H = _queue_state(card, sampler,
+                                                         worklist_mode)
+    ps = _build("cornell", card)[1]
+    kern = SceneKernels.create(ps)
+    key = rng.fold_in(rng.prng_key(5), 0x5EED)
+    ki, ks = rng.fold_in(key, 0), rng.fold_in(key, 1)
+
+    def run():
+        st = _queue_init(st0.work.shape[0], total, card,
+                         st0.plane.shape[1] - 1, b0=cfg.b0)
+        entries = 0
+        for _ in range(8):
+            entries += int(st.istate[2].sum())
+            st = integrator.queue_body(st, ps, cfg, kern, ki, ks, 7,
+                                       3 * W * H, total, W, H, worklist)
+        return st, entries + int(st.istate[2].sum())
+
+    launches = q.queue_inject.launches
+    got, n_got = run()
+    assert q.queue_inject.launches == launches + 8
+    monkeypatch.setattr(q, "queue_inject", q.queue_inject_plain)
+    monkeypatch.setattr(q, "path_ids", q.path_ids_plain)
+    want, n_want = run()
+    assert torch.equal(got.work, want.work)
+    assert torch.equal(got.istate, want.istate)
+    assert int(got.census) == int(want.census) == n_got == n_want > 0

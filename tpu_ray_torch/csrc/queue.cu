@@ -35,6 +35,10 @@
 //     salt), or qmc.cuh's sobol_camera of (pixel, plain sample)), the camera
 //     ray, throughput 1, radiance 0, bounce 0, active; with sobol-b0 the
 //     lane's (pixel, sample) record.
+//   Block 0's first thread also writes the new frontier and adds the lanes
+//   left active (the lanes that stay active, and the free lanes that take
+//   an item: min(free, total - frontier)) to the census cell, the next
+//   iteration's rays; one thread writes it, and no lane reads it.
 //   The camera ray is the queue's, not the pool regen's of shade_core.cuh:
 //   sx = ((pix % W) + u0) * inv_w and sy = ((H - 1 - pix / W) + u1) * inv_h,
 //   which round otherwise than the pool's xs + u0 * inv_w, then the
@@ -95,6 +99,7 @@ struct InjectArgs {
   long long* work_out;
   long long* frontier_out;
   int* lane_out;
+  long long* census;        // () path vertices, or null
   float cam[21];
   float inv_w, inv_h;
   long long total, gs0, P, m, plane_cols, n_blocks;
@@ -154,6 +159,10 @@ __global__ void __launch_bounds__(QUEUE_THREADS) inject_kernel(InjectArgs A) {
   if (blk == 0 && tid == 0) {
     const long long nf = fr + s_tot[1];
     A.frontier_out[0] = nf < A.total ? nf : A.total;
+    if (A.census != nullptr) {
+      const long long left = A.total > fr ? A.total - fr : 0;
+      A.census[0] += A.m - s_tot[1] + (s_tot[1] < left ? s_tot[1] : left);
+    }
   }
   if (!in) return;
   const long long m = A.m;
@@ -235,14 +244,16 @@ extern "C" int tr_path_ids(const long long* work, const int* bounce,
 // frontier: () int64; plane: (3, plane_cols) float32, written in place;
 // lane: (2, m) int32 (sobol-b0) or null; worklist: (Wl,) int64 packed
 // entries or null; counts: (ceil(m / 1024),) int32 scratch; work_out,
-// frontier_out, lane_out: the new work items, frontier and record; cam:
-// host pointer to the 21 camera floats (Camera.vec).  Returns the first
+// frontier_out, lane_out: the new work items, frontier and record; census:
+// () int64 path vertices, in place, or null; cam: host pointer to the 21
+// camera floats (Camera.vec).  Returns the first
 // failed launch's cudaError_t (0 = both launched).
 extern "C" int tr_queue_inject(
     const int* active0, float* f, int* i, const long long* work,
     const long long* frontier, float* plane, const int* lane,
     const long long* worklist, int* counts, long long* work_out,
-    long long* frontier_out, int* lane_out, const float* cam, float inv_w,
+    long long* frontier_out, int* lane_out, long long* census,
+    const float* cam, float inv_w,
     float inv_h, long long total, long long work_base, int width, int height,
     unsigned cam_salt, int sobol, int b0, long long m, long long plane_cols,
     void* stream) {
@@ -257,7 +268,7 @@ extern "C" int tr_queue_inject(
   A.active0 = active0; A.f = f; A.i = i; A.work = work;
   A.frontier = frontier; A.plane = plane; A.lane = lane;
   A.worklist = worklist; A.counts = counts; A.work_out = work_out;
-  A.frontier_out = frontier_out; A.lane_out = lane_out;
+  A.frontier_out = frontier_out; A.lane_out = lane_out; A.census = census;
   memcpy(A.cam, cam, sizeof(A.cam));
   A.inv_w = inv_w; A.inv_h = inv_h;
   const long long P = (long long)width * height;

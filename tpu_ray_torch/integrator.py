@@ -73,6 +73,7 @@ from .ops.shade import (N_FSTATE, N_ISTATE, RR_COL, RR_PMIN, StepConfig,
 from .ops.sweep import (MxuPack, SweepBlocks, mxu_pack, sweep_blocks,
                         sweep_table, use_mask_cull, use_mxu, use_sort)
 from .parallel import mesh as mesh_mod
+from .utils.profiling import span
 
 # compaction ladder (integrator.py COMPACT_* constants, kept identical:
 # the ladder decides nothing about the estimate, but the port keeps the
@@ -265,13 +266,17 @@ def trace_pool_staged(scene: SceneData, cfg: StepConfig, xy, slot, k_loop,
         nonlocal it
         k = 0
         while it < iter_cap:
-            if k % CHECK_EVERY == 0 and \
-                    int(st.istate[2].sum()) <= threshold:
-                break
-            bt, bi = kern.intersect(scene, st.fstate[:7], k_isect[it],
-                                    st.slot)
-            st.fstate, st.istate = pool_step(cfg, st.xy, st.slot, st.fstate,
-                                             st.istate, bt, bi, k_scat[it])
+            if k % CHECK_EVERY == 0:
+                with span("pool.read"):
+                    done = int(st.istate[2].sum()) <= threshold
+                if done:
+                    break
+            with span("pool.iteration"):
+                bt, bi = kern.intersect(scene, st.fstate[:7], k_isect[it],
+                                        st.slot)
+                st.fstate, st.istate = pool_step(cfg, st.xy, st.slot,
+                                                 st.fstate, st.istate, bt, bi,
+                                                 k_scat[it])
             it += 1
             k += 1
         return st
@@ -360,6 +365,9 @@ class QueueState:
     #                         work item's pixel and global sample (uint32
     #                         bits), set at inject for the step's
     #                         first-bounce draws; None for other samplers
+    census: torch.Tensor | None = None  # () int64 path vertices: the inject
+    #                         adds the lanes it leaves active, the next
+    #                         iteration's rays; None counts nothing
 
 
 def _queue_init(R: int, total: int, dev, pad: int | None = None,
@@ -367,19 +375,22 @@ def _queue_init(R: int, total: int, dev, pad: int | None = None,
     """Fresh lanes and a zero plane of ``pad`` columns (default ``total``)
     plus the sentinel column; columns past ``total`` are never written.
     ``b0`` (the step configuration's) gives the lanes their (pixel, global
-    sample) record."""
+    sample) record.  The census starts at 0: no lane is active."""
     pad = total if pad is None else pad
     f = torch.zeros((N_FSTATE, R), dtype=torch.float32, device=dev)
     f[3:6] = 1.0
     f[7:10] = 1.0
+    # the frontier and the census cell share one allocation, one fill
+    counters = torch.zeros((2,), dtype=torch.int64, device=dev)
     return QueueState(
         fstate=f,
         istate=torch.zeros((N_ISTATE, R), dtype=torch.int32, device=dev),
         work=torch.full((R,), pad, dtype=torch.int64, device=dev),
-        frontier=torch.zeros((), dtype=torch.int64, device=dev),
+        frontier=counters[0],
         plane=torch.zeros((3, pad + 1), dtype=torch.float32, device=dev),
         lane=(torch.zeros((2, R), dtype=torch.int32, device=dev) if b0
-              else None))
+              else None),
+        census=counters[1])
 
 
 def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
@@ -409,8 +420,8 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
                      lane_b0=st.lane)
     f, i, work, frontier, lane = queue_ops.queue_inject(
         cfg, cam_salt, st.istate[2], f, i, st.work, st.frontier, st.plane,
-        st.lane, worklist, total, work_base, width, height)
-    return QueueState(f, i, work, frontier, st.plane, lane)
+        st.lane, worklist, total, work_base, width, height, census=st.census)
+    return QueueState(f, i, work, frontier, st.plane, lane, st.census)
 
 
 def queue_compact(st: QueueState, m: int) -> QueueState:
@@ -422,7 +433,21 @@ def queue_compact(st: QueueState, m: int) -> QueueState:
                       st.istate[:, order].contiguous(), st.work[order],
                       st.frontier, st.plane,
                       None if st.lane is None
-                      else st.lane[:, order].contiguous())
+                      else st.lane[:, order].contiguous(), st.census)
+
+
+class QueueCounts:
+    """The work queue's counters (:func:`tpu_ray_torch.utils.profiling.
+    counts`): :func:`trace_queue` calls; path vertices, the census (the sum
+    over iterations of the lanes active at the closest hit, as
+    ``tools/count_rays.py`` counts: the same for any lane count, epoch
+    length and drain ladder); lane slots, the pool size summed over every
+    dispatched iteration.  Class attributes, so a caller that wraps
+    ``trace_queue`` leaves them counting."""
+
+    calls = 0
+    vertices = 0
+    lane_slots = 0
 
 
 def trace_queue(scene: SceneData, camera, width: int, height: int,
@@ -430,7 +455,8 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
                 cam_salt: int = 0, epoch_iters: int = 8, drain_levels=(),
                 progress_cb=None, rr_depth: int = 0, worklist=None,
                 n_work=None, wl_block_pix=None,
-                kern: SceneKernels | None = None, work_id0: int | None = None):
+                kern: SceneKernels | None = None, work_id0: int | None = None,
+                phase=None):
     """Render ``width * height * chunk_spp`` camera samples with a work-queue
     pool of ``R`` lanes; returns the (H*W, 3) radiance sum over the chunk's
     samples.
@@ -444,7 +470,12 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
     final drain's compaction.  ``kern`` passes a render's prebuilt tables,
     which also pick the sweep (:meth:`SceneKernels.create`; built from the
     scene when omitted).  The scene must be on the device to
-    render on.
+    render on.  ``phase`` (a :class:`~tpu_ray_torch.utils.profiling.Phase`
+    of the calling render) ends before the first iteration, and begins
+    ``render.finish`` after the last.
+
+    Each call adds to :class:`QueueCounts` its path vertices (its census
+    cell, read with the counters once an epoch) and its lane slots.
 
     With ``worklist`` ((Wl,) int64 packed (pixel, absolute sample) entries
     on the scene's device, adaptive sampling) the work map comes from the
@@ -476,38 +507,54 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
         z = torch.zeros((P, 3), dtype=torch.float32, device=dev)
         return (z, z.clone()) if worklist is not None else z
     if kern is None:
-        kern = SceneKernels.create(scene)
+        with span("render.kernels"):
+            kern = SceneKernels.create(scene)
     # n_samples = 0: the step kernel never regenerates a camera ray; the
     # camera salt keys the sobol-b0 step's first-bounce draws
-    cfg = StepConfig.create(scene, camera, width, height, max_depth,
-                            rr_depth=rr_depth, n_samples=0,
-                            cam_salt=cam_salt, queue=True)
-    key = np.asarray(key, np.uint32)
-    k_isect, k_scat = rng.fold_in(key, 0), rng.fold_in(key, 1)
-    work_base = (int(chunk_s0) & rng.M32) * P
-    st = _queue_init(R, total, dev, pad, cfg.b0)
-    epoch_iters = max(1, int(epoch_iters))
-    max_epochs = 21 + (total // max(R, 1) + chunk_spp * cfg.max_depth
-                       + 2 * cfg.max_depth) // epoch_iters * 4
+    with span("render.step_config"):
+        cfg = StepConfig.create(scene, camera, width, height, max_depth,
+                                rr_depth=rr_depth, n_samples=0,
+                                cam_salt=cam_salt, queue=True)
+    with span("render.plan"):
+        key = np.asarray(key, np.uint32)
+        k_isect, k_scat = rng.fold_in(key, 0), rng.fold_in(key, 1)
+        work_base = (int(chunk_s0) & rng.M32) * P
+        epoch_iters = max(1, int(epoch_iters))
+        max_epochs = 21 + (total // max(R, 1) + chunk_spp * cfg.max_depth
+                           + 2 * cfg.max_depth) // epoch_iters * 4
+    with span("queue.init"):
+        st = _queue_init(R, total, dev, pad, cfg.b0)
+    vertices = 0
 
     def run(st: QueueState, threshold: int) -> QueueState:
+        nonlocal vertices
         for _ in range(max_epochs):
-            frontier, n_active = torch.stack(
-                [st.frontier, st.istate[2].sum()]).tolist()
-            if progress_cb is not None:
-                progress_cb(frontier, total)
-            if frontier >= total and n_active <= threshold:
-                return st
+            with span("queue.read"):
+                frontier, n_active, vertices = torch.stack(
+                    [st.frontier, st.istate[2].sum(), st.census]).tolist()
+                if progress_cb is not None:
+                    progress_cb(frontier, total)
+                if frontier >= total and n_active <= threshold:
+                    return st
+            QueueCounts.lane_slots += epoch_iters * st.work.shape[0]
             for _ in range(epoch_iters):
-                st = queue_body(st, scene, cfg, kern, k_isect, k_scat,
-                                cam_salt, work_base, total, width, height,
-                                worklist, work_id0)
+                with span("queue.iteration"):
+                    st = queue_body(st, scene, cfg, kern, k_isect, k_scat,
+                                    cam_salt, work_base, total, width, height,
+                                    worklist, work_id0)
         raise RuntimeError("trace_queue: epoch cap exceeded")
 
+    if phase is not None:
+        phase.end()
     st = run(st, drain_levels[0] if drain_levels else 0)
     for li, m in enumerate(drain_levels):
-        st = queue_compact(st, m)
+        with span("queue.compact"):
+            st = queue_compact(st, m)
         st = run(st, drain_levels[li + 1] if li + 1 < len(drain_levels) else 0)
+    if phase is not None:
+        phase.begin("render.finish")
+    QueueCounts.calls += 1
+    QueueCounts.vertices += vertices
     if worklist is not None:
         if wl_block_pix is not None:
             return worklist_sums_blocked(st.plane, wl_block_pix, P)

@@ -116,7 +116,7 @@ def path_ids_launch(work: torch.Tensor, id0: int, bounce: torch.Tensor):
 
 def queue_inject_plain(cfg: StepConfig, cam_salt: int, active0, f, i, work,
                        frontier, plane, lane, worklist, total: int,
-                       work_base: int, width: int, height: int):
+                       work_base: int, width: int, height: int, census=None):
     """Flush the lanes that died and inject fresh work into the free ones.
 
     ``active0``: (m,) int32 active flags before the step; ``f`` (13, m) and
@@ -127,8 +127,9 @@ def queue_inject_plain(cfg: StepConfig, cam_salt: int, active0, f, i, work,
     global sample) record; ``worklist`` (Wl,) int64 or None.  Free lanes
     take the next work items in lane order; item w is pixel ``w % P`` at
     global sample ``work_base // P + w // P`` (P = W x H), or the
-    worklist's entry.  Returns (f, i, work, frontier, lane), the last three
-    new tensors."""
+    worklist's entry.  ``census`` (() int64 or None) gains, in place, the
+    lanes left active: the next iteration's rays.  Returns (f, i, work,
+    frontier, lane), the last three new tensors."""
     queue_inject_plain.calls += 1
     # flush: each work item dies exactly once, so its radiance is written
     died = (active0 > 0) & (i[2] == 0)
@@ -172,6 +173,8 @@ def queue_inject_plain(cfg: StepConfig, cam_salt: int, active0, f, i, work,
     i[0] = torch.where(valid, 0, i[0])
     i[2] = (~free | valid).to(torch.int32)
     frontier = torch.clamp(frontier + free.sum(), max=total)
+    if census is not None:
+        census.add_(i[2].sum())
     if cfg.b0:
         lane = torch.where(valid, torch.stack([_to_i32_bits(pix),
                                                _to_i32_bits(gsample)]), lane)
@@ -183,18 +186,19 @@ queue_inject_plain.calls = 0
 
 def queue_inject(cfg: StepConfig, cam_salt: int, active0, f, i, work,
                  frontier, plane, lane, worklist, total: int, work_base: int,
-                 width: int, height: int):
+                 width: int, height: int, census=None):
     """:func:`queue_inject_plain`: the CUDA kernels for CUDA tensors (a
-    count pass and the inject pass; ``f``, ``i`` and ``plane`` in place,
-    the new work, frontier and lane record in fresh tensors; the trash
-    column of ``plane`` is not written), the plain twin for CPU tensors."""
+    count pass and the inject pass; ``f``, ``i``, ``plane`` and ``census``
+    in place, the new work, frontier and lane record in fresh tensors; the
+    trash column of ``plane`` is not written), the plain twin for CPU
+    tensors."""
     if not f.is_cuda:
         return queue_inject_plain(cfg, cam_salt, active0, f, i, work,
                                   frontier, plane, lane, worklist, total,
-                                  work_base, width, height)
+                                  work_base, width, height, census)
     return queue_inject_launch(cfg, cam_salt, active0, f, i, work, frontier,
                                plane, lane, worklist, total, work_base,
-                               width, height)
+                               width, height, census)
 
 
 queue_inject.launches = 0
@@ -202,7 +206,7 @@ queue_inject.launches = 0
 
 def queue_inject_launch(cfg: StepConfig, cam_salt: int, active0, f, i, work,
                         frontier, plane, lane, worklist, total: int,
-                        work_base: int, width: int, height: int):
+                        work_base: int, width: int, height: int, census=None):
     """The count and inject kernels on CUDA tensors, two launches; counts
     one into ``queue_inject.launches``."""
     dev = f.device
@@ -218,10 +222,12 @@ def queue_inject_launch(cfg: StepConfig, cam_salt: int, active0, f, i, work,
         want.append((lane, (2, m), torch.int32))
     if worklist is not None:
         want.append((worklist, (worklist.shape[0],), torch.int64))
+    if census is not None:
+        want.append((census, (), torch.int64))
     _check("the queue inject kernels", want, dev)
     if width * height <= 0 or plane.shape[1] < 1:
         raise ValueError("queue inject: an empty image or plane")
-    fn = load_fn("queue", "tr_queue_inject", [ctypes.c_void_p] * 13 + [
+    fn = load_fn("queue", "tr_queue_inject", [ctypes.c_void_p] * 14 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
@@ -236,7 +242,8 @@ def queue_inject_launch(cfg: StepConfig, cam_salt: int, active0, f, i, work,
              lane.data_ptr() if cfg.b0 else None,
              None if worklist is None else worklist.data_ptr(),
              counts.data_ptr(), work_out.data_ptr(), frontier_out.data_ptr(),
-             lane_out.data_ptr() if cfg.b0 else None, cam.ctypes.data,
+             lane_out.data_ptr() if cfg.b0 else None,
+             None if census is None else census.data_ptr(), cam.ctypes.data,
              cfg.inv_w, cfg.inv_h, int(total), int(work_base), width, height,
              int(cam_salt) & rng.M32, int(cfg.sobol), int(cfg.b0), m,
              plane.shape[1], torch.cuda.current_stream(dev).cuda_stream)

@@ -64,7 +64,7 @@ from .ops.intersect import pack_rays
 from .ops.megakernel import supported as mega_supported
 from .ops.shade import StepConfig
 from .parallel import mesh as mesh_mod
-from .utils.profiling import WaveTimer
+from .utils.profiling import Phase, WaveTimer, span
 
 QUEUE_MIN_PRIMS = 512    # mode="auto" picks the work queue above this
 # the JAX package's pool lane caps for scenes of more than 512 prims
@@ -370,7 +370,8 @@ def _save_checkpoint(path, accum: np.ndarray, done: int, tag: str) -> None:
 
 def _render_queue(scenes, kerns, camera, width, height, spp, max_depth, seed,
                   rays_per_wave, rr_depth, progress, engine,
-                  checkpoint_path, checkpoint_every, on_partial, mesh):
+                  checkpoint_path, checkpoint_every, on_partial, mesh,
+                  phase):
     """Work-queue render: sample chunks sized by the film-plane budget, one
     key for every chunk (draws are keyed by global work item and bounce),
     a checkpoint and ``on_partial`` after each chunk but the last.
@@ -379,36 +380,41 @@ def _render_queue(scenes, kerns, camera, width, height, spp, max_depth, seed,
     ``mesh`` of D devices each chunk holds a multiple of D samples, shared
     out by :func:`~tpu_ray_torch.integrator.trace_queue_mesh` (the plane
     budget is a device's); ``spp % D`` samples are left for a last chunk on
-    ``mesh[0]``, as in the JAX package (``tpu_ray/renderer.py:406-414``)."""
+    ``mesh[0]``, as in the JAX package (``tpu_ray/renderer.py:406-414``).
+    ``phase``: the render's set-up span, handed to each chunk's queue."""
     devs = mesh if mesh is not None else tuple(scenes)
     scene = scenes[devs[0]]
     P = width * height
-    R, chunk_spp, epoch_iters, drain = plan_queue(scene, width, height, spp,
-                                                  rays_per_wave)
-    D = 0 if mesh is None else len(mesh)
-    if mesh is None:
-        chunks = [chunk_spp] * (spp // chunk_spp)
-    else:
-        chunk_spp = D * _largest_divisor_leq(
-            spp // D, max(1, QUEUE_PLANE_BYTES // (P * 12)))
-        chunks = [chunk_spp] * (spp // D * D // chunk_spp)
-        if spp % D:
-            chunks.append(spp % D)
-    n_chunks = len(chunks)
-    starts = np.cumsum([0] + chunks).tolist()
-    k_queue = rng.fold_in(rng.prng_key(seed), 0x5EED)
-    tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
-                      f"queue|{engine}|{chunk_spp}x{n_chunks}r{chunks[-1]}"
-                      f"|d{D}|rr{rr_depth}")
-    path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
-                                         tag, n_chunks, 2, 1)
-    film, start = (None, 0)
-    if path:
-        film, start = _load_checkpoint(path, tag, devs[0], progress, "chunk")
-    if film is None:
-        film = torch.zeros((P, 3), dtype=torch.float32, device=devs[0])
+    with span("render.plan"):
+        R, chunk_spp, epoch_iters, drain = plan_queue(scene, width, height,
+                                                      spp, rays_per_wave)
+        D = 0 if mesh is None else len(mesh)
+        if mesh is None:
+            chunks = [chunk_spp] * (spp // chunk_spp)
+        else:
+            chunk_spp = D * _largest_divisor_leq(
+                spp // D, max(1, QUEUE_PLANE_BYTES // (P * 12)))
+            chunks = [chunk_spp] * (spp // D * D // chunk_spp)
+            if spp % D:
+                chunks.append(spp % D)
+        n_chunks = len(chunks)
+        starts = np.cumsum([0] + chunks).tolist()
+        k_queue = rng.fold_in(rng.prng_key(seed), 0x5EED)
+    with span("render.config_tag"):
+        tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
+                          f"queue|{engine}|{chunk_spp}x{n_chunks}"
+                          f"r{chunks[-1]}|d{D}|rr{rr_depth}")
+        path, every, auto = _checkpoint_path(
+            checkpoint_path, checkpoint_every, tag, n_chunks, 2, 1)
+        film, start = (None, 0)
+        if path:
+            film, start = _load_checkpoint(path, tag, devs[0], progress,
+                                           "chunk")
+        if film is None:
+            film = torch.zeros((P, 3), dtype=torch.float32, device=devs[0])
 
-    kw = dict(cam_salt=seed, epoch_iters=epoch_iters, rr_depth=rr_depth)
+    kw = dict(cam_salt=seed, epoch_iters=epoch_iters, rr_depth=rr_depth,
+              phase=phase)
     for c in range(start, n_chunks):
         cs, s0 = chunks[c], starts[c]
 
@@ -457,10 +463,12 @@ def _wave_step(scene, camera, width, height, spp, max_depth, seed,
             "apply; use the pool or queue mode with --sampler "
             f"{camera.sampler!r}")
     dev = scene.device
-    k = pick_samples_per_wave(width, height, spp, rays_per_wave)
-    xy = pixel_grid(width, height, k, dev)
-    cfg = StepConfig.create(scene, camera, width, height, max_depth,
-                            rr_depth=rr_depth)
+    with span("render.plan"):
+        k = pick_samples_per_wave(width, height, spp, rays_per_wave)
+        xy = pixel_grid(width, height, k, dev)
+    with span("render.step_config"):
+        cfg = StepConfig.create(scene, camera, width, height, max_depth,
+                                rr_depth=rr_depth)
     cam = camera.to(dev)
     base_key = rng.prng_key(seed)
 
@@ -486,16 +494,18 @@ def _pool_step(scene, camera, width, height, spp, max_depth, seed,
     wave's (rows, W, 3) film); ``mega`` runs each wave as one megakernel
     launch."""
     dev = scene.device
-    k_pool, s_wave, n_waves = plan_pool(scene, width, rows, spp,
-                                        rays_per_wave, samples_per_wave,
-                                        engine)
-    xy = pixel_grid(width, height, k_pool, dev, row0, rows)
-    sids = slot_ids(width, height, k_pool, dev, row0, rows)
+    with span("render.plan"):
+        k_pool, s_wave, n_waves = plan_pool(scene, width, rows, spp,
+                                            rays_per_wave, samples_per_wave,
+                                            engine)
+        xy = pixel_grid(width, height, k_pool, dev, row0, rows)
+        sids = slot_ids(width, height, k_pool, dev, row0, rows)
     trace_wave = trace_pool_mega if mega else trace_pool_staged
     base_key = rng.prng_key(seed)
-    cfg0 = StepConfig.create(scene, camera, width, height, max_depth,
-                             rr_depth=rr_depth, n_samples=s_wave,
-                             cam_salt=seed)
+    with span("render.step_config"):
+        cfg0 = StepConfig.create(scene, camera, width, height, max_depth,
+                                 rr_depth=rr_depth, n_samples=s_wave,
+                                 cam_salt=seed)
 
     def wave(w):
         cfg = dataclasses.replace(cfg0, sample0=(w * s_wave) & rng.M32)
@@ -580,117 +590,138 @@ def render(scene: SceneData, camera: Camera, width: int, height: int,
             max_depth=max_depth, seed=seed, rays_per_wave=rays_per_wave,
             engine=engine, rr_depth=rr_depth, progress=progress,
             mesh=mesh, device=device)
-    if mesh is not None:
-        scenes = mesh_mod.replicate(scene, mesh)
-        scene = scenes[mesh[0]]
-    engine = resolve_engine(scene, engine)
-    mode = resolve_mode(scene, mode, engine, bvh=bool(bvh), mesh=mesh,
-                        spp=spp, _rows=_rows)
-    if camera.sampler == "sobol-b0" and mode != "queue" and _rows is None:
-        # the first-bounce override runs on the work queue only, as in the
-        # JAX package; the pool and the megakernel keep the Sobol' camera
-        # dims with hashed scatter draws, and say so
-        print("tpu_ray_torch: sampler=sobol-b0's bounce-dim override only "
-              f"runs on the XLA work-queue path; mode={mode} keeps the sobol "
-              "camera dims with hashed scatter draws", file=sys.stderr)
-    if mesh is None:
-        scene = scene.to(resolve_device(device))
-        devs = (scene.device,)
-        scenes = {scene.device: scene}
-    else:
-        devs = mesh
-    dev = devs[0]
-    tree = (build_bvh(scenes[dev]) if bvh is True else bvh) if bvh else None
-    rows = height if _rows is None else _rows
-    cap = (lane_cap(scene.n_prims, engine) if _band_cap is None
-           else _band_cap)
-    if mode == "pool" and _rows is None and cap is not None \
-            and width * rows > cap:
-        # each band gets the render's scene copies and tree: nothing is
-        # replicated or built once per band
-        band_kw = dict(max_depth=max_depth, seed=seed,
-                       rays_per_wave=rays_per_wave,
-                       samples_per_wave=samples_per_wave, rr_depth=rr_depth,
-                       device=dev, progress=progress, mode=mode, bvh=tree,
-                       mesh=mesh, sort=sort, engine=engine,
-                       checkpoint_every=checkpoint_every)
-        return _render_bands(scenes if mesh is not None else scene, camera,
-                             width, height, spp, max(1, cap // width),
-                             checkpoint_path, on_partial, band_kw)
-    kerns = {}
-    for d in mesh_mod.distinct(devs):
-        with mesh_mod.device_guard(d):
-            kerns[d] = SceneKernels.create(
-                scenes[d], sort, None if tree is None else tree.to(d),
-                engine)
-    if mode == "queue":
-        return _render_queue(scenes, kerns, camera, width, height, spp,
-                             max_depth, seed, rays_per_wave, rr_depth,
-                             progress, engine, checkpoint_path,
-                             checkpoint_every, on_partial, mesh)
-    waves = {}
-    for d in mesh_mod.distinct(devs):
-        if mode == "wave":
-            wave_spp, n_waves, waves[d] = _wave_step(
-                scenes[d], camera, width, height, spp, max_depth, seed,
-                rays_per_wave, rr_depth, kerns[d])
-        else:
-            # with a BVH the megakernel's own sweep cannot run: the
-            # wavefront pool renders, as the JAX package's trace_pool does
-            wave_spp, n_waves, waves[d] = _pool_step(
-                scenes[d], camera, width, height, spp, max_depth, seed,
-                rays_per_wave, samples_per_wave, rr_depth, kerns[d],
-                engine == "mega" and tree is None, engine, _row0, rows)
-    D = len(devs)
-    n_units = -(-n_waves // D)
-
-    def step(accum, w):
-        parts = []
-        for d, dv in enumerate(devs):
-            if w * D + d < n_waves:
-                with mesh_mod.device_guard(dv):
-                    parts.append(waves[dv](w * D + d))
-        return accum + mesh_mod.reduce_films(parts, devs)
-
-    tag = _config_tag(scene, camera, width, height, spp, max_depth, seed,
-                      f"{mode}|{engine}|{wave_spp}|{n_waves}"
-                      f"|{_row0}:{rows}|d{0 if mesh is None else D}"
-                      f"|rr{rr_depth}|bvh{int(tree is not None)}")
-    path, every, auto = _checkpoint_path(checkpoint_path, checkpoint_every,
-                                         tag, n_units, AUTO_CHECKPOINT_WAVES,
-                                         max(1, n_units // 8))
-    unit = "wave" if mesh is None else "round"
-    accum, start = (None, 0)
-    if path:
-        accum, start = _load_checkpoint(path, tag, dev, progress, unit)
-    if accum is None:
-        accum = torch.zeros((rows, width, 3), dtype=torch.float32,
-                            device=dev)
-    # fault injection for the supervision tests: a fresh (not resumed)
-    # render dies before wave (round) N; a resumed one carries on past it
-    crash_after = int(os.environ.get("TPU_RAY_CRASH_AFTER_WAVE", -1))
-    timer = WaveTimer(enabled=progress)
-    for w in range(start, n_units):
-        if w == crash_after and start == 0:
-            raise RuntimeError(f"injected crash before {unit} {w} "
-                               "(TPU_RAY_CRASH_AFTER_WAVE)")
-        if progress:
-            print(f"\rRendering {unit} {w + 1} of {n_units}", end="",
+    # the render's spans (utils/profiling.py), recorded under a profiler:
+    # render.setup until the loop, render.finish after it
+    with Phase("render.setup") as phase:
+        if mesh is not None:
+            with span("render.kernels"):
+                scenes = mesh_mod.replicate(scene, mesh)
+            scene = scenes[mesh[0]]
+        engine = resolve_engine(scene, engine)
+        mode = resolve_mode(scene, mode, engine, bvh=bool(bvh), mesh=mesh,
+                            spp=spp, _rows=_rows)
+        if camera.sampler == "sobol-b0" and mode != "queue" \
+                and _rows is None:
+            # the first-bounce override runs on the work queue only, as in
+            # the JAX package; the pool and the megakernel keep the Sobol'
+            # camera dims with hashed scatter draws, and say so
+            print("tpu_ray_torch: sampler=sobol-b0's bounce-dim override "
+                  f"only runs on the XLA work-queue path; mode={mode} keeps "
+                  "the sobol camera dims with hashed scatter draws",
                   file=sys.stderr)
-        timer.start()
-        accum = step(accum, w)
-        if path and every and (w + 1) % every == 0:
-            _save_checkpoint(path, accum.cpu().numpy(), w + 1, tag)
-        if on_partial is not None and w + 1 < n_units:
-            done = min((w + 1) * D, n_waves)
-            on_partial(accum.cpu().numpy() / min(done * wave_spp, spp), 0)
-        timer.stop()
-    img = accum.cpu().numpy()
-    if progress:
-        print(f"\n{timer.summary()}", file=sys.stderr)
-    if auto:
-        _remove(path)
-    return img / spp
+        if mesh is None:
+            with span("render.kernels"):
+                scene = scene.to(resolve_device(device))
+            devs = (scene.device,)
+            scenes = {scene.device: scene}
+        else:
+            devs = mesh
+        dev = devs[0]
+        tree = bvh if bvh else None
+        if bvh is True:
+            with span("render.kernels"):
+                tree = build_bvh(scenes[dev])
+        rows = height if _rows is None else _rows
+        cap = (lane_cap(scene.n_prims, engine) if _band_cap is None
+               else _band_cap)
+        if mode == "pool" and _rows is None and cap is not None \
+                and width * rows > cap:
+            # each band gets the render's scene copies and tree: nothing is
+            # replicated or built once per band
+            # (each band a render with spans of its own)
+            band_kw = dict(max_depth=max_depth, seed=seed,
+                           rays_per_wave=rays_per_wave,
+                           samples_per_wave=samples_per_wave,
+                           rr_depth=rr_depth, device=dev, progress=progress,
+                           mode=mode, bvh=tree, mesh=mesh, sort=sort,
+                           engine=engine, checkpoint_every=checkpoint_every)
+            phase.end()
+            return _render_bands(scenes if mesh is not None else scene,
+                                 camera, width, height, spp,
+                                 max(1, cap // width), checkpoint_path,
+                                 on_partial, band_kw)
+        kerns = {}
+        with span("render.kernels"):
+            for d in mesh_mod.distinct(devs):
+                with mesh_mod.device_guard(d):
+                    kerns[d] = SceneKernels.create(
+                        scenes[d], sort, None if tree is None else tree.to(d),
+                        engine)
+        if mode == "queue":
+            return _render_queue(scenes, kerns, camera, width, height, spp,
+                                 max_depth, seed, rays_per_wave, rr_depth,
+                                 progress, engine, checkpoint_path,
+                                 checkpoint_every, on_partial, mesh, phase)
+        waves = {}
+        for d in mesh_mod.distinct(devs):
+            if mode == "wave":
+                wave_spp, n_waves, waves[d] = _wave_step(
+                    scenes[d], camera, width, height, spp, max_depth, seed,
+                    rays_per_wave, rr_depth, kerns[d])
+            else:
+                # with a BVH the megakernel's own sweep cannot run: the
+                # wavefront pool renders, as the JAX package's trace_pool
+                # does
+                wave_spp, n_waves, waves[d] = _pool_step(
+                    scenes[d], camera, width, height, spp, max_depth, seed,
+                    rays_per_wave, samples_per_wave, rr_depth, kerns[d],
+                    engine == "mega" and tree is None, engine, _row0, rows)
+        D = len(devs)
+        n_units = -(-n_waves // D)
+
+        def step(accum, w):
+            parts = []
+            for d, dv in enumerate(devs):
+                if w * D + d < n_waves:
+                    with mesh_mod.device_guard(dv):
+                        parts.append(waves[dv](w * D + d))
+            return accum + mesh_mod.reduce_films(parts, devs)
+
+        unit = "wave" if mesh is None else "round"
+        with span("render.config_tag"):
+            tag = _config_tag(scene, camera, width, height, spp, max_depth,
+                              seed, f"{mode}|{engine}|{wave_spp}|{n_waves}"
+                              f"|{_row0}:{rows}|d{0 if mesh is None else D}"
+                              f"|rr{rr_depth}|bvh{int(tree is not None)}")
+            path, every, auto = _checkpoint_path(
+                checkpoint_path, checkpoint_every, tag, n_units,
+                AUTO_CHECKPOINT_WAVES, max(1, n_units // 8))
+            accum, start = (None, 0)
+            if path:
+                accum, start = _load_checkpoint(path, tag, dev, progress,
+                                                unit)
+            if accum is None:
+                accum = torch.zeros((rows, width, 3), dtype=torch.float32,
+                                    device=dev)
+        # fault injection for the supervision tests: a fresh (not resumed)
+        # render dies before wave (round) N; a resumed one carries on past
+        # it
+        crash_after = int(os.environ.get("TPU_RAY_CRASH_AFTER_WAVE", -1))
+        timer = WaveTimer(enabled=progress)
+        phase.end()
+        for w in range(start, n_units):
+            if w == crash_after and start == 0:
+                raise RuntimeError(f"injected crash before {unit} {w} "
+                                   "(TPU_RAY_CRASH_AFTER_WAVE)")
+            if progress:
+                print(f"\rRendering {unit} {w + 1} of {n_units}", end="",
+                      file=sys.stderr)
+            timer.start()
+            accum = step(accum, w)
+            if path and every and (w + 1) % every == 0:
+                _save_checkpoint(path, accum.cpu().numpy(), w + 1, tag)
+            if on_partial is not None and w + 1 < n_units:
+                done = min((w + 1) * D, n_waves)
+                on_partial(accum.cpu().numpy() / min(done * wave_spp, spp),
+                           0)
+            timer.stop()
+        phase.begin("render.finish")
+        img = accum.cpu().numpy()
+        if progress:
+            print(f"\n{timer.summary()}", file=sys.stderr)
+        if auto:
+            _remove(path)
+        return img / spp
 
 
 def _render_bands(scene, camera, width, height, spp, band_h,

@@ -16,10 +16,13 @@ Builds the kernels, renders once to warm up, then renders again under
 device busy time summed over kernels, the device's idle share
 (1 - busy / wall), each kernel's total time, launches and mean time, and
 the wrappers' launch counts (kernel names cut to 80 characters; only the
-``--top`` kernels by time are printed, all are summed).  With ``--engine
-mega`` it also prints the megakernel's lane-iterations, warp-iterations and
-their ratio over 32 (the share of lane slots that did work).  The last line
-is the same as one JSON object.  Needs a CUDA device.
+``--top`` kernels by time are printed, all are summed), and the work
+queue's path vertices, lane slots and their ratio (the share of the lane
+slots dispatched that traced a ray; ``utils/profiling.py::counts`` holds
+every counter).  With ``--engine mega`` it also prints the megakernel's
+lane-iterations, warp-iterations and their ratio over 32 (the share of
+lane slots that did work).  The last line is the same as one JSON object.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -59,9 +62,9 @@ def main(argv=None) -> int:
         return 1
 
     from ..models.scenes import SCENES
-    from ..ops import (build, bvh, hit_scatter, intersect, megakernel,
-                       queue, shade, sweep)
+    from ..ops import build, megakernel, sweep
     from ..renderer import render
+    from .profiling import LAUNCHES, counts
 
     build.build_all()
     spec = SCENES[args.scene]
@@ -70,17 +73,7 @@ def main(argv=None) -> int:
     kw = dict(max_depth=args.max_depth, seed=args.seed, mode=args.mode,
               engine=args.engine)
     render(scene, cam, args.width, args.height, args.spp, **kw)   # warm-up
-    counters = {"sweep": sweep.sweep, "sweep_compact": sweep.sweep_compact,
-                "list_pass": sweep.list_pass,
-                "sweep_masked": sweep.sweep_masked,
-                "sweep_sphere_mxu": sweep.sweep_sphere_mxu,
-                "pool_step": shade.pool_step,
-                "hit_scatter": hit_scatter.hit_scatter,
-                "megakernel": megakernel.trace_pool_mega,
-                "media": intersect.merge_media, "path_ids": queue.path_ids,
-                "queue_inject": queue.queue_inject, "bvh": bvh.intersect_bvh}
-    for fn in counters.values():
-        fn.launches = 0
+    before = counts()
     megakernel.read_stats("cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -91,6 +84,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     lane_iters, warp_iters = megakernel.read_stats("cuda")
+    delta = {k: v - before[k] for k, v in counts().items()}
     kernels = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e):
@@ -106,7 +100,10 @@ def main(argv=None) -> int:
                device=torch.cuda.get_device_name(0), wall_s=wall,
                device_busy_s=busy,
                idle_share=(1.0 - busy / wall) if busy else None,
-               launches={k: fn.launches for k, fn in counters.items()},
+               launches={k: delta[k] for k in LAUNCHES},
+               vertices=delta["vertices"], lane_slots=delta["lane_slots"],
+               queue_lane_share=(delta["vertices"] / delta["lane_slots"]
+                                 if delta["lane_slots"] else None),
                n_kernel_names=len(kernels),
                n_kernel_launches=sum(n for _, n in kernels.values()),
                kernels={k: dict(total_ms=us / 1e3, count=n,
@@ -118,6 +115,12 @@ def main(argv=None) -> int:
           f"mode={args.mode} engine={args.engine} sort={sweep.use_sort()}: "
           f"wall {wall:.4f} s (profiled), "
           f"device busy {busy:.4f} s, {out['n_kernel_launches']} launches")
+    print("  launches: " + ", ".join(f"{k} {v}" for k, v in
+                                     out["launches"].items() if v))
+    if delta["lane_slots"]:
+        print(f"  queue: {delta['vertices']} path vertices in "
+              f"{delta['lane_slots']} lane slots, share "
+              f"{out['queue_lane_share']:.4f}")
     for k, v in out["kernels"].items():
         print(f"  {v['total_ms']:10.3f} ms {v['count']:6d} x "
               f"{v['mean_us']:9.2f} us  {k}")

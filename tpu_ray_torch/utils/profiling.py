@@ -1,5 +1,5 @@
 """Tracing hooks of the renderer: a profiler trace around a render,
-and per-wave wall times.
+per-wave wall times, the renderer's own spans and its counters.
 
 Port of ``tpu_ray/utils/profiling.py``:
 
@@ -10,16 +10,137 @@ Port of ``tpu_ray/utils/profiling.py``:
 * :class:`WaveTimer` records per-wave wall times and prints a summary
   (``render(progress=True)``).
 
+Added in the port:
+
+* :func:`span` and :class:`Phase` mark the renderer's layers on the
+  profiler's CPU timeline, which shares its clock with the CUDA kernels
+  and copies, so each stretch of idle device time can be read against the
+  span open over it.  They record only while a ``torch.profiler`` runs
+  (``--profile DIR``, ``utils/profile.py``, ``portbench --trace 1``);
+  otherwise a span is one flag test and a shared no-op.  A span is a
+  ``cpu_op`` event named ``tpu_ray_torch.<name>`` (the profiler's fast
+  record: a few microseconds where ``record_function`` takes ~15, and the
+  category whose events ``portbench/trace.py`` keeps by name).  One
+  thread, so spans nest; :data:`SPANS` lists every name.
+* :func:`counts` is a snapshot of every counter the package keeps: each
+  kernel wrapper's ``.launches`` and the work queue's path-vertex census
+  (:data:`COUNTERS`).
+
 ``tpu_ray_torch/utils/profile.py`` is the other tool: it renders twice and
-prints device time by kernel and the card's idle share.
+prints device time by kernel, the card's idle share and the counters.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
 import sys
 import time
 from typing import List
+
+import torch
+
+PREFIX = "tpu_ray_torch."
+# every span the renderer opens: where it starts and ends
+SPANS = {
+    "render.setup": "renderer.render from its entry to the first iteration "
+                    "of the loop it runs (a Phase; its children below)",
+    "render.kernels": "the scene on the device (SceneData.to, a mesh's "
+                      "copies), SceneKernels.create (the route's "
+                      "BVHTables.create at a scene's first render), "
+                      "build_bvh for bvh=True",
+    "render.plan": "plan_queue / plan_pool, the chunk plan, the key words, "
+                   "the pool's pixel grid and slot ids, the queue's epoch "
+                   "cap",
+    "render.config_tag": "_config_tag (the checkpoint tag's scene hash), "
+                         "the checkpoint's path and film (loaded or zero)",
+    "render.step_config": "StepConfig.create",
+    "queue.init": "integrator._queue_init",
+    "queue.read": "trace_queue's read of (frontier, active, census) once an "
+                  "epoch, the progress callback and the exit test",
+    "queue.iteration": "one queue_body call (no span inside it)",
+    "queue.compact": "queue_compact at a drain level",
+    "render.finish": "from a queue call's or the pool's loop end to the "
+                     "next call's first iteration or the image on the host "
+                     "(a Phase)",
+    "pool.read": "trace_pool_staged's read of the active count",
+    "pool.iteration": "one pool iteration: closest hit and pool step",
+}
+# every counter of the package: name -> (module, function or class,
+# attribute)
+COUNTERS = {
+    "sweep": ("ops.sweep", "sweep", "launches"),
+    "sweep_compact": ("ops.sweep", "sweep_compact", "launches"),
+    "list_pass": ("ops.sweep", "list_pass", "launches"),
+    "sweep_masked": ("ops.sweep", "sweep_masked", "launches"),
+    "sweep_sphere_mxu": ("ops.sweep", "sweep_sphere_mxu", "launches"),
+    "pool_step": ("ops.shade", "pool_step", "launches"),
+    "hit_scatter": ("ops.hit_scatter", "hit_scatter", "launches"),
+    "megakernel": ("ops.megakernel", "trace_pool_mega", "launches"),
+    "media": ("ops.intersect", "merge_media", "launches"),
+    "path_ids": ("ops.queue", "path_ids", "launches"),
+    "queue_inject": ("ops.queue", "queue_inject", "launches"),
+    "bvh": ("ops.bvh", "intersect_bvh", "launches"),
+    "aov": ("aov", "aov_features", "launches"),
+    # the work queue (integrator.trace_queue): calls; path vertices, the sum
+    # over iterations of the lanes active at the closest hit; lane slots,
+    # the sum of the pool size over every dispatched iteration
+    "queue_calls": ("integrator", "QueueCounts", "calls"),
+    "vertices": ("integrator", "QueueCounts", "vertices"),
+    "lane_slots": ("integrator", "QueueCounts", "lane_slots"),
+}
+LAUNCHES = tuple(k for k, v in COUNTERS.items() if v[2] == "launches")
+
+_enabled = torch._C._autograd._profiler_enabled
+_record = torch._C._profiler._RecordFunctionFast
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span ``tpu_ray_torch.<name>`` over a ``with`` block while a
+    profiler runs, else the shared no-op."""
+    if _enabled():
+        return _record(PREFIX + name)
+    return _NO_SPAN
+
+
+class Phase:
+    """The span of a render that begins in one function and ends in
+    another (``render.setup`` ends inside the work queue's call, before its
+    first iteration; ``render.finish`` begins after its loop).  At most one
+    span is open: :meth:`begin` ends it first.  As a context manager it
+    ends the open span on exit, an exception's too."""
+
+    def __init__(self, name: str):
+        self._open = None
+        self.begin(name)
+
+    def begin(self, name: str) -> None:
+        self.end()
+        if _enabled():
+            rec = _record(PREFIX + name)
+            rec.__enter__()
+            self._open = rec
+
+    def end(self) -> None:
+        rec, self._open = self._open, None
+        if rec is not None:
+            rec.__exit__(None, None, None)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.end()
+
+
+def counts() -> dict:
+    """A snapshot of every counter in :data:`COUNTERS`, by name."""
+    out = {}
+    for name, (mod, fn, attr) in COUNTERS.items():
+        m = importlib.import_module(f"{__package__.rpartition('.')[0]}.{mod}")
+        out[name] = getattr(getattr(m, fn), attr)
+    return out
 
 
 @contextlib.contextmanager
@@ -29,7 +150,6 @@ def profile_trace(log_dir: str | None):
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
