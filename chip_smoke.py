@@ -198,6 +198,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -544,13 +545,23 @@ def check_bvh(name, width, height, spp, iters):
     and the whole ``intersect_ti`` (sweep and media kernels) on the same
     rays.
 
+    Rule INDEX walks wide records; the pair walk packed in their format
+    (``pack_nodes(..., width=2)``: one record a node, each with its two
+    children) runs beside it through the same kernel, held
+    to the same bits, timed and counted: per ray its records, children
+    tested, pops, the share of rays that ran out of their budget (brute)
+    and the SIMD share (lane_steps / (32 warp_steps)) against the wide
+    walk's.
+
     Each rule's bound counts the work its kernel did on these rays, which
     its counting form counts (``stats``): ~25 fp32 operations a child box
     tested (~40 under INDEX), 2 a stack entry popped, each leaf pair's
     math (21 a static sphere, 27 moving, 24 box, 31 quad, ~40 a medium)
     over 67 TFLOP/s, against 36 B a ray (7 floats in, t and id out; 4 B
     more for the lane id that keys the media draws) over 3.35 TB/s; the
-    larger of the two.  VISIT's bound from its twin's counts (25 a node
+    larger of the two.  INDEX's bound is reckoned from the pair walk's
+    counts (the same work as before the records went wide), the wide
+    walk's own beside it.  VISIT's bound from its twin's counts (25 a node
     visit, JAX's lockstep loop) is printed beside it."""
     scene, _, kern, st, ki, _ = pool_after(name, width, height, spp, iters)
     rays, lanes = st.fstate[:7], st.slot
@@ -558,6 +569,9 @@ def check_bvh(name, width, height, spp, iters):
     visit = bvh.BVHTables.create(scene, None, kern.geo, kern.media)
     index = bvh.BVHTables.create(scene, visit.bvh, kern.geo, kern.media,
                                  rule=bvh.INDEX)
+    rows = bvh.pack_nodes(visit.bvh, bvh.INDEX, scene, 2)
+    pair = dataclasses.replace(index, nodes=rows, stack=max(
+        bvh.wide_stack_bound(rows.cpu().numpy()), 1))
     got = bvh.intersect_bvh(scene, visit, rays, ki, lanes)
     twin_stats = {}
     plain = bvh.intersect_bvh_plain(scene, visit, rays, ki, lanes,
@@ -581,17 +595,20 @@ def check_bvh(name, width, height, spp, iters):
     it, ii = bvh.intersect_bvh(scene, index, rays, ki, lanes)
     index_diff = bits_differ(it, ft) | (ii != fi)
     n_index_diff = int(index_diff.sum())
+    pt, pi = bvh.intersect_bvh(scene, pair, rays, ki, lanes)
+    n_pair_diff = int((bits_differ(pt, ft) | (pi != fi)).sum())
     index_err = hold_sweep(f"{name} iters={iters}", R, (it, ii),
                            plain_ti(scene, kern, rays, ki, lanes),
                            "bvh INDEX vs plain_ti:")
+    walks = {"VISIT": visit, "INDEX": index, "pair": pair}
     counts = {}
-    for tables in (visit, index):
+    for key, tables in walks.items():
         s = torch.zeros(len(bvh.STAT_KEYS), dtype=torch.int64, device=DEV)
         bvh.intersect_bvh_launch(scene, tables, rays, ki, lanes, s)
-        counts[tables.rule] = dict(zip(bvh.STAT_KEYS, s.tolist()))
-    ms = {t.rule: kernel_ms(lambda: bvh.intersect_bvh(scene, t, rays, ki,
-                                                      lanes))
-          for t in (visit, index)}
+        counts[key] = dict(zip(bvh.STAT_KEYS, s.tolist()))
+    ms = {key: kernel_ms(lambda: bvh.intersect_bvh(scene, t, rays, ki,
+                                                   lanes))
+          for key, t in walks.items()}
     ranges = sweep._ranges(scene)
     sweep_ms = kernel_ms(lambda: sweep.sweep(rays, kern.geo, ranges,
                                              scene.t_min))
@@ -600,11 +617,19 @@ def check_bvh(name, width, height, spp, iters):
     plain_ms = cuda_ms(lambda: bvh.intersect_bvh_plain(scene, visit, rays,
                                                        ki, lanes), 1)
     plain_ti_ms = cuda_ms(lambda: plain_ti(scene, kern, rays, ki, lanes), 1)
-    bounds = {rule: bvh_bound(scene, R, bvh.kernel_flops(c, rule))
-              for rule, c in counts.items()}
+    bounds = {key: bvh_bound(scene, R, bvh.kernel_flops(
+        c, bvh.VISIT if key == "VISIT" else bvh.INDEX))
+        for key, c in counts.items()}
     twin_bound = bvh_bound(scene, R, bvh.traversal_flops(twin_stats))
-    per_ray = {rule: {k: round(v / R, 3) for k, v in c.items()}
-               for rule, c in counts.items()}
+    per_ray = {key: {k: round(v / R, 3) for k, v in c.items()}
+               for key, c in counts.items()}
+    walk = {key: dict(records=round(c["records"] / R, 3),
+                      children=round(c["children"] / R, 3),
+                      pops=round(c["pops"] / R, 3),
+                      brute_share=c["brute"] / R,
+                      simd_share=round(c["lane_steps"]
+                                       / (32 * max(c["warp_steps"], 1)), 4))
+            for key, c in counts.items()}
     twin_per_ray = {k: round(v / R, 3) for k, v in twin_stats.items()
                     if k != "rays"}
     what = f"{name} iters={iters} R={R}"
@@ -613,16 +638,20 @@ def check_bvh(name, width, height, spp, iters):
         f"mismatches {hit_mismatch}, t max abs err {max_abs:.3e}, t out of "
         f"rtol 1e-5 {bad_t}, prim mismatches {bad_i} (+{ties} exact ties); "
         f"INDEX lanes differing from intersect_ti in t or prim "
-        f"{n_index_diff}")
-    log(f"bvh {what}: ms VISIT {ms[bvh.VISIT]:.4f}, INDEX "
-        f"{ms[bvh.INDEX]:.4f}; "
+        f"{n_index_diff} (the pair walk {n_pair_diff})")
+    log(f"bvh {what}: ms VISIT {ms['VISIT']:.4f}, INDEX {ms['INDEX']:.4f} "
+        f"(the pair walk {ms['pair']:.4f}); "
         f"dense sweep {sweep_ms:.4f}, intersect_ti (sweep + media) "
         f"{ti_ms:.4f}; plain: lockstep twin {plain_ms:.2f}, intersect_ti's "
-        f"{plain_ti_ms:.2f}; bound VISIT {bounds[bvh.VISIT][0]:.4f} "
-        f"({bounds[bvh.VISIT][1]}; from its twin's counts "
-        f"{twin_bound[0]:.4f}), INDEX {bounds[bvh.INDEX][0]:.4f} "
-        f"({bounds[bvh.INDEX][1]}); kernel counts per ray "
+        f"{plain_ti_ms:.2f}; bound VISIT {bounds['VISIT'][0]:.4f} "
+        f"({bounds['VISIT'][1]}; from its twin's counts "
+        f"{twin_bound[0]:.4f}), INDEX {bounds['pair'][0]:.4f} "
+        f"({bounds['pair'][1]}; from the wide walk's own counts "
+        f"{bounds['INDEX'][0]:.4f}); kernel counts per ray "
         f"{json.dumps(per_ray)}, twin's {json.dumps(twin_per_ray)}")
+    log(f"bvh {what}: per ray (records, children, pops, brute share, SIMD "
+        f"share) {json.dumps(walk)}; the wide walk's stack bound "
+        f"{index.stack}, the pair walk's {pair.stack}")
     # the equal-t ties, each with its ray bit for bit (float.hex), so that
     # tools/torch_bvh_tie.py can run it through the JAX package's traversal
     for lane in (idx_diff & (bt == ft)).nonzero().flatten()[:4].tolist():
@@ -643,21 +672,25 @@ def check_bvh(name, width, height, spp, iters):
     if hit_mismatch or bad_t or bad_i:
         raise AssertionError(f"bvh disagrees with the brute-force sweep on "
                              f"{what}")
-    if n_index_diff:
+    if n_index_diff or n_pair_diff:
         raise AssertionError(f"bvh rule INDEX differs from intersect_ti on "
-                             f"{n_index_diff} lanes of {what}")
-    return dict(rule=bvh.INDEX, ms=ms[bvh.INDEX], plain_ms=plain_ti_ms,
-                bound_ms=bounds[bvh.INDEX][0],
-                bound_by=bounds[bvh.INDEX][1], max_abs_err=index_err,
+                             f"{n_index_diff} lanes of {what} (the pair "
+                             f"walk on {n_pair_diff})")
+    return dict(rule=bvh.INDEX, ms=ms["INDEX"], plain_ms=plain_ti_ms,
+                bound_ms=bounds["pair"][0], bound_by=bounds["pair"][1],
+                wide_bound_ms=bounds["INDEX"][0], max_abs_err=index_err,
                 sweep_ms=sweep_ms, intersect_ti_ms=ti_ms,
-                per_ray=per_ray[bvh.INDEX],
-                visit=dict(ms=ms[bvh.VISIT], plain_ms=plain_ms,
-                           bound_ms=bounds[bvh.VISIT][0],
-                           bound_by=bounds[bvh.VISIT][1],
+                per_ray=per_ray["INDEX"], walk=walk,
+                stack=index.stack,
+                pair=dict(ms=ms["pair"], per_ray=per_ray["pair"],
+                          stack=pair.stack),
+                visit=dict(ms=ms["VISIT"], plain_ms=plain_ms,
+                           bound_ms=bounds["VISIT"][0],
+                           bound_by=bounds["VISIT"][1],
                            twin_bound_ms=twin_bound[0],
                            max_abs_err=visit_err,
                            max_abs_err_vs_sweep=max_abs, equal_t_ties=ties,
-                           per_ray=per_ray[bvh.VISIT],
+                           per_ray=per_ray["VISIT"],
                            twin_per_ray=twin_per_ray))
 
 

@@ -11,6 +11,8 @@ where only the port is installed:
 """
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -828,8 +830,10 @@ def _bvh_rays(ps, card, name):
 def test_bvh_kernel_both_rules(card, name):
     """Rule VISIT bit-equal to its lockstep twin and rule INDEX bit-equal
     to intersect_ti (the dense sweep and media kernels), t and prim on
-    every lane, ties included, in the render's form and the counting form;
-    the counting form counts one root test a ray."""
+    every lane, ties included, in the render's form and the counting form,
+    over the wide records and over the pair walk in their format (width
+    2); the counting form counts one root test a ray, each a child box
+    tested, and no more lanes a warp trip than the warp has."""
     from tpu_ray_torch.ops import bvh
 
     ps = (_mixed_scene() if name == "mixed"
@@ -841,9 +845,13 @@ def test_bvh_kernel_both_rules(card, name):
     visit = bvh.BVHTables.create(ps)
     index = bvh.BVHTables.create(ps, visit.bvh, visit.geo, visit.media,
                                  rule=bvh.INDEX)
+    rows = bvh.pack_nodes(visit.bvh, bvh.INDEX, ps, 2)
+    pair = replace(index, nodes=rows, stack=max(
+        bvh.wide_stack_bound(rows.cpu().numpy()), 1))
     tp, ip = bvh.intersect_bvh_plain(ps, visit, rays, kd, lanes)
     ft, fi = intersect_ti(ps, rays, kd, lanes)
-    for tables, (wt, wi) in ((visit, (tp, ip)), (index, (ft, fi))):
+    for tables, (wt, wi) in ((visit, (tp, ip)), (index, (ft, fi)),
+                             (pair, (ft, fi))):
         for counting in (False, True):
             stats = (torch.zeros(len(bvh.STAT_KEYS), dtype=torch.int64,
                                  device=card) if counting else None)
@@ -855,6 +863,9 @@ def test_bvh_kernel_both_rules(card, name):
             if counting:
                 counts = dict(zip(bvh.STAT_KEYS, stats.tolist()))
                 assert counts["roots"] == R and counts["records"] > 0
+                assert counts["children"] >= R + 2 * counts["records"]
+                assert counts["warp_steps"] <= counts["lane_steps"] \
+                    <= 32 * counts["warp_steps"]
 
 
 def test_scene_kernels_route_big_scenes_through_the_index_rule(card):

@@ -34,26 +34,58 @@
 // ops/intersect.py), so each pair has the bits the sweep gives it.  Needs
 // IEEE arithmetic: no fast math, --fmad=false.
 //
-// Design.  The tree is packed as pair records (ops/bvh.py::pack_nodes):
-// both children of an internal node in one record - per child (min xyz,
-// ref), (max xyz, A), (c xyz, h) - so one fetch of 64 B (VISIT) or 96 B
-// (INDEX) tests both.  An internal node that passes pushes the child it
-// does not enter with its (max(tn, t_min), tf); when the entry is popped
-// the rule's test runs on those stored floats against the best_t of that
-// moment, which is exactly the test the JAX loop makes when it visits the
-// node then.  A child that fails at once is never pushed (best_t only
-// falls, so it would fail when popped).  The stack holds at most one entry
-// per internal ancestor, the tree's depth (~10 here); the tree must be at
-// most 32 internal nodes deep, so the JAX loop's clip at 31 never acts.
-// Past a budget of records an INDEX lane runs the sweep's loop instead
-// (sweep_all).  One ray a thread over a grid of 128-thread blocks, the
-// stack in local memory (it stays in L1); under VISIT a lane descends to
-// its next leaf apart from the leaf's step, so a warp runs its lanes'
-// leaves together.  On one H100 (PERF.md section 6) these beat a stack in
-// shared memory (it takes L1's room from the records and rows), persistent
-// warps claiming rays from a counter (a claimed ray is loaded by one lane,
-// uncoalesced) and the tree staged in shared memory; the split loop costs
-// INDEX (more registers a step) 5-8%.  The STATS form, which counts the
+// Design.  The tree is packed per rule (ops/bvh.py::pack_nodes); a child
+// is three float4s - (min xyz, ref), (max xyz, A), (c xyz, h) - and a ref
+// is a record index (> 0), ~(first << 3 | count) for a leaf (< 0), or 0
+// for an empty slot.
+// - VISIT: pair records, both children of an internal node in one record
+//   of 96 B, of which it reads 64 (the boxes).  An internal node that
+//   passes pushes the child it does not enter with its (max(tn, t_min),
+//   tf); when the entry is popped the rule's test runs on those stored
+//   floats against the best_t of that moment, which is exactly the test
+//   the JAX loop makes when it visits the node then.  A child that fails
+//   at once is never pushed (best_t only falls, so it would fail when
+//   popped).  The stack holds at most one entry per internal ancestor, the
+//   tree's depth (~10 here); the tree must be at most 32 internal nodes
+//   deep, so the JAX loop's clip at 31 never acts.  A lane descends to its
+//   next leaf apart from the leaf's step, so a warp runs its lanes' leaves
+//   together.
+// - INDEX: wide records of 192 B, four slots (ops/bvh.py::wide_children):
+//   a record starts from its node's two children and, while it has fewer
+//   than four and one is internal, replaces the internal child of largest
+//   surface area by that child's two children.  So a record holds 2-4 of
+//   its node's descendants, which cover its subtree; empty slots (ref 0,
+//   only ever the last two) are skipped before any slab test (a NaN slab
+//   visits under INDEX, so no box is a safe filler).  A step tests the
+//   record's live children, four independent slab tests, keys each that
+//   passes by its entry max(tn, t_min) (t_min for a NaN slab, whose tf is
+//   NaN too), pushes the others that pass far-first through a sorting
+//   network, so that the next nearest is popped first, and enters the
+//   nearest.  An entry is (ref, key) alone: it passed, so tf > key holds
+//   for good and its test when popped, min(tf, nb) > key, is nb > key,
+//   against the best_t of that moment.  Leaves - the one entered, or
+//   popped - run in the same step, until the lane enters a record or its
+//   stack runs out, so that a step is one record and the leaves under it.
+//   The order changes no bit: INDEX keeps the least (t, prim id) over
+//   every prim its conservative tests let through.  A record pushes at
+//   most three entries, and each record on a path is another internal node
+//   of the build on it, so the stack holds at most 3 x 32 entries for a
+//   tree the route takes (ops/bvh.py::wide_stack_bound, 19 at
+//   next-week-final's 1409 prims).
+// Past a budget of the build's internal nodes (a wide record counts the
+// ones it covers, its children less one) an INDEX lane runs the sweep's
+// loop instead (sweep_all).  One ray a thread over a grid of 128-thread
+// blocks, the stack in local memory, cached in L1 and L2 like any local
+// data: a lane touches only its top entries, a few a ray (chip_smoke.py
+// phase 3 counts the pops), not the whole frame (384 B under VISIT, 768
+// under INDEX), which at 2048 threads an SM could not stay in the SM's
+// 256 KB of L1.  On one H100 (PERF.md section 6) the pair walk beat a
+// stack in shared memory (it takes L1's room from the records and rows),
+// persistent warps claiming rays from a counter (a claimed ray is loaded
+// by one lane, uncoalesced) and the tree staged in shared memory.  The
+// wide walk halves a warp's steps against the pair walk, but a step tests
+// twice the boxes: what it saves is the steps' fixed work and the leaves
+// run apart (PERF.md section 6).  The STATS form, which counts the
 // kernel's work, is a separate instantiation: the counters stay off the
 // hot loop of the render's launches.
 //
@@ -63,18 +95,24 @@
 // against 40 bytes (7 floats and the lane id in, t and id out).  The
 // STATS form counts that work; chip_smoke.py reads the bound from those
 // counts.  The tree and the prim rows are small and stay in L1/L2.  What
-// it meets first is instruction throughput: a warp runs as many steps as
-// its longest lane, each step ~100 instructions (loads, address
-// arithmetic, the stack and the branches beside the counted operations).
+// it meets first is instruction issue under divergence: a warp runs as
+// many steps as its longest lane, and each step issues every branch its
+// lanes take (records, the leaves' prim kinds, pops) beside the counted
+// operations.
+
+#include <type_traits>
 
 #include "media.cuh"
 
 #define STACK_DEPTH 32       // the JAX traversal's stack
-#define REC 6                // float4s a pair record
+#define WIDTH 4              // children a rule-INDEX record holds
+#define INDEX_STACK ((WIDTH - 1) * STACK_DEPTH)
+#define REC 6                // float4s a pair record (VISIT)
+#define WREC (3 * WIDTH)     // float4s a wide record (INDEX)
 #define BVH_THREADS 128
 #define VISIT 0
 #define INDEX 1
-#define N_STATS 9            // ops/bvh.py::STAT_KEYS
+#define N_STATS 12           // ops/bvh.py::STAT_KEYS
 
 struct Args {
   const float* rays;
@@ -103,19 +141,27 @@ struct Walker {
   float bt, nb;              // best t and, under INDEX, nextafter(bt, inf)
   int bi;
   int ref, sp;
-  int left;                  // INDEX: records the lane may still expand
+  int left;                  // INDEX: internal nodes the lane may expand
 };
 
 // the STATS form's counts (ops/bvh.py::STAT_KEYS); the other form never
 // touches them
 struct Counts {
-  int rec, root, pop, pair[5], brute;
+  int rec, root, pop, pair[5], brute, child, warp_steps, lane_steps;
 };
 
-// the stack: JAX's 32 entries, in local memory
-struct Stack {
+// the stacks, in local memory.  VISIT: JAX's 32 entries of (ref, lo, tf).
+// INDEX: INDEX_STACK entries of (ref, lo).  An entry is pushed only when
+// it passed, min(tf, nb) > lo (or tf and lo are NaN, stored as lo =
+// t_min), so tf > lo holds for good and the test when it is popped,
+// min(tf, nb) > lo, is nb > lo alone (every nb passes a NaN entry's t_min).
+struct PairStack {
   int ref[STACK_DEPTH];
   float lo[STACK_DEPTH], tf[STACK_DEPTH];
+};
+
+struct WideStack {
+  int2 e[INDEX_STACK];       // (ref, the bits of lo): one 8-byte access
 };
 
 // the rule's test of a clipped slab interval (lo = max(tn, t_min), tf)
@@ -146,7 +192,9 @@ __device__ __forceinline__ bool child(float4 mn, float4 mx, float4 ch,
   const float tn = nmax(nmax(nmin(tax, tbx), nmin(tay, tby)),
                         nmin(taz, tbz));
   tf = nmin(nmin(nmax(tax, tbx), nmax(tay, tby)), nmax(taz, tbz));
-  lo = nmax(tn, t_min);
+  // INDEX: a NaN tn comes with a NaN tf, which passes whatever lo is, so
+  // lo may take t_min there (the key step_wide sorts and stacks)
+  lo = RULE == INDEX ? fmaxf(tn, t_min) : nmax(tn, t_min);
   return pass<RULE>(L, lo, tf);
 }
 
@@ -161,7 +209,7 @@ __device__ __forceinline__ void keep(Walker& L, float t, int pid) {
   }
 }
 
-// a new ray in the lane, and its root test (record 0's left child);
+// a new ray in the lane, and its root test (record 0's first child);
 // false if the root misses
 template <int RULE, bool STATS>
 __device__ __forceinline__ bool start(Walker& L, const Args& a, long long i,
@@ -179,7 +227,10 @@ __device__ __forceinline__ bool start(Walker& L, const Args& a, long long i,
   L.bi = 0;
   L.sp = 0;
   L.left = a.budget;
-  if (STATS) ++C.root;
+  if (STATS) {
+    ++C.root;
+    ++C.child;
+  }
   // a NaN in the origin or the direction makes every pair's test fail (the
   // quadratic's disc, the slabs and the plane distance all turn NaN), so
   // the sweep gives (inf, 0); INDEX would visit every node (NaN visits),
@@ -189,7 +240,7 @@ __device__ __forceinline__ bool start(Walker& L, const Args& a, long long i,
                         L.r.dy != L.r.dy || L.r.dz != L.r.dz))
     return false;
   const float4 l0 = __ldg(a.nodes), l1 = __ldg(a.nodes + 1);
-  const float4 lc = RULE == INDEX ? __ldg(a.nodes + 4)
+  const float4 lc = RULE == INDEX ? __ldg(a.nodes + 2)
                                   : make_float4(0.f, 0.f, 0.f, 0.f);
   L.ref = __float_as_int(l0.w);
   float lo, tf;
@@ -276,67 +327,14 @@ __device__ __noinline__ Best sweep_all(const Ray r, float dlen,
   return Best{bt, bi};
 }
 
-// one step of the lane's walk: expand a pair record or run a leaf, then
-// pop until an entry passes; false when the ray is done
-template <int RULE, bool STATS>
-__device__ __forceinline__ bool step(Walker& L, Stack& S, const Args& a,
-                                     Counts& C) {
-  if (RULE == INDEX && L.ref > 0 && --L.left < 0) {
-    const Best b = sweep_all(L.r, L.dlen, L.base_i, a.geo, a.med, a.n_ss,
-                             a.n_s, a.n_sb, a.n_solid, a.n_prims,
-                             a.any_transform, a.t_min);
-    L.bt = b.t;
-    L.bi = b.i;
-    if (STATS) {
-      ++C.brute;
-      C.pair[0] += a.n_ss;
-      C.pair[1] += a.n_s - a.n_ss;
-      C.pair[2] += a.n_sb - a.n_s;
-      C.pair[3] += a.n_solid - a.n_sb;
-      C.pair[4] += a.n_prims - a.n_solid;
-    }
-    return false;
-  }
-  if (L.ref > 0) {
-    const float4* rc = a.nodes + (long long)L.ref * REC;
-    const float4 l0 = __ldg(rc), l1 = __ldg(rc + 1);
-    const float4 r0 = __ldg(rc + 2), r1 = __ldg(rc + 3);
-    float4 lc = make_float4(0.f, 0.f, 0.f, 0.f), rcn = lc;
-    if (RULE == INDEX) {
-      lc = __ldg(rc + 4);
-      rcn = __ldg(rc + 5);
-    }
-    float loL, tfL, loR, tfR;
-    bool pL = child<RULE>(l0, l1, lc, L, a.t_min, a.margin_b, loL, tfL);
-    bool pR = child<RULE>(r0, r1, rcn, L, a.t_min, a.margin_b, loR, tfR);
-    int refL = __float_as_int(l0.w), refR = __float_as_int(r0.w);
-    if (STATS) ++C.rec;
-    if (RULE == INDEX && pL && pR && loR < loL) {   // the nearer first
-      const int rr = refL; refL = refR; refR = rr;
-      const float lq = loL; loL = loR; loR = lq;
-      const float fq = tfL; tfL = tfR; tfR = fq;
-    }
-    if (pL) {
-      if (pR) {
-        S.ref[L.sp] = refR;
-        S.lo[L.sp] = loR;
-        S.tf[L.sp] = tfR;
-        ++L.sp;
-      }
-      L.ref = refL;
-      return true;
-    }
-    if (pR) {
-      L.ref = refR;
-      return true;
-    }
-  } else {
-    leaf<RULE, STATS>(L, a, C);
-  }
+// pop until an entry passes the rule's test against the best hit of this
+// moment; false when the stack runs out
+template <bool STATS>
+__device__ __forceinline__ bool pop(Walker& L, PairStack& S, Counts& C) {
   while (L.sp > 0) {
     --L.sp;
     if (STATS) ++C.pop;
-    if (pass<RULE>(L, S.lo[L.sp], S.tf[L.sp])) {
+    if (pass<VISIT>(L, S.lo[L.sp], S.tf[L.sp])) {
       L.ref = S.ref[L.sp];
       return true;
     }
@@ -344,28 +342,188 @@ __device__ __forceinline__ bool step(Walker& L, Stack& S, const Args& a,
   return false;
 }
 
+template <bool STATS>
+__device__ __forceinline__ bool pop(Walker& L, WideStack& S, Counts& C) {
+  while (L.sp > 0) {
+    --L.sp;
+    if (STATS) ++C.pop;
+    const int2 e = S.e[L.sp];
+    if (!(L.nb <= __int_as_float(e.y))) {
+      L.ref = e.x;
+      return true;
+    }
+  }
+  return false;
+}
+
+// one step of the lane's VISIT walk: expand a pair record or run a leaf,
+// then pop until an entry passes; false when the ray is done
+template <bool STATS>
+__device__ __forceinline__ bool step_pair(Walker& L, PairStack& S,
+                                          const Args& a, Counts& C) {
+  if (L.ref > 0) {
+    const float4* rc = a.nodes + (long long)L.ref * REC;
+    const float4 l0 = __ldg(rc), l1 = __ldg(rc + 1);
+    const float4 r0 = __ldg(rc + 2), r1 = __ldg(rc + 3);
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    float loL, tfL, loR, tfR;
+    const bool pL = child<VISIT>(l0, l1, z, L, a.t_min, a.margin_b, loL, tfL);
+    const bool pR = child<VISIT>(r0, r1, z, L, a.t_min, a.margin_b, loR, tfR);
+    if (STATS) {
+      ++C.rec;
+      C.child += 2;
+    }
+    if (pL) {
+      if (pR) {
+        S.ref[L.sp] = __float_as_int(r0.w);
+        S.lo[L.sp] = loR;
+        S.tf[L.sp] = tfR;
+        ++L.sp;
+      }
+      L.ref = __float_as_int(l0.w);
+      return true;
+    }
+    if (pR) {
+      L.ref = __float_as_int(r0.w);
+      return true;
+    }
+  } else {
+    leaf<VISIT, STATS>(L, a, C);
+  }
+  return pop<STATS>(L, S, C);
+}
+
+// order slots i < j of a wide record's children by their entry
+template <int I, int J>
+__device__ __forceinline__ void sort2(float (&lo)[WIDTH], int (&ref)[WIDTH]) {
+  if (lo[J] < lo[I]) {
+    const float l = lo[I];
+    const int r = ref[I];
+    lo[I] = lo[J];
+    ref[I] = ref[J];
+    lo[J] = l;
+    ref[J] = r;
+  }
+}
+
+// one step of the lane's INDEX walk: expand a wide record - test its live
+// children, push the others that pass far first, enter the nearest that
+// passes - then run leaves and pop until a record is entered; false when
+// the ray is done
+template <bool STATS>
+__device__ __forceinline__ bool step_wide(Walker& L, WideStack& S,
+                                          const Args& a, Counts& C) {
+  if (L.ref > 0) {
+    const float INF = __int_as_float(0x7f800000);
+    const float4* rc = a.nodes + (long long)L.ref * WREC;
+    float4 mn[WIDTH];
+    int ref[WIDTH];
+#pragma unroll
+    for (int k = 0; k < WIDTH; ++k) {
+      mn[k] = __ldg(rc + 3 * k);
+      ref[k] = __float_as_int(mn[k].w);
+    }
+    // the build's internal nodes the record covers: its children less one
+    // (the first two slots are always live)
+    L.left -= 1 + (ref[2] != 0) + (ref[3] != 0);
+    if (L.left < 0) {
+      const Best b = sweep_all(L.r, L.dlen, L.base_i, a.geo, a.med, a.n_ss,
+                               a.n_s, a.n_sb, a.n_solid, a.n_prims,
+                               a.any_transform, a.t_min);
+      L.bt = b.t;
+      L.bi = b.i;
+      if (STATS) {
+        ++C.brute;
+        C.pair[0] += a.n_ss;
+        C.pair[1] += a.n_s - a.n_ss;
+        C.pair[2] += a.n_sb - a.n_s;
+        C.pair[3] += a.n_solid - a.n_sb;
+        C.pair[4] += a.n_prims - a.n_solid;
+      }
+      return false;
+    }
+    // each child that passes keys by its entry, max(tn, t_min) (t_min for
+    // a NaN entry); one that fails or is empty by +inf
+    float lo[WIDTH];
+#pragma unroll
+    for (int k = 0; k < WIDTH; ++k) {
+      lo[k] = INF;
+      if (k < 2 || ref[k] != 0) {
+        float l, f;
+        if (child<INDEX>(mn[k], __ldg(rc + 3 * k + 1), __ldg(rc + 3 * k + 2),
+                         L, a.t_min, a.margin_b, l, f))
+          lo[k] = l;
+        if (STATS) ++C.child;
+      }
+    }
+    if (STATS) ++C.rec;
+    sort2<0, 1>(lo, ref);        // a sorting network of four
+    sort2<2, 3>(lo, ref);
+    sort2<0, 2>(lo, ref);
+    sort2<1, 3>(lo, ref);
+    sort2<1, 2>(lo, ref);
+    L.ref = 0;
+    if (lo[0] < INF) {
+#pragma unroll
+      for (int k = WIDTH - 1; k > 0; --k) {
+        if (lo[k] < INF)
+          S.e[L.sp++] = make_int2(ref[k], __float_as_int(lo[k]));
+      }
+      L.ref = ref[0];
+    }
+  }
+  // run leaves - the one entered, or started at, or popped - until a
+  // record is entered or the stack runs out
+  for (;;) {
+    if (L.ref > 0) return true;
+    if (L.ref < 0) leaf<INDEX, STATS>(L, a, C);
+    if (!pop<STATS>(L, S, C)) return false;
+  }
+}
+
+// the STATS form's count of one loop trip: each lane's, and the warp's
+// once for the lanes that run it together
+template <bool STATS>
+__device__ __forceinline__ void trip(Counts& C) {
+  if (STATS) {
+    ++C.lane_steps;
+    if ((threadIdx.x & 31u) == (unsigned)(__ffs(__activemask()) - 1))
+      ++C.warp_steps;
+  }
+}
+
 template <int RULE, bool STATS>
 __global__ void __launch_bounds__(BVH_THREADS) bvh_kernel(const Args a) {
-  // VISIT: descend to a leaf before the leaf's step, so that a warp runs
-  // its lanes' leaves together, not one iteration's mix
-  constexpr bool SPLIT = RULE == VISIT;
-  Stack S;
-  Counts C = {0, 0, 0, {0, 0, 0, 0, 0}, 0};
+  typename std::conditional<RULE == INDEX, WideStack, PairStack>::type S;
+  Counts C = {0, 0, 0, {0, 0, 0, 0, 0}, 0, 0, 0, 0};
   Walker L;
   const long long i = (long long)blockIdx.x * BVH_THREADS + threadIdx.x;
   if (i < a.R) {
     bool live = start<RULE, STATS>(L, a, i, C);
     while (live) {
-      while (SPLIT && live && L.ref > 0)
-        live = step<RULE, STATS>(L, S, a, C);
-      if (live) live = step<RULE, STATS>(L, S, a, C);
+      if constexpr (RULE == INDEX) {
+        trip<STATS>(C);
+        live = step_wide<STATS>(L, S, a, C);
+      } else {
+        // descend to a leaf before the leaf's step, so that a warp runs
+        // its lanes' leaves together, not one iteration's mix
+        while (live && L.ref > 0) {
+          trip<STATS>(C);
+          live = step_pair<STATS>(L, S, a, C);
+        }
+        if (live) {
+          trip<STATS>(C);
+          live = step_pair<STATS>(L, S, a, C);
+        }
+      }
     }
     a.out_t[i] = L.bt;
     a.out_i[i] = L.bi;
   }
   if (STATS) {
     int v[N_STATS] = {C.rec, C.root, C.pop, C.pair[0], C.pair[1], C.pair[2],
-                      C.pair[3], C.pair[4], C.brute};
+                      C.pair[3], C.pair[4], C.brute, C.child, C.warp_steps,
+                      C.lane_steps};
 #pragma unroll
     for (int k = 0; k < N_STATS; ++k) {
       int s = v[k];
@@ -387,26 +545,30 @@ static int launch(const Args& a, cudaStream_t st) {
 }
 
 // rays: (7, R) float32 rows ox, oy, oz, dx, dy, dz, time (row stride R).
-// nodes: (n_rec, 24) float32 pair records (ops/bvh.py::pack_nodes) for the
-// rule; order: (n_prims,) int32.  geo: (n_solid, 16) float32 sweep table
+// nodes: the rule's records (ops/bvh.py::pack_nodes): (n_rec, 24) float32
+// pair records for VISIT, (n_rec, 48) wide records for INDEX; order:
+// (n_prims,) int32.  geo: (n_solid, 16) float32 sweep table
 // (may be null without solids).  tab: (N, 40) float32 prim table
 // (ops/shade.py::build_tables), read for media rows only; null when the
 // scene has no media.  kd0, kd1: the intersect key's words; lane_ids: (R,)
-// uint32 bits.  margin_b: INDEX's linear margin term; depth: the tree's
-// internal depth (<= 32); budget: the records an INDEX lane expands
-// before it tests every prim.  rule: 0 VISIT, 1 INDEX.  stats: null, or 9
-// uint64 counters to add to (the counting instantiation).  Returns the
+// uint32 bits.  margin_b: INDEX's linear margin term; stack: the most
+// entries the rule's walk can hold (VISIT: the tree's internal depth, <=
+// 32; INDEX: ops/bvh.py::wide_stack_bound, <= 96); budget: the build's
+// internal nodes an INDEX lane expands before it tests every prim.  rule:
+// 0 VISIT, 1 INDEX.  stats: null, or 12 uint64 counters to add to (the
+// counting instantiation).  Returns the
 // launch's cudaError_t (0 = launched).
 extern "C" int tr_bvh(const float* rays, long long R, const float* nodes,
                       const int* order, int n_prims, const float* geo,
                       const float* tab, int n_ss, int n_s, int n_sb,
                       int n_solid, float t_min, unsigned kd0, unsigned kd1,
                       const int* lane_ids, int any_transform, float margin_b,
-                      int depth, int budget, int rule,
+                      int stack, int budget, int rule,
                       unsigned long long* stats, float* out_t, int* out_i,
                       void* stream) {
   if (R <= 0) return 0;
-  if (R >= (1LL << 31) - (1LL << 24) || depth < 1 || depth > STACK_DEPTH)
+  if (R >= (1LL << 31) - (1LL << 24) || stack < 1 ||
+      stack > (rule == INDEX ? INDEX_STACK : STACK_DEPTH))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.rays = rays;

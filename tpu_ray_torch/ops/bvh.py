@@ -13,8 +13,10 @@ child and descends into the left, or pops.  In torch that loop would be
 driven from the host, one sync and ~40 launches a node step.  The card's
 form of the same function is a ray per thread walking its own path, which
 :func:`intersect_bvh` launches (``csrc/bvh.cu``; no TPU kernel: JAX runs
-XLA here) over the tree packed as pair records (:func:`pack_nodes`: both
-children's boxes in one record).
+XLA here) over the tree packed per rule (:func:`pack_nodes`): pair records
+for ``VISIT`` (both children's boxes in one record), four-wide records for
+``INDEX`` (up to four descendants' boxes in one record, the tree still
+``build_bvh``'s node for node).
 
 The kernel has two tie rules, one template parameter:
 
@@ -56,6 +58,11 @@ from .sweep import FLOPS_PER_PAIR, _check_rays, _ranges, pair_t, sweep_table
 
 STACK_DEPTH = 32
 LEAF_SIZE = 4
+WIDTH = 4                       # children a rule-INDEX record holds at most
+# rule INDEX's stack: a record pushes at most WIDTH - 1 entries and each
+# record on a path from the root is another internal node of the build on
+# that path, so a tree at most STACK_DEPTH internal nodes deep fits
+INDEX_STACK = (WIDTH - 1) * STACK_DEPTH
 VISIT, INDEX = "visit", "index"      # the kernel's tie rules
 # fp32 operations of one node's slab test (6 subtractions, 6 products, the
 # per-axis min / max, their reductions, the clip against (t_min, best_t)
@@ -72,19 +79,24 @@ _U = 2.0 ** -24
 MARGIN_QUAD = 128 * _U      # over the least sphere radius: A
 MARGIN_LINEAR = 64 * _U     # B
 MARGIN_ABS = 128 * _U       # times |centre| + half diagonal, static
-# the counts of the kernel's counting form (stats=): pair records
-# expanded, root tests, stack entries popped, pairs by kind, rays that ran
-# out of their record budget and tested every prim
+# the counts of the kernel's counting form (stats=): records expanded,
+# root tests, stack entries popped, pairs by kind, rays that ran out of
+# their record budget and tested every prim, child boxes tested (the root
+# tests among them), each warp's loop trips (one a trip of the lanes that
+# run it together) and the lanes that ran those trips: lane_steps / (32 x
+# warp_steps) is the walk's SIMD share
 STAT_KEYS = ("records", "roots", "pops", "sphere", "moving", "box", "quad",
-             "medium", "brute")
+             "medium", "brute", "children", "warp_steps", "lane_steps")
 
 
 def record_budget(n_prims: int) -> int:
-    """The pair records a lane expands under rule ``INDEX`` before it runs
-    the sweep's loop over every prim instead (``csrc/bvh.cu``): a ray
-    expands 2-25 on average (chip_smoke.py phase 3's counts per ray), but
-    one that starts far from small spheres, as one inside book1-final's
-    r = 1000 ground sphere does, has margins that swallow them all."""
+    """The internal nodes of the build a lane may expand under rule
+    ``INDEX`` before it runs the sweep's loop over every prim instead
+    (``csrc/bvh.cu``; a wide record counts the internal nodes it covers,
+    its children less one): a ray expands 2-25 on average (chip_smoke.py
+    phase 3's counts per ray), but one that starts far from small spheres,
+    as one inside book1-final's r = 1000 ground sphere does, has margins
+    that swallow them all."""
     return max(64, n_prims // 8)
 
 
@@ -268,7 +280,9 @@ def index_margins(scene: SceneData, bvh: BVHArrays):
 
     Each margin is three to four times the error it covers.  A box that is
     too wide costs visits, never bits.  Returns float32 ``lo``, ``hi`` (M,
-    3), ``c`` (M, 3), ``h`` (M,) and ``A`` (M,)."""
+    3), ``c`` (M, 3), ``h`` (M,) and ``A`` (M,), and the float64 surface
+    area (M,) of each node's unwidened float64 box, by which
+    :func:`pack_nodes` widens the records."""
     boxes = prim_aabbs(scene)
     kind = scene.prims.kind[:scene.n_prims].cpu().numpy()
     sph = (kind == PRIM_SPHERE) | (kind == PRIM_MEDIUM_SPHERE)
@@ -285,7 +299,9 @@ def index_margins(scene: SceneData, bvh: BVHArrays):
     h = _up(np.maximum(hi - c.astype(np.float64),
                        c - lo.astype(np.float64)).max(1))
     A = np.where(np.isfinite(rmin), _up(MARGIN_QUAD / rmin), np.float32(0))
-    return lo, hi, c, h, A.astype(np.float32)
+    d = hi64 - lo64
+    area = 2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0])
+    return lo, hi, c, h, A.astype(np.float32), area
 
 
 def tree_depth(bvh: BVHArrays) -> int:
@@ -304,41 +320,95 @@ def tree_depth(bvh: BVHArrays) -> int:
     return depth
 
 
+def wide_children(bvh: BVHArrays, area: np.ndarray,
+                  width: int = WIDTH) -> dict:
+    """Each kept internal node's record children under rule ``INDEX``:
+    {node: [child nodes]}, for the root (when internal) and every internal
+    node that is a child of a record.  A record starts from its node's two
+    children; while it has fewer than ``width`` and one of them is
+    internal, that child is replaced, in its place, by its own two
+    children: the internal child of largest ``area`` (float64 surface area
+    of its box), the lower node index on a tie.  A leaf is never replaced,
+    so a record holds 2 to ``width`` children, as many as its internal
+    grandchildren allow, and its children cover its node's subtree in the
+    build's left-to-right order.  ``width`` 2 keeps the binary tree, one
+    record a node (the pair walk)."""
+    cl, cr = bvh.child_l.cpu().numpy(), bvh.child_r.cpu().numpy()
+    internal = bvh.count.cpu().numpy() == 0
+    out = {}
+    todo = [0] if internal[0] else []
+    while todo:
+        n = todo.pop()
+        kids = [int(cl[n]), int(cr[n])]
+        while len(kids) < width:
+            inner = [k for k in kids if internal[k]]
+            if not inner:
+                break
+            x = max(inner, key=lambda k: (area[k], -k))
+            i = kids.index(x)
+            kids[i:i + 1] = [int(cl[x]), int(cr[x])]
+        out[n] = kids
+        todo += [k for k in reversed(kids) if internal[k]]
+    return out
+
+
 def pack_nodes(bvh: BVHArrays, rule: str = VISIT,
-               scene: SceneData | None = None) -> torch.Tensor:
-    """The kernel's pair records, (1 + internal nodes, 24) float32: record
-    k holds both children of one internal node, so one fetch tests both.
-    Per child, three float4s - (min xyz, ref), (max xyz, A), (c xyz, h) -
-    left child first; rule ``VISIT`` reads the first two of each (the
-    JAX build's float32 boxes, node for node), rule ``INDEX`` all three
-    (the boxes and margins of :func:`index_margins`, which needs the
-    scene).  Record 0 holds the root as its left child (its right half is
-    unused); internal node n of the build is record 1 + its rank among the
-    internal nodes.  A ref is the bits of an int32: a record index (> 0)
-    for an internal child, ~(first << 3 | count) (< 0) for a leaf."""
+               scene: SceneData | None = None,
+               width: int = WIDTH) -> torch.Tensor:
+    """The kernel's records of the tree for one tie rule.  Per child, three
+    float4s - (min xyz, ref), (max xyz, A), (c xyz, h).  A ref is the bits
+    of an int32: a record index (> 0) for an internal child, ~(first << 3
+    | count) (< 0) for a leaf, 0 for an empty slot.
+
+    - ``VISIT``: pair records, (1 + internal nodes, 24) float32: record k
+      holds both children of one internal node, left child first, so one
+      fetch tests both; the kernel reads the first two float4s of each
+      child (the JAX build's float32 boxes, node for node; A, c, h are 0)
+      and the (c, h) pairs sit together at the end.  Internal node n of
+      the build is record 1 + its rank among the internal nodes.
+    - ``INDEX``: wide records, (1 + kept internal nodes, 12 x ``WIDTH``)
+      float32, slot after slot: record k holds the children
+      :func:`wide_children` gives its node (2 to ``width``; empty slots
+      all zero, at the end), each with the boxes and margins of
+      :func:`index_margins` (which needs the scene), so one record tests
+      up to four boxes at once.  Records run in depth-first order of the
+      kept nodes, a record's children's records after it.  ``width`` 2
+      packs the pair walk into the same format (chip_smoke.py counts it
+      beside the wide walk).
+
+    Record 0 holds the root as its first child, the rest of it unused."""
     if bvh.leaf_size > 7:
         raise ValueError("leaves of at most 7 prims fit a child ref")
     cl, cr = bvh.child_l.cpu().numpy(), bvh.child_r.cpu().numpy()
     first, count = bvh.first.cpu().numpy(), bvh.count.cpu().numpy()
     internal = count == 0
-    rec = np.cumsum(internal) * internal          # record of internal node n
-    ref = np.where(internal, rec, ~((first << 3) | count)).astype(np.int32)
     M = bvh.n_nodes
-    A, c, h = (np.zeros(M, np.float32), np.zeros((M, 3), np.float32),
-               np.zeros(M, np.float32))
     if rule == VISIT:
         lo, hi = bvh.node_min.cpu().numpy(), bvh.node_max.cpu().numpy()
+        A, c, h = (np.zeros(M, np.float32), np.zeros((M, 3), np.float32),
+                   np.zeros(M, np.float32))
+        rec = np.cumsum(internal) * internal      # record of internal node n
     elif rule == INDEX:
         if scene is None:
             raise ValueError("rule INDEX packs the scene's margins")
-        lo, hi, c, h, A = index_margins(scene, bvh)
+        lo, hi, c, h, A, area = index_margins(scene, bvh)
+        kids = wide_children(bvh, area, width)
+        rec = np.zeros(M, np.int64)
+        rec[list(kids)] = 1 + np.arange(len(kids))
     else:
         raise ValueError(f"unknown tie rule {rule!r}")
+    ref = np.where(internal, rec, ~((first << 3) | count)).astype(np.int32)
     # per node, its 12 floats as a child: (min, ref), (max, A), (c, h)
     child = np.zeros((M, 12), np.float32)
     child[:, 0:3], child[:, 4:7], child[:, 8:11] = lo, hi, c
     child[:, 3] = ref.view(np.float32)
     child[:, 7], child[:, 11] = A, h
+    if rule == INDEX:
+        rows = np.zeros((1 + len(kids), 12 * WIDTH), np.float32)
+        rows[0, 0:12] = child[0]
+        for k, ks in enumerate(kids.values(), 1):
+            rows[k, :12 * len(ks)] = child[ks].reshape(-1)
+        return torch.from_numpy(rows).to(bvh.device)
     ids = np.flatnonzero(internal)
     rows = np.zeros((1 + ids.size, 24), np.float32)
     rows[0, 0:8], rows[0, 16:20] = child[0, 0:8], child[0, 8:12]
@@ -348,12 +418,33 @@ def pack_nodes(bvh: BVHArrays, rule: str = VISIT,
     return torch.from_numpy(rows).to(bvh.device)
 
 
+def wide_stack_bound(rows: np.ndarray) -> int:
+    """The most entries rule ``INDEX``'s stack can hold over the wide
+    records ``rows`` (:func:`pack_nodes`): the most, over the paths from
+    the root record to a leaf, of the entries each record on the path
+    pushes (its children less one).  A record's child records follow it,
+    so one pass from the last record up fills every record."""
+    width = rows.shape[1] // 12
+    refs = np.ascontiguousarray(rows[:, 3::12]).view(np.int32)
+    below = np.zeros(rows.shape[0], np.int64)
+    for k in range(rows.shape[0] - 1, 0, -1):
+        live = refs[k][refs[k] != 0]
+        inner = live[live > 0]
+        if not (inner > k).all() or live.size > width:
+            raise ValueError("malformed wide records")
+        below[k] = live.size - 1 + (below[inner].max() if inner.size else 0)
+    root = int(refs[0, 0])
+    return int(below[root]) if root > 0 else 0
+
+
 @dataclass
 class BVHTables:
-    """What a traversal reads, built once per render: the tree, its pair
-    records for one tie rule (kernel), the sweep's prim table, the media
-    rows (twin), the (N, 40) prim table whose media rows the kernel reads
-    (None without media) and the tree's depth."""
+    """What a traversal reads, built once per render: the tree, its records
+    for one tie rule (kernel), the sweep's prim table, the media rows
+    (twin), the (N, 40) prim table whose media rows the kernel reads (None
+    without media) and the most entries the rule's walk can hold on its
+    stack (at least 1): the tree's internal depth under ``VISIT``,
+    :func:`wide_stack_bound` under ``INDEX``."""
 
     bvh: BVHArrays
     nodes: torch.Tensor
@@ -361,7 +452,7 @@ class BVHTables:
     media: list
     tab: torch.Tensor | None
     rule: str = VISIT
-    depth: int = 1
+    stack: int = 1
 
     @classmethod
     def create(cls, scene: SceneData, bvh: BVHArrays | None = None,
@@ -377,16 +468,25 @@ class BVHTables:
         if bvh.order.shape[0] != scene.n_prims:
             raise ValueError(f"the BVH orders {bvh.order.shape[0]} prims, "
                              f"the scene has {scene.n_prims}")
-        depth = tree_depth(bvh)
-        if depth > STACK_DEPTH:
-            raise ValueError(f"a BVH {depth} internal nodes deep overflows "
-                             f"the JAX traversal's {STACK_DEPTH}-entry stack")
+        nodes = pack_nodes(bvh, rule, scene)
+        if rule == INDEX:
+            stack = wide_stack_bound(nodes.cpu().numpy())
+            if stack > INDEX_STACK:
+                raise ValueError(f"a BVH whose wide walk holds {stack} "
+                                 f"stack entries overflows the kernel's "
+                                 f"{INDEX_STACK}")
+        else:
+            stack = tree_depth(bvh)
+            if stack > STACK_DEPTH:
+                raise ValueError(f"a BVH {stack} internal nodes deep "
+                                 f"overflows the JAX traversal's "
+                                 f"{STACK_DEPTH}-entry stack")
         tab = (torch.from_numpy(build_tables(scene)[0]).to(dev)
                if scene.has_media else None)
-        return cls(bvh=bvh, nodes=pack_nodes(bvh, rule, scene),
+        return cls(bvh=bvh, nodes=nodes,
                    geo=sweep_table(scene) if geo is None else geo,
                    media=media_rows(scene) if media is None else media,
-                   tab=tab, rule=rule, depth=max(depth, 1))
+                   tab=tab, rule=rule, stack=max(stack, 1))
 
 
 def _spans(scene: SceneData):
@@ -524,7 +624,7 @@ def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
                          rays: torch.Tensor, kd, lane_ids,
                          stats: torch.Tensor | None = None):
     """The traversal kernel on CUDA tensors; counts into
-    ``intersect_bvh.launches``.  ``stats``, if given, a zeroed (9,) int64
+    ``intersect_bvh.launches``.  ``stats``, if given, a zeroed (12,) int64
     tensor on the rays' device, gets the kernel's own counts
     (``STAT_KEYS``) from its counting form.  Returns (best_t, best_i)."""
     _check_rays(rays)
@@ -543,9 +643,10 @@ def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
     if lane_ids.dtype != torch.int32 or lane_ids.shape != (R,) \
             or not lane_ids.is_contiguous():
         raise ValueError("lane_ids must be a contiguous (R,) int32 tensor")
-    if tables.nodes.dim() != 2 or tables.nodes.shape[1] != 24 \
-            or tables.rule not in (VISIT, INDEX) \
-            or not 1 <= tables.depth <= STACK_DEPTH:
+    cols, cap = {VISIT: (24, STACK_DEPTH),
+                 INDEX: (12 * WIDTH, INDEX_STACK)}.get(tables.rule, (0, 0))
+    if tables.nodes.dim() != 2 or tables.nodes.shape[1] != cols \
+            or not 1 <= tables.stack <= cap:
         raise ValueError("malformed BVH tables")
     if scene.has_media and tables.tab is None:
         raise ValueError("a scene with media needs the (N, 40) prim table")
@@ -566,7 +667,7 @@ def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
              n_ss, n_s, n_sb, n_solid, float(np.float32(scene.t_min)),
              int(kd[0]) & 0xFFFFFFFF, int(kd[1]) & 0xFFFFFFFF,
              lane_ids.data_ptr(), int(bool(scene.any_transform)),
-             float(_up(MARGIN_LINEAR)), tables.depth,
+             float(_up(MARGIN_LINEAR)), tables.stack,
              record_budget(scene.n_prims), int(tables.rule == INDEX),
              stats.data_ptr() if stats is not None else None,
              best_t.data_ptr(), best_i.data_ptr(),
@@ -579,12 +680,12 @@ def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
 
 def kernel_flops(counts: dict, rule: str) -> float:
     """fp32 operations of the kernel's own work under ``rule``, from its
-    counters (``STAT_KEYS``): every child box tested (two a record
-    expanded, one a root), every stack entry popped, the leaf pairs."""
+    counters (``STAT_KEYS``): every child box tested (the root tests
+    among them), every stack entry popped, the leaf pairs."""
     pairs = sum(counts.get(k, 0) * FLOPS_PER_PAIR[k]
                 for k in ("sphere", "moving", "box", "quad"))
-    return ((2 * counts.get("records", 0) + counts.get("roots", 0))
-            * FLOPS_PER_CHILD[rule] + counts.get("pops", 0) * FLOPS_PER_POP
+    return (counts.get("children", 0) * FLOPS_PER_CHILD[rule]
+            + counts.get("pops", 0) * FLOPS_PER_POP
             + pairs + counts.get("medium", 0) * FLOPS_PER_MEDIUM_PAIR)
 
 
