@@ -1,5 +1,17 @@
-"""The two benchmark scenes and their cameras, built again from the
+"""The benchmark's scenes and their cameras, built again from the
 reference's scene descriptions (``src/Scenes.hs``), as flat tables.
+
+A scene is a builder ``build(seed)`` and a camera ``camera(w, h)``: the two
+below, or those of a module ``scene_<name>.py`` beside this one (found by
+:func:`scene_fns`).  The builder returns ``(solids, media, background,
+t_min)``, or ``(solids, media, background, t_min, lights)`` for a scene
+with a light list: ``lights`` is the reference's list of hittables that a
+Lambertian scatter samples toward (its ``MixturePdf (HittablePdf lights)
+(CosinePdf onb)``), in the reference's order, each an untransformed quad or
+sphere :class:`Prim`, usually the same object as one of the solids.  A
+builder of four elements has no light list: its Lambertian scatters by the
+cosine lobe alone.  :func:`rect` and :func:`box_faces` build the
+reference's axis-aligned rects and its boxes under a rigid transform.
 
 The procedural content is drawn from ``numpy.random.default_rng(seed)`` in
 the builders' order: book 1's 22 x 22 grid (material draw, two position
@@ -23,6 +35,12 @@ import torch
 SPHERE, BOX, QUAD, MEDIUM_SPHERE = 0, 1, 2, 3
 LAMBERTIAN, METAL, DIELECTRIC, LIGHT, ISOTROPIC = 0, 1, 2, 3, 4
 TEX_CONSTANT, TEX_PERLIN = 0, 2
+# the light table's columns: a quad's corner, first and second edge, normal,
+# plane offset, area, u and v projectors; a sphere's centre (the corner's
+# columns) and radius
+L_CORNER, L_E1, L_E2, L_NORMAL = 0, 3, 6, 9
+L_OFFSET, L_AREA, L_U, L_V, L_RADIUS = 12, 13, 14, 17, 20
+LIGHT_COLS = 21
 SKY = (0.7, 0.8, 0.9)
 BLACK = (0.0, 0.0, 0.0)
 f32 = np.float32
@@ -90,6 +108,10 @@ def metal(color, fuzz):
     return dict(mkind=METAL, color=tuple(color), fuzz=float(fuzz))
 
 
+def diffuse_light(color):
+    return dict(mkind=LIGHT, color=tuple(color))
+
+
 def dielectric(ref_idx):
     # its texture value is never read: the weight of a refraction is 1
     return dict(mkind=DIELECTRIC, ref_idx=float(ref_idx))
@@ -134,7 +156,34 @@ def book1_final(seed: int):
     return world, [], SKY, 1e-3
 
 
-def _rot_y(deg: float) -> np.ndarray:
+def rect(plane: str, i0, i1, j0, j1, k, mat, rot=None, off=None) -> Prim:
+    """The reference's axis-aligned rect (``XYRect``, ``XZRect``,
+    ``YZRect``: (i, j) = (x, y), (x, z) or (y, z) at the third axis = k)
+    as a quad: corner (i0, j0, k), edges along i and j, normal +k; under
+    the rigid transform ``rot @ x + off`` (float64) when given."""
+    ia, ja, ka = {"xy": (0, 1, 2), "xz": (0, 2, 1), "yz": (1, 2, 0)}[plane]
+    p0, e1, e2, nrm = (np.zeros(3) for _ in range(4))
+    p0[ia], p0[ja], p0[ka] = i0, j0, k
+    e1[ia], e2[ja], nrm[ka] = i1 - i0, j1 - j0, 1.0
+    if rot is not None:
+        p0, e1, e2, nrm = rot @ p0 + off, rot @ e1, rot @ e2, rot @ nrm
+    return Prim(QUAD, p0=tuple(p0), e1=tuple(e1), e2=tuple(e2),
+                normal=tuple(nrm), **mat)
+
+
+def box_faces(pmin, pmax, mat, rot, off) -> list:
+    """The reference's ``cuboid`` (``src/Lib.hs:594-605``) as its six rects
+    in its order, under the rigid transform ``rot @ x + off``."""
+    (x0, y0, z0), (x1, y1, z1) = pmin, pmax
+    return [rect("xy", x0, x1, y0, y1, z1, mat, rot, off),
+            rect("xy", x0, x1, y0, y1, z0, mat, rot, off),
+            rect("xz", x0, x1, z0, z1, y1, mat, rot, off),
+            rect("xz", x0, x1, z0, z1, y0, mat, rot, off),
+            rect("yz", y0, y1, z0, z1, x1, mat, rot, off),
+            rect("yz", y0, y1, z0, z1, x0, mat, rot, off)]
+
+
+def rot_y(deg: float) -> np.ndarray:
     r = math.radians(deg)
     c, s = math.cos(r), math.sin(r)
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
@@ -152,10 +201,8 @@ def next_week_final(seed: int):
             world.append(Prim(BOX, box_min=(x0, 0.0, z0),
                               box_max=(x0 + 100.0, y1, z0 + 100.0),
                               **lambertian((0.48, 0.83, 0.53))))
-    # rect "xz" i 113..443, j 127..432 at k = 554: normal +y
-    world.append(Prim(QUAD, p0=(113.0, 554.0, 127.0), e1=(330.0, 0.0, 0.0),
-                      e2=(0.0, 0.0, 305.0), normal=(0.0, 1.0, 0.0),
-                      mkind=LIGHT, color=(7.0, 7.0, 7.0)))
+    world.append(rect("xz", 113, 443, 127, 432, 554,
+                      diffuse_light((7.0, 7.0, 7.0))))
     world.append(Prim(SPHERE, center=(400.0, 400.0, 200.0),
                       velocity=(30.0, 0.0, 0.0), time0=0.0, radius=50.0,
                       **lambertian((0.7, 0.3, 0.1))))
@@ -170,7 +217,7 @@ def next_week_final(seed: int):
     world.append(Prim(SPHERE, center=(220.0, 280.0, 300.0), radius=80.0,
                       mkind=LAMBERTIAN, tex=TEX_PERLIN, scale=0.1,
                       salt=perlin_salt(seed)))
-    rot, off = _rot_y(15.0), np.array([-100.0, 270.0, 395.0])
+    rot, off = rot_y(15.0), np.array([-100.0, 270.0, 395.0])
     for _ in range(1000):
         c = rot @ rng.uniform(0.0, 165.0, 3) + off
         world.append(sphere(c, 10, lambertian((0.73, 0.73, 0.73))))
@@ -190,8 +237,9 @@ CAMERAS = {
 def scene_fns(name: str):
     """(builder, camera) of a scene: the two above, or those of the module
     ``scene_<name with '-' as '_'>.py`` beside this one (``build(seed)``
-    returning (solids, media, background, t_min), and ``camera(w, h)``),
-    so that a scene is added as a file of its own."""
+    returning (solids, media, background, t_min) or (solids, media,
+    background, t_min, lights), and ``camera(w, h)``), so that a scene, its
+    light list with it, is added as a file of its own."""
     if name in SCENES:
         return SCENES[name], CAMERAS[name]
     mod = importlib.import_module(f".scene_{name.replace('-', '_')}",
@@ -241,7 +289,12 @@ class Scene:
     ``scale``, ``salt`` (int64).  Sweep tables by kind: ``sph`` (n_s, 8)
     centre, velocity, time0, radius^2 with ``n_ss`` static rows first;
     ``box`` (n_b, 6); ``quad`` (n_q, 13) corner, normal, plane offset and
-    the two uv projectors.  ``media``: one dict of python floats each."""
+    the two uv projectors.  ``media``: one dict of python floats each.
+    ``lights`` (L, LIGHT_COLS), the light list in its order: a quad's
+    corner, edges, normal, plane offset, area and uv projectors, a
+    sphere's centre and radius (columns ``L_*``); ``light_kind`` each
+    light's ``QUAD`` or ``SPHERE``; ``flags["n_lights"]`` = L (0: the
+    Lambertian scatters by its cosine lobe alone)."""
 
     n_prims: int
     n_solid: int
@@ -265,11 +318,14 @@ class Scene:
     flags: dict
     t_min: float
     background: tuple
+    lights: torch.Tensor
+    light_kind: tuple
 
 
 def build(name: str, seed: int, device="cpu", dt=torch.float32) -> Scene:
     """The named scene drawn from ``seed``, flattened, on ``device``."""
-    solids, media, bg, t_min = scene_fns(name)[0](seed)
+    solids, media, bg, t_min, *rest = scene_fns(name)[0](seed)
+    lights = rest[0] if rest else []
     solids = [solids[i] for i in _order(solids)]
     prims = solids + media
     n, ns = len(prims), len(solids)
@@ -311,7 +367,7 @@ def build(name: str, seed: int, device="cpu", dt=torch.float32) -> Scene:
                  has_perlin=any(p.tex == TEX_PERLIN for p in prims),
                  has_emissive=LIGHT in mk, has_lambertian=LAMBERTIAN in mk,
                  has_metal=METAL in mk, has_dielectric=DIELECTRIC in mk,
-                 has_isotropic=ISOTROPIC in mk)
+                 has_isotropic=ISOTROPIC in mk, n_lights=len(lights))
     return Scene(
         n_prims=n, n_solid=ns, n_ss=int(n_s - moving.sum()),
         sph=t(sph), box=t(np.concatenate([bmin, bmax], axis=1)[n_s:n_s + n_b]),
@@ -322,4 +378,34 @@ def build(name: str, seed: int, device="cpu", dt=torch.float32) -> Scene:
         ref_idx=t(a32([p.ref_idx for p in prims])),
         scale=t(a32([p.scale for p in prims])),
         salt=i64([p.salt for p in prims]), flags=flags,
-        t_min=float(f32(t_min)), background=tuple(float(x) for x in a32(bg)))
+        t_min=float(f32(t_min)), background=tuple(float(x) for x in a32(bg)),
+        lights=t(light_table(lights)),
+        light_kind=tuple(p.kind for p in lights))
+
+
+def light_table(lights) -> np.ndarray:
+    """(L, LIGHT_COLS) float32 rows of the light list: each quad's plane
+    offset and uv projectors as the quad table's (float32 from the float32
+    corner, edges and normal), its area |e1 x e2| in float64 rounded once;
+    each sphere's centre and radius."""
+    rows = np.zeros((len(lights), LIGHT_COLS), f32)
+    for j, p in enumerate(lights):
+        if p.kind == QUAD:
+            c, e1, e2, nrm = (np.array(v, np.float64).astype(f32)
+                              for v in (p.p0, p.e1, p.e2, p.normal))
+            rows[j, L_CORNER:L_CORNER + 3] = c
+            rows[j, L_E1:L_E1 + 3] = e1
+            rows[j, L_E2:L_E2 + 3] = e2
+            rows[j, L_NORMAL:L_NORMAL + 3] = nrm
+            rows[j, L_OFFSET] = np.sum(c * nrm)
+            rows[j, L_AREA] = np.linalg.norm(np.cross(
+                np.array(p.e1, np.float64), np.array(p.e2, np.float64)))
+            rows[j, L_U:L_U + 3] = e1 / max(np.sum(e1 * e1), f32(1e-30))
+            rows[j, L_V:L_V + 3] = e2 / max(np.sum(e2 * e2), f32(1e-30))
+        elif p.kind == SPHERE and not any(p.velocity):
+            rows[j, L_CORNER:L_CORNER + 3] = p.center
+            rows[j, L_RADIUS] = p.radius
+        else:
+            raise ValueError("a light is an untransformed quad or a static "
+                             "sphere")
+    return rows

@@ -19,9 +19,40 @@ estimator is keyed by the pixel's own ids and never by where its work ran:
 A bounce: the closest solid (each kind's first nearest prim, kinds in
 table order, strict '<'), the free flight through each constant medium,
 the hit record, the texture (constant, or a 7-octave hash-Perlin marble),
-emission from the back of a light, the scatter of the five materials
-(Lambertian by its cosine lobe: neither scene has a light list), path
-death at a miss, a light, zero throughput or the depth limit.
+emission from the back of a light, the scatter of the five materials,
+path death at a miss, a light, zero throughput or the depth limit.
+
+The scatter draws from the lane's scatter stream (``rng.col(base, i)``),
+each column with one purpose: 0 the mixture's coin, 1 the light's pick,
+2-3 a point on a rect light, 4-5 a direction in the cone toward a sphere
+light, 6-7 the cosine lobe, 8-9 a metal's fuzz, 10 a dielectric's
+reflection, 11-12 an isotropic medium's direction.  (The media's free
+flights draw from the closest-hit key's stream, one column a medium.)
+
+A Lambertian scatters by its cosine lobe alone in a scene with no light
+list.  With a light list (``flags["n_lights"]`` = L > 0) it scatters by
+book 3's ``MixturePdf (HittablePdf lights) (CosinePdf onb)``
+(``src/Lib.hs:362-382, 673-724, 829-836``), each step one float32
+operation in this order (:func:`mixture_scatter`):
+
+1. light j = min(floor(u1 * L), L - 1); toward it: for a rect,
+   (corner + u2 * e1) + u3 * e2 - p; for a sphere of centre c and radius
+   r, in the basis about c - p, the cone direction of ``htblRandom``:
+   d2 = |c - p|^2, cos_max = sqrt(max(1 - (r * r) / d2, 0)),
+   z = 1 + u5 * (cos_max - 1), phi = 2 pi u4, s = sqrt(max(1 - z * z, 0)),
+   (cos(phi) s, sin(phi) s, z);
+2. the direction: the unit vector of (u0 < 0.5 ? toward the light : the
+   cosine lobe's, unnormalised);
+3. each light's density of that unit direction d from p
+   (``htblPdfValue``): a rect's, where t = (offset - p.n) / (d.n) is above
+   ``t_min`` and x = (p + t d) - corner has u = x.pu and v = x.pv in
+   [0, 1], t * t / (|d.n| * area); a sphere's, where b = (p - c).d and
+   disc = b * b - (|p - c|^2 - r * r) > 0 and -b - sqrt(disc) or
+   -b + sqrt(disc) is above ``t_min``, 1 / (2 pi (1 - cos_max)) with
+   cos_max = sqrt(max(1 - (r * r) / |p - c|^2, 0)); else 0.  Their sum in
+   list order, / L;
+4. cos/pi = max(d.n, 0) * (1/pi); the mixture 0.5 * (lights' + cos/pi);
+5. the weight: albedo * ((cos/pi) / mixture), 0 where the mixture is 0.
 
 All float work is in ``dt``: float32 is the estimator, bfloat16 the control
 that ``correct`` must refuse.  Square roots are correctly rounded, as the
@@ -33,12 +64,14 @@ import numpy as np
 import torch
 
 from . import rng
-from .scenes import (BOX, DIELECTRIC, ISOTROPIC, LAMBERTIAN, LIGHT, METAL,
-                     MEDIUM_SPHERE, QUAD, TEX_PERLIN, Scene)
+from .scenes import (BOX, DIELECTRIC, ISOTROPIC, L_AREA, L_CORNER, L_E1, L_E2,
+                     L_NORMAL, L_OFFSET, L_RADIUS, L_U, L_V, LAMBERTIAN, LIGHT,
+                     MEDIUM_SPHERE, METAL, QUAD, TEX_PERLIN, Scene)
 
 f32 = np.float32
 INF = float("inf")
 TWO_PI = float(f32(2.0 * np.pi))
+INV_PI = float(f32(1.0 / np.pi))
 MED_EPS = 1e-4
 RAY_CHUNK = 1 << 15
 CHECK = 8          # iterations between the looks at the active count
@@ -108,6 +141,16 @@ def cosine_direction(u0, u1):
     phi = TWO_PI * u0
     sq = sqrt_rn(u1)
     return (torch.cos(phi) * sq, torch.sin(phi) * sq, z)
+
+
+def to_sphere(u0, u1, r, d2):
+    """A direction in the cone that a sphere of radius ``r`` at squared
+    distance ``d2`` fills, in its local basis (``randomToSphere``)."""
+    cos_max = sqrt_rn(torch.clamp(1.0 - r * r / d2, min=0.0))
+    z = 1.0 + u1 * (cos_max - 1.0)
+    phi = TWO_PI * u0
+    s = sqrt_rn(torch.clamp(1.0 - z * z, min=0.0))
+    return (torch.cos(phi) * s, torch.sin(phi) * s, z)
 
 
 _PX, _PY, _PZ = 0x8DA6B343, 0xD8163841, 0xCB1AB31F
@@ -272,6 +315,76 @@ def intersect(sc: Scene, rays, kd, ids):
     return bt, bi
 
 
+# --- the light list ----------------------------------------------------------------
+
+def _cols(row, c):
+    return (row[..., c], row[..., c + 1], row[..., c + 2])
+
+
+def toward_light(sc: Scene, j, p, u2, u3, u4, u5):
+    """The unnormalised direction from ``p`` toward a point of light ``j``
+    (per lane) drawn from (u2, u3) on a rect or (u4, u5) in a sphere's
+    cone."""
+    row = sc.lights[j]
+    c, e1, e2 = (_cols(row, k) for k in (L_CORNER, L_E1, L_E2))
+    rect = tuple(c[i] + u2 * e1[i] + u3 * e2[i] - p[i] for i in range(3))
+    dc = (c[0] - p[0], c[1] - p[1], c[2] - p[2])
+    cone = onb_local(onb_from_w(dc),
+                     to_sphere(u4, u5, row[:, L_RADIUS], dot(dc, dc)))
+    is_rect = torch.tensor([k == QUAD for k in sc.light_kind],
+                           device=row.device)[j]
+    return where3(is_rect, rect, cone)
+
+
+def light_density(sc: Scene, j: int, p, d):
+    """Light ``j``'s solid-angle density of the unit directions ``d`` from
+    ``p`` (``htblPdfValue``): 0 where the ray misses it."""
+    row = sc.lights[j]
+    if sc.light_kind[j] == QUAD:
+        nrm = _cols(row, L_NORMAL)
+        dn = dot(d, nrm)
+        t = (row[L_OFFSET] - dot(p, nrm)) / dn
+        c = _cols(row, L_CORNER)
+        x = tuple(p[i] + t * d[i] - c[i] for i in range(3))
+        u, v = dot(x, _cols(row, L_U)), dot(x, _cols(row, L_V))
+        hit = ((t > sc.t_min) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+               & (v <= 1.0))
+        return torch.where(hit, t * t / (torch.abs(dn) * row[L_AREA]), 0.0)
+    c = _cols(row, L_CORNER)
+    oc = (p[0] - c[0], p[1] - c[1], p[2] - c[2])
+    b = dot(oc, d)
+    oc2 = dot(oc, oc)
+    r2 = row[L_RADIUS] * row[L_RADIUS]
+    disc = b * b - (oc2 - r2)
+    sd = sqrt_rn(torch.clamp(disc, min=0.0))
+    hit = (disc > 0.0) & ((-b - sd > sc.t_min) | (-b + sd > sc.t_min))
+    cos_max = sqrt_rn(torch.clamp(1.0 - r2 / oc2, min=0.0))
+    return torch.where(hit, 1.0 / (TWO_PI * (1.0 - cos_max)), 0.0)
+
+
+def lights_density(sc: Scene, p, d):
+    """The light list's density of ``d`` from ``p``: the mean of its
+    lights' (their sum in list order, / L)."""
+    total = torch.zeros_like(p[0])
+    for j in range(len(sc.light_kind)):
+        total = total + light_density(sc, j, p, d)
+    return total / len(sc.light_kind)
+
+
+def mixture_scatter(sc: Scene, p, n, cos_dir, att, u):
+    """(direction, weight) of a Lambertian hit at ``p`` with normal ``n``
+    under the mixture of the light list and the cosine lobe ``cos_dir``
+    (unnormalised); ``u(i)`` is the lane's scatter column i."""
+    L = sc.flags["n_lights"]
+    j = torch.clamp((u(1) * L).to(torch.int64), max=L - 1)
+    light = toward_light(sc, j, p, u(2), u(3), u(4), u(5))
+    d = normalize(where3(u(0) < 0.5, light, cos_dir))
+    cos_pdf = torch.clamp(dot(d, n), min=0.0) * INV_PI
+    mix = 0.5 * (lights_density(sc, p, d) + cos_pdf)
+    w = torch.where(mix > 0.0, cos_pdf / mix, 0.0)
+    return d, (att[0] * w, att[1] * w, att[2] * w)
+
+
 # --- one bounce -----------------------------------------------------------------
 
 def shade(sc: Scene, o, d, tm, t, idx, ids, kd):
@@ -333,7 +446,11 @@ def shade(sc: Scene, o, d, tm, t, idx, ids, kd):
     branches = []
     if fl["has_lambertian"]:
         cos_dir = onb_local(onb_from_w(n), cosine_direction(u(6), u(7)))
-        branches.append((LAMBERTIAN, normalize(cos_dir), att))
+        if fl["n_lights"]:
+            branches.append((LAMBERTIAN, *mixture_scatter(
+                sc, (px, py, pz), n, cos_dir, att, u)))
+        else:
+            branches.append((LAMBERTIAN, normalize(cos_dir), att))
     if fl["has_metal"]:
         fuzz = g(sc.fuzz)
         refl = reflect(unit_d, n)
