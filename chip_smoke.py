@@ -106,7 +106,14 @@ among them), and fails unless every phase passes:
    launch) - that queue render bit-equal to the same render with the
    route off (the dense sweep and the media kernel), and book1-final
    600x400 16 spp on the pool (below the count: the dense sweep) bit-equal
-   to the same render with the route forced on, each with both walls;
+   to the same render with the route forced on, each with both walls; the
+   queue's epochs replayed from CUDA graphs (``integrator.QueuePlan``):
+   next-week-final 400x400 100 spp rendered four times from one scene
+   object, a first render that makes no plan, the render that captures, a
+   render of another seed that replays every epoch, and that seed again
+   with every iteration issued on its own, the last two bit-equal with the
+   same launches, with the four walls and the replayed render's
+   ``queue_replay_share`` (1);
    wave - cornell 500x500, 64 spp, depth 50; a small
    queue render on the card against the same render on the CPU; megakernel -
    cornell 500x500 64 spp, book1-final 600x400 16 spp and cornell-smoke
@@ -221,7 +228,7 @@ from tpu_ray_torch.integrator import (SceneKernels, _queue_init,  # noqa: E402
 from tpu_ray_torch.models import objects as ob  # noqa: E402
 from tpu_ray_torch.models.compile import build_scene  # noqa: E402
 from tpu_ray_torch.models.scenes import SCENES  # noqa: E402
-from tpu_ray_torch.utils import cli  # noqa: E402
+from tpu_ray_torch.utils import cli, profiling  # noqa: E402
 from tpu_ray_torch.ops import (build, bvh, hit_scatter,  # noqa: E402
                                intersect, megakernel, queue, shade, sweep)
 from tpu_ray_torch.ops.intersect import intersect_ti  # noqa: E402
@@ -2041,6 +2048,58 @@ def route_full(img_q, wall_q):
     return out, counts
 
 
+def replay_full():
+    """next-week-final 400x400 100 spp on the queue, three renders of one
+    scene object (the benchmark's shape) and seeds of their own: the first
+    runs eagerly and makes no plan, the second makes the plan and captures
+    its graphs (each pool size's first epoch issued iteration by
+    iteration), the third replays them for every epoch; then the third's
+    seed again with no key (``integrator.replay_key`` None), every
+    iteration issued on its own.  The two renders of one seed must be
+    bit-equal with the same launches by counter, and the replayed render's
+    ``queue_replay_share`` (its iterations run by a replay over those
+    dispatched) 1; prints the four walls and the shares."""
+    scene, cam = scene_and_camera("next-week-final", 400, 400)
+    qc = integrator.QueueCounts
+
+    def one(seed):
+        torch.cuda.synchronize()
+        i0, r0 = qc.iterations, qc.replayed
+        l0 = profiling.launch_counts()
+        t0 = time.perf_counter()
+        img = render(scene, cam, 400, 400, 100, max_depth=50, seed=seed,
+                     mode="queue")
+        wall = time.perf_counter() - t0
+        n = {k: v - l0[k] for k, v in profiling.launch_counts().items()}
+        return img, wall, qc.iterations - i0, qc.replayed - r0, n
+
+    _, wall_f, its_f, rep_f, _ = one(SEED)
+    _, wall_c, its_c, rep_c, _ = one(SEED + 1)
+    img_r, wall_r, its_r, rep_r, n_r = one(SEED + 2)
+    saved = integrator.replay_key
+    integrator.replay_key = lambda *a, **k: None
+    try:
+        img_e, wall_e, its_e, rep_e, n_e = one(SEED + 2)
+    finally:
+        integrator.replay_key = saved
+    same = bool(np.array_equal(img_r, img_e))
+    out = dict(first_s=wall_f, capture_s=wall_c, replayed_s=wall_r,
+               eager_s=wall_e, capture_replay_share=rep_c / its_c,
+               queue_replay_share=rep_r / its_r, iterations=its_r,
+               launches=n_r, bit_equal=same)
+    log(f"  queue replay, next-week-final 400x400 100 spp: first render "
+        f"{wall_f:.3f} s ({rep_f} replayed), capturing render {wall_c:.3f} s "
+        f"({rep_c} of {its_c} iterations replayed), replayed {wall_r:.3f} s,"
+        f" eager {wall_e:.3f} s; queue_replay_share {rep_r / its_r:.4f} "
+        f"({rep_r} of {its_r}); launches replayed {n_r}, eager {n_e}; "
+        f"replayed vs eager bit-equal {same}")
+    if not same or rep_r != its_r or its_e != its_r or rep_e or rep_f \
+            or n_r != n_e or not 0 < rep_c < its_c:
+        raise AssertionError(f"queue replay: {out}, eager iterations {its_e}"
+                             f" replayed {rep_e} launches {n_e}")
+    return out
+
+
 class Stop(Exception):
     """Raised by an ``on_partial`` to interrupt a render."""
 
@@ -2571,10 +2630,13 @@ WALLS_BEFORE = {"cornell-smoke pool": (0.432,),
 def plain_twins():
     """``merge_media``, ``path_ids`` and ``queue_inject`` replaced by their
     plain twins in the modules whose callers look them up at each call
-    (``ops.intersect.intersect_ti``, ``integrator.queue_body``)."""
+    (``ops.intersect.intersect_ti``, ``integrator.queue_body``), and no
+    queue render keyed for a plan (``integrator.replay_key`` None), so each
+    queue iteration calls them instead of replaying a captured graph."""
     names = ((intersect, "merge_media", intersect.merge_media_plain),
              (queue, "path_ids", queue.path_ids_plain),
-             (queue, "queue_inject", queue.queue_inject_plain))
+             (queue, "queue_inject", queue.queue_inject_plain),
+             (integrator, "replay_key", lambda *a, **k: None))
     saved = [getattr(mod, n) for mod, n, _ in names]
     for mod, n, twin in names:
         setattr(mod, n, twin)
@@ -2797,6 +2859,7 @@ def main() -> int:
     if not np.array_equal(img_q, img_s):
         raise AssertionError("sorted and unsorted queue renders differ")
     route_out, n_route = route_full(img_q, wall_q)
+    replay_out = replay_full()
     reset_counts()
     _, _, bright_w = full_width("cornell", 500, 500, 64, mode="wave")
     n_wave = read_counts("wave", ("sweep", "hit_scatter"))
@@ -3125,6 +3188,7 @@ def main() -> int:
     log(f"aov and denoise: {json.dumps(aov_out)}")
     log(f"bvh renders: {json.dumps(bvh_out)}")
     log(f"route (rule INDEX vs the dense sweep): {json.dumps(route_out)}")
+    log(f"queue replay: {json.dumps(replay_out)}")
     log(f"bands: {json.dumps(bands_out)}")
     log(f"checkpoint resumes bit-equal: {json.dumps(ck_out)}")
     log(f"cli: {json.dumps(cli_out)}")

@@ -1161,3 +1161,186 @@ def test_queue_census_kernel_equals_twin(card, sampler, worklist_mode,
     assert torch.equal(got.work, want.work)
     assert torch.equal(got.istate, want.istate)
     assert int(got.census) == int(want.census) == n_got == n_want > 0
+
+
+# the work queue's epochs replayed from CUDA graphs (integrator.QueuePlan):
+# next-week-final (the route: its media read the intersect key) at 64x64,
+# 16 spp, on a 32768-lane pool with plan_queue's drain ladder (16384, 4096)
+QW = QH = 64
+
+
+def _words(ki, ks, salt, id0, gs0, dev):
+    from tpu_ray_torch.ops import queue as q
+    return torch.from_numpy(q.render_words(ki, ks, salt, id0, gs0)).to(dev)
+
+
+@pytest.mark.parametrize("sampler", ["uniform", "sobol", "sobol-b0"])
+def test_kernels_read_the_render_words_bit_for_bit(card, sampler):
+    """Each C entry given a render's word block against its by-value form
+    on a next-week-final queue state a few iterations in: the block's words
+    decide, bit for bit, and the by-value words launched beside it (another
+    render's, which alone give other bits) are not read."""
+    from tpu_ray_torch.ops import queue as q
+
+    W, H, m, salt, s0 = 48, 32, 4096, 7, 3
+    spec, ps = _build("next-week-final", card)
+    cam = spec.camera(W, H).replace(sampler=sampler)
+    cfg = shade.StepConfig.create(ps, cam, W, H, 8, n_samples=0,
+                                  cam_salt=salt, queue=True)
+    kern = SceneKernels.create(ps)
+    assert kern.bvh is not None and ps.has_media
+    total, wb = W * H * 8, s0 * W * H
+    st = _queue_init(m, total, card, b0=cfg.b0)
+    key = rng.fold_in(rng.prng_key(5), 0x5EED)
+    ki, ks = rng.fold_in(key, 0), rng.fold_in(key, 1)
+    for _ in range(4):
+        st = queue_body(st, ps, cfg, kern, ki, ks, salt, wb, total, W, H)
+    words = _words(ki, ks, salt, wb, s0, card)
+    key2 = rng.fold_in(rng.prng_key(6), 0x5EED)
+    ki2, ks2 = rng.fold_in(key2, 0), rng.fold_in(key2, 1)
+    cfg2 = replace(cfg, cam_salt=salt + 1)
+
+    sid = q.path_ids(st.work, wb, st.istate[0])
+    assert not torch.equal(q.path_ids(st.work, wb + 1, st.istate[0]), sid)
+    assert torch.equal(q.path_ids(st.work, wb + 1, st.istate[0], words), sid)
+
+    bt, bi = kern.intersect(ps, st.fstate[:7], ki, sid)
+    other = kern.intersect(ps, st.fstate[:7], ki2, sid)
+    got = kern.intersect(ps, st.fstate[:7], ki2, sid, words)
+    assert not torch.equal(other[0], bt)
+    assert torch.equal(got[0], bt) and torch.equal(got[1], bi)
+
+    zeros2 = torch.zeros((2, m), dtype=torch.float32, device=card)
+    step = (zeros2, sid, st.fstate, st.istate, bt, bi)
+    f, i = shade.pool_step(cfg, *step, ks, lane_b0=st.lane)
+    other = shade.pool_step(cfg2, *step, ks2, lane_b0=st.lane)
+    got = shade.pool_step(cfg2, *step, ks2, lane_b0=st.lane, words=words)
+    assert not torch.equal(other[0], f)
+    assert torch.equal(got[0], f) and torch.equal(got[1], i)
+    if cfg.b0:      # the salt alone moves the first-bounce draws
+        other = shade.pool_step(cfg2, *step, ks, lane_b0=st.lane)
+        assert not torch.equal(other[0], f)
+
+    def inject(salt_, wb_, **kw):
+        plane = st.plane.clone()
+        out = q.queue_inject(cfg, salt_, st.istate[2], f.clone(), i.clone(),
+                             st.work, st.frontier, plane, st.lane, None,
+                             total, wb_, W, H, **kw)
+        return (*out, plane)
+
+    want = inject(salt, wb)
+    other = inject(salt + 1, wb + W * H)
+    got = inject(salt + 1, wb + W * H, words=words)
+    assert not torch.equal(other[0], want[0])
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _queue_render(scene, cam, kern, seed, salt, s0, max_depth=8, spp=16):
+    """(image, census, iterations, replayed, launches by counter) of one
+    QW x QH queue call on a 32768-lane pool with plan_queue's drain
+    ladder."""
+    from tpu_ray_torch.integrator import QueueCounts, trace_queue
+    from tpu_ray_torch.renderer import plan_queue
+    from tpu_ray_torch.utils import profiling
+
+    R, _, epoch_iters, drain = plan_queue(scene, QW, QH, spp, 1 << 15)
+    assert drain == (16384, 4096)
+    c0 = (QueueCounts.vertices, QueueCounts.iterations, QueueCounts.replayed)
+    l0 = profiling.launch_counts()
+    img = trace_queue(scene, cam, QW, QH, spp, s0,
+                      rng.fold_in(rng.prng_key(seed), 0x5EED), max_depth, R,
+                      cam_salt=salt, epoch_iters=epoch_iters,
+                      drain_levels=drain, kern=kern)
+    launches = {k: v - l0[k] for k, v in profiling.launch_counts().items()}
+    return (img, QueueCounts.vertices - c0[0],
+            QueueCounts.iterations - c0[1], QueueCounts.replayed - c0[2],
+            launches)
+
+
+@pytest.fixture
+def queue_plans(monkeypatch):
+    """An empty plan cache and record of keys seen, restored (their plans
+    dropped) afterwards."""
+    from collections import OrderedDict
+
+    from tpu_ray_torch import integrator
+    monkeypatch.setattr(integrator, "_queue_plans", OrderedDict())
+    monkeypatch.setattr(integrator, "_queue_seen", OrderedDict())
+    return integrator._queue_plans
+
+
+@pytest.mark.parametrize("sampler", ["uniform", "sobol-b0"])
+def test_replayed_queue_equals_the_eager_loop(card, sampler, queue_plans,
+                                              monkeypatch):
+    """Three renders of other seeds, camera salts and sample offsets of one
+    shape: the first runs eagerly and makes no plan, the second makes the
+    plan and captures each pool size's epoch at its first epoch there
+    (at this size every pool size runs one epoch, so nothing of the second
+    is replayed), the third replays those graphs for every iteration.  Each render's image,
+    census, iterations and launches by counter equal the same render with
+    no key (every iteration issued on its own), bit for bit, and the
+    second's and third's film plane that render's."""
+    from tpu_ray_torch import integrator
+
+    spec, ps = _build("next-week-final", card)
+    cam = spec.camera(QW, QH).replace(sampler=sampler)
+    kern = SceneKernels.create(ps)
+    runs = []
+    for seed, salt, s0 in ((5, 3, 0), (9, 2 ** 32 - 5, 7), (11, 17, 2)):
+        got = _queue_render(ps, cam, kern, seed, salt, s0)
+        plan = next(iter(queue_plans.values()), None)
+        graphs = plan and [r[2] for r in plan.rungs.values()]
+        plane = plan and plan.plane.clone()
+        with monkeypatch.context() as eager:
+            eager.setattr(integrator, "replay_key", lambda *a, **k: None)
+            made = []
+            init = integrator._queue_init
+            eager.setattr(integrator, "_queue_init",
+                          lambda *a, **k: made.append(init(*a, **k))
+                          or made[-1])
+            want = _queue_render(ps, cam, kern, seed, salt, s0)
+        assert torch.equal(got[0], want[0])
+        assert got[1:3] == want[1:3] and got[1] > 0
+        assert got[4] == want[4] and got[4]["bvh"] == got[2] > 0
+        assert want[3] == 0
+        if plan is not None:
+            assert torch.equal(plane, made[0].plane)
+        runs.append((got, plan, graphs))
+    (first, plan1, _), (second, plan2, graphs2), (third, plan3, graphs3) = \
+        runs
+    assert plan1 is None and first[3] == 0
+    # the full pool's graph and every other one the second render captured
+    # serve the third
+    assert len(queue_plans) == 1 and plan2 is plan3
+    assert graphs2[0] is not None
+    assert all(a is b for a, b in zip(graphs2, graphs3) if a is not None)
+    assert second[3] < second[2] and third[3] == third[2] > 0
+    assert not torch.equal(second[0], third[0])
+
+
+def test_queue_plan_misses_on_a_new_scene_camera_or_depth(card, queue_plans):
+    """A new scene object, another camera or another depth finds no plan:
+    its first render runs eagerly and makes none, its second makes a plan
+    of its own (its first epochs issued one by one); the first shape again
+    replays every iteration."""
+    spec, ps = _build("next-week-final", card)
+    cam = spec.camera(QW, QH)
+    kern = SceneKernels.create(ps)
+    for _ in range(2):
+        _queue_render(ps, cam, kern, 5, 3, 0)
+    assert len(queue_plans) == 1
+    ps2 = spec.build(seed=1024, earth=None).to(card)
+    for scene, camera, depth in ((ps2, cam, 8),
+                                 (ps, spec.camera(2 * QW, QH), 8),
+                                 (ps, cam, 9)):
+        n = len(queue_plans)
+        k = kern if scene is ps else SceneKernels.create(scene)
+        _, _, its, replayed, _ = _queue_render(scene, camera, k, 9, 4, 2,
+                                               max_depth=depth)
+        assert len(queue_plans) == n and replayed == 0
+        _, _, its, replayed, _ = _queue_render(scene, camera, k, 9, 4, 2,
+                                               max_depth=depth)
+        assert len(queue_plans) == n + 1 and replayed < its
+    _, _, its, replayed, _ = _queue_render(ps, cam, kern, 9, 4, 2)
+    assert len(queue_plans) == 4 and replayed == its > 0

@@ -125,6 +125,7 @@ struct Args {
   int n_ss, n_s, n_sb, n_solid;
   float t_min;
   uint32_t kd0, kd1;
+  const RenderWords* words;  // null, or the render's block (its kd_isect)
   const uint32_t* lane_ids;
   int any_transform;
   float margin_b;
@@ -220,7 +221,12 @@ __device__ __forceinline__ bool start(Walker& L, const Args& a, long long i,
   L.base_i = 0u;
   if (a.med != nullptr) {
     L.dlen = sqrtf(L.r.a);
-    L.base_i = fmix(__ldg(a.lane_ids + i) + a.kd0) ^ a.kd1;
+    uint32_t kd0 = a.kd0, kd1 = a.kd1;
+    if (a.words != nullptr) {
+      kd0 = __ldg(a.words->kd_isect);
+      kd1 = __ldg(a.words->kd_isect + 1);
+    }
+    L.base_i = fmix(__ldg(a.lane_ids + i) + kd0) ^ kd1;
   }
   L.bt = INF;
   L.nb = INF;
@@ -556,16 +562,17 @@ static int launch(const Args& a, cudaStream_t st) {
 // 32; INDEX: ops/bvh.py::wide_stack_bound, <= 96); budget: the build's
 // internal nodes an INDEX lane expands before it tests every prim.  rule:
 // 0 VISIT, 1 INDEX.  stats: null, or 12 uint64 counters to add to (the
-// counting instantiation).  Returns the
-// launch's cudaError_t (0 = launched).
+// counting instantiation).  words: null, or a device RenderWords whose
+// kd_isect replace kd0, kd1 (a queue render replayed from a CUDA graph).
+// Returns the launch's cudaError_t (0 = launched).
 extern "C" int tr_bvh(const float* rays, long long R, const float* nodes,
                       const int* order, int n_prims, const float* geo,
                       const float* tab, int n_ss, int n_s, int n_sb,
                       int n_solid, float t_min, unsigned kd0, unsigned kd1,
                       const int* lane_ids, int any_transform, float margin_b,
                       int stack, int budget, int rule,
-                      unsigned long long* stats, float* out_t, int* out_i,
-                      void* stream) {
+                      unsigned long long* stats, const void* words,
+                      float* out_t, int* out_i, void* stream) {
   if (R <= 0) return 0;
   if (R >= (1LL << 31) - (1LL << 24) || stack < 1 ||
       stack > (rule == INDEX ? INDEX_STACK : STACK_DEPTH))
@@ -585,6 +592,7 @@ extern "C" int tr_bvh(const float* rays, long long R, const float* nodes,
   a.t_min = t_min;
   a.kd0 = kd0;
   a.kd1 = kd1;
+  a.words = static_cast<const RenderWords*>(words);
   a.lane_ids = reinterpret_cast<const uint32_t*>(lane_ids);
   a.any_transform = any_transform;
   a.margin_b = margin_b;

@@ -161,7 +161,7 @@ mega_kernel(const StepParams P, const Tables T,
         L.ac = {0.0f, 0.0f, 0.0f};
         L.bounce = 0; L.sample = 0; L.active = 0;
         pool_iteration<SOBOL_ON, false, false, false>(
-            P, T, xs, ys, slot, 0u, 0u, true, 0.0f, 0, L, 0u, 0u);
+            P, T, xs, ys, slot, 0u, 0u, true, 0.0f, 0, L, 0u, 0u, 0u);
         it = 0;
       }
     }
@@ -177,7 +177,7 @@ mega_kernel(const StepParams P, const Tables T,
       mega_sweep(sg, r, n_ss, n_s, n_sb, n_solid, n_prims, T, slot, kw,
                  any_transform, P.t_min, bt, bi);
       pool_iteration<SOBOL_ON, false, false, false>(
-          P, T, xs, ys, slot, kd0, kd1, false, bt, bi, L, 0u, 0u);
+          P, T, xs, ys, slot, kd0, kd1, false, bt, bi, L, 0u, 0u, 0u);
       ++it;
       ++lane_iters;
     }

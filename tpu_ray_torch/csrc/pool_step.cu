@@ -69,8 +69,13 @@
 
 // SOBOL_ON / STRICT_ON / FANCY_ON / B0_ON: the flag bits SAMPLER_SOBOL /
 // STRICT / HAS_CHECKER_FANCY / SAMPLER_B0 of P.flags, which the C entries
-// turn into the instantiation they launch; only B0_ON reads lane_b0
-template <bool SOBOL_ON, bool STRICT_ON, bool FANCY_ON, bool B0_ON>
+// turn into the instantiation they launch; only B0_ON reads lane_b0.
+// WORDS_ON: the C entry was given a render's word block (RenderWords), whose
+// kd_scat and, under B0_ON, cam_salt replace P's key words and the salt of
+// the first-bounce draws; only WORDS_ON reads words, so the instantiations
+// launched without a block are the ones launched before there was one
+template <bool SOBOL_ON, bool STRICT_ON, bool FANCY_ON, bool B0_ON,
+          bool WORDS_ON>
 __global__ void __launch_bounds__(THREADS)
 pool_step_kernel(const StepParams P, const Tables T,
                  const float* __restrict__ xy,
@@ -79,6 +84,7 @@ pool_step_kernel(const StepParams P, const Tables T,
                  const float* __restrict__ best_t,
                  const int* __restrict__ best_i,
                  const uint32_t* __restrict__ lane_b0,
+                 const RenderWords* __restrict__ words,
                  float* __restrict__ fout, int* __restrict__ iout,
                  long long R) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -103,8 +109,15 @@ pool_step_kernel(const StepParams P, const Tables T,
       gs = lane_b0[R + i];
     }
   }
+  uint32_t kd0 = P.kd0, kd1 = P.kd1, b0_salt = P.cam_salt;
+  if (WORDS_ON) {
+    kd0 = words->kd_scat[0];
+    kd1 = words->kd_scat[1];
+    if (B0_ON) b0_salt = words->cam_salt;
+  }
   pool_iteration<SOBOL_ON, STRICT_ON, FANCY_ON, B0_ON>(
-      P, T, xs, ys, slot, P.kd0, P.kd1, P.init != 0, t, idx, L, pix, gs);
+      P, T, xs, ys, slot, kd0, kd1, P.init != 0, t, idx, L, pix, gs,
+      b0_salt);
   const V3 o = L.o, d = L.d, tp = L.tp, ac = L.ac;
   const float tm = L.tm;
   const int bounce = L.bounce, sample = L.sample, active = L.active;
@@ -156,16 +169,25 @@ hit_scatter_kernel(const StepParams P, const Tables T,
 
 typedef void (*StepKernel)(const StepParams, const Tables, const float*,
                            const uint32_t*, const float*, const int*,
-                           const float*, const int*, const uint32_t*, float*,
-                           int*, long long);
+                           const float*, const int*, const uint32_t*,
+                           const RenderWords*, float*, int*, long long);
 
 // the step's instantiation for P.flags: B0 only with the Sobol' camera (the
-// queue's sobol-b0), so twelve in all
-template <bool STRICT_ON, bool FANCY_ON>
+// queue's sobol-b0), so twelve in all, each with and without a word block
+template <bool STRICT_ON, bool FANCY_ON, bool WORDS_ON>
 static StepKernel step_for(bool sobol, bool b0) {
-  if (b0) return pool_step_kernel<true, STRICT_ON, FANCY_ON, true>;
-  return sobol ? pool_step_kernel<true, STRICT_ON, FANCY_ON, false>
-               : pool_step_kernel<false, STRICT_ON, FANCY_ON, false>;
+  if (b0) return pool_step_kernel<true, STRICT_ON, FANCY_ON, true, WORDS_ON>;
+  return sobol
+             ? pool_step_kernel<true, STRICT_ON, FANCY_ON, false, WORDS_ON>
+             : pool_step_kernel<false, STRICT_ON, FANCY_ON, false, WORDS_ON>;
+}
+
+template <bool WORDS_ON>
+static StepKernel step_kernel(bool strict, bool fancy, bool sobol, bool b0) {
+  return strict ? (fancy ? step_for<true, true, WORDS_ON>(sobol, b0)
+                         : step_for<true, false, WORDS_ON>(sobol, b0))
+                : (fancy ? step_for<false, true, WORDS_ON>(sobol, b0)
+                         : step_for<false, false, WORDS_ON>(sobol, b0));
 }
 
 // xy (2, R) f32, slot (R) u32, fin (13, R) f32, iin (3, R) i32, best_t (R)
@@ -174,7 +196,11 @@ static StepKernel step_for(bool sobol, bool b0) {
 // (P, 3, 256) i32, ranvec (P, 256, 3) f32, texrow (T, 8) f32, kids (M, 2)
 // i32, lane_b0 (2, R) u32 each lane's pixel and global sample (read with
 // SAMPLER_B0 only; may be null else), params: host pointer to the
-// StepParams words; fout/iout like fin/iin.  Returns the launch's
+// StepParams words; words: null, or a device RenderWords whose kd_scat and
+// cam_salt replace the params' kd0, kd1 and, in the sobol-b0 step's
+// first-bounce draws, cam_salt (a queue render replayed from a CUDA graph,
+// whose step never regenerates a camera ray: n_samples = 0); fout/iout like
+// fin/iin.  Returns the launch's
 // cudaError_t (0 = launched; cudaErrorInvalidValue for SAMPLER_B0 without
 // the Sobol' camera or lane_b0).
 extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
@@ -186,8 +212,8 @@ extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
                             const int* perm, const float* ranvec,
                             const float* texrow, const int* kids,
                             const uint32_t* lane_b0,
-                            const void* params, float* fout, int* iout,
-                            long long R,
+                            const void* params, const void* words,
+                            float* fout, int* iout, long long R,
                             void* stream) {
   if (R <= 0) return 0;
   StepParams P;
@@ -201,12 +227,11 @@ extern "C" int tr_pool_step(const float* xy, const uint32_t* slot,
   const bool b0 = (P.flags & SAMPLER_B0) != 0;
   if (b0 && (!sobol || lane_b0 == nullptr)) return (int)cudaErrorInvalidValue;
   const StepKernel kernel =
-      strict ? (fancy ? step_for<true, true>(sobol, b0)
-                      : step_for<true, false>(sobol, b0))
-             : (fancy ? step_for<false, true>(sobol, b0)
-                      : step_for<false, false>(sobol, b0));
+      words != nullptr ? step_kernel<true>(strict, fancy, sobol, b0)
+                       : step_kernel<false>(strict, fancy, sobol, b0);
   kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      P, T, xy, slot, fin, iin, best_t, best_i, lane_b0, fout, iout, R);
+      P, T, xy, slot, fin, iin, best_t, best_i, lane_b0,
+      static_cast<const RenderWords*>(words), fout, iout, R);
   return (int)cudaGetLastError();
 }
 

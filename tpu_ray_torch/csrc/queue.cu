@@ -69,10 +69,12 @@
 
 __global__ void __launch_bounds__(256)
 path_ids_kernel(const long long* __restrict__ work,
-                const int* __restrict__ bounce, uint32_t id0, long long m,
+                const int* __restrict__ bounce, uint32_t id0,
+                const RenderWords* __restrict__ words, long long m,
                 int* __restrict__ sid) {
   const long long l = (long long)blockIdx.x * 256 + threadIdx.x;
   if (l >= m) return;
+  if (words != nullptr) id0 = words->id0;
   const uint32_t a = (uint32_t)work[l] + id0;
   const uint32_t b = (uint32_t)bounce[l];
   sid[l] = (int)(fmix(a + 0x9E3779B9u) ^ (b * 0x85EBCA6Bu));
@@ -100,6 +102,7 @@ struct InjectArgs {
   long long* frontier_out;
   int* lane_out;
   long long* census;        // () path vertices, or null
+  const RenderWords* words; // null, or the render's block (cam_salt, gs0)
   float cam[21];
   float inv_w, inv_h;
   long long total, gs0, P, m, plane_cols, n_blocks;
@@ -183,9 +186,15 @@ __global__ void __launch_bounds__(QUEUE_THREADS) inject_kernel(InjectArgs A) {
     const long long w = fr + rank;
     valid = w < A.total;
     if (valid) {
+      uint32_t cam_salt = A.cam_salt;
+      long long gs0 = A.gs0;
+      if (A.words != nullptr) {
+        cam_salt = A.words->cam_salt;
+        gs0 = A.words->gs0;
+      }
       if (A.worklist == nullptr) {
         pix = w % A.P;
-        gs = (A.gs0 + w / A.P) & 0xFFFFFFFFLL;
+        gs = (gs0 + w / A.P) & 0xFFFFFFFFLL;
       } else {
         const long long packed = A.worklist[w];
         pix = packed >> WL_SAMP_BITS;
@@ -193,10 +202,10 @@ __global__ void __launch_bounds__(QUEUE_THREADS) inject_kernel(InjectArgs A) {
       }
       float u[5];
       if (A.sobol) {
-        sobol_camera((uint32_t)pix, (uint32_t)gs, A.cam_salt, u);
+        sobol_camera((uint32_t)pix, (uint32_t)gs, cam_salt, u);
       } else {
         const uint32_t cb = fmix((uint32_t)pix + 0x9E3779B9u) ^
-                            (((uint32_t)gs ^ A.cam_salt) * 0x85EBCA6Bu);
+                            (((uint32_t)gs ^ cam_salt) * 0x85EBCA6Bu);
         for (int k = 0; k < 5; ++k) u[k] = hash_col(cb, (uint32_t)k);
       }
       const float* c = A.cam;
@@ -229,13 +238,16 @@ __global__ void __launch_bounds__(QUEUE_THREADS) inject_kernel(InjectArgs A) {
 }
 
 // work: (m,) int64 work items; bounce: (m,) int32; id0: the first global
-// work id's low 32 bits; sid: (m,) int32 out.  Returns the launch's
-// cudaError_t (0 = launched).
+// work id's low 32 bits; words: null, or a device RenderWords whose id0
+// replaces id0 (a queue render replayed from a CUDA graph); sid: (m,) int32
+// out.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int tr_path_ids(const long long* work, const int* bounce,
-                           unsigned id0, long long m, int* sid, void* stream) {
+                           unsigned id0, const void* words, long long m,
+                           int* sid, void* stream) {
   if (m <= 0) return 0;
   path_ids_kernel<<<(unsigned)((m + 255) / 256), 256, 0,
-                    (cudaStream_t)stream>>>(work, bounce, id0, m, sid);
+                    (cudaStream_t)stream>>>(
+      work, bounce, id0, static_cast<const RenderWords*>(words), m, sid);
   return (int)cudaGetLastError();
 }
 
@@ -246,8 +258,10 @@ extern "C" int tr_path_ids(const long long* work, const int* bounce,
 // entries or null; counts: (ceil(m / 1024),) int32 scratch; work_out,
 // frontier_out, lane_out: the new work items, frontier and record; census:
 // () int64 path vertices, in place, or null; cam: host pointer to the 21
-// camera floats (Camera.vec).  Returns the first
-// failed launch's cudaError_t (0 = both launched).
+// camera floats (Camera.vec); words: null, or a device RenderWords whose
+// cam_salt and gs0 replace cam_salt and work_base / (W * H) (a queue render
+// replayed from a CUDA graph).  Returns the first failed launch's
+// cudaError_t (0 = both launched).
 extern "C" int tr_queue_inject(
     const int* active0, float* f, int* i, const long long* work,
     const long long* frontier, float* plane, const int* lane,
@@ -256,7 +270,7 @@ extern "C" int tr_queue_inject(
     const float* cam, float inv_w,
     float inv_h, long long total, long long work_base, int width, int height,
     unsigned cam_salt, int sobol, int b0, long long m, long long plane_cols,
-    void* stream) {
+    const void* words, void* stream) {
   if (m <= 0) return 0;
   const long long n_blocks = (m + QUEUE_THREADS - 1) / QUEUE_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
@@ -276,6 +290,7 @@ extern "C" int tr_queue_inject(
   A.plane_cols = plane_cols; A.n_blocks = n_blocks;
   A.width = width; A.height = height; A.sobol = sobol; A.b0 = b0;
   A.cam_salt = cam_salt;
+  A.words = static_cast<const RenderWords*>(words);
   inject_kernel<<<(unsigned)n_blocks, QUEUE_THREADS, 0, s>>>(A);
   return (int)cudaGetLastError();
 }

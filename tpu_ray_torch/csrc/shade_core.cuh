@@ -63,6 +63,22 @@ struct StepParams {
 static_assert(sizeof(StepParams) == 4 * (24 + 15),
               "StepParams layout");
 
+// The words of a work-queue render that change from one render to the next
+// while everything else of its iterations stays: a render replayed from
+// CUDA graphs (tpu_ray_torch/integrator.py::QueuePlan) writes them into one
+// block on the device before its first replay, and the kernels it replays
+// read them from there, where their by-value arguments would stay frozen at
+// the capture's.  Layout mirrored by tpu_ray_torch/ops/queue.py::
+// render_words.  A null block pointer: the by-value arguments, as ever.
+struct RenderWords {
+  uint32_t kd_isect[2];  // tr_bvh's kd0, kd1 (the media draws)
+  uint32_t kd_scat[2];   // tr_pool_step's StepParams kd0, kd1
+  uint32_t cam_salt;     // tr_queue_inject's; the sobol-b0 step's P.cam_salt
+  uint32_t id0;          // tr_path_ids' id0
+  long long gs0;         // tr_queue_inject's work_base / (W * H)
+};
+static_assert(sizeof(RenderWords) == 32, "RenderWords layout");
+
 #define TWO_PI 6.28318548202514648f      // float32(2 pi)
 #define INV_PI 0.31830987334251404f      // float32(1 / pi)
 #define RR_PMIN 0.05000000074505806f     // float32(0.05)
@@ -565,12 +581,15 @@ struct Lane {
 // where the path died (rng.hash_uniforms2 + camera.rays_from_uniforms).
 // ``init`` runs the regeneration alone, for every lane.  With B0_ON a lane
 // at bounce 0 takes its light and cosine scatter draws from Sobol' dims
-// 7-10 of (b0_pix, b0_gs) under P.cam_salt (the queue's sobol-b0).
+// 7-10 of (b0_pix, b0_gs) under b0_salt (the queue's sobol-b0).  The key
+// words (kd0, kd1) and b0_salt come as arguments, P's (P.cam_salt) or a
+// render block's (RenderWords); the camera regeneration, which the queue
+// never runs (n_samples = 0), reads P.cam_salt.
 template <bool SOBOL_ON, bool STRICT_ON, bool FANCY_ON, bool B0_ON>
 __device__ __forceinline__ void pool_iteration(
     const StepParams& P, const Tables& T, float xs, float ys, uint32_t slot,
     uint32_t kd0, uint32_t kd1, bool init, float t, int idx, Lane& L,
-    uint32_t b0_pix, uint32_t b0_gs) {
+    uint32_t b0_pix, uint32_t b0_gs, uint32_t b0_salt) {
   V3 o = L.o, d = L.d, tp = L.tp, ac = L.ac;
   float tm = L.tm;
   int bounce = L.bounce, sample = L.sample;
@@ -592,7 +611,7 @@ __device__ __forceinline__ void pool_iteration(
     if (hit) {
       float q[4];
       const bool first = B0_ON && bounce == 0;
-      if (first) sobol_bounce0(b0_pix, b0_gs, P.cam_salt, q);
+      if (first) sobol_bounce0(b0_pix, b0_gs, b0_salt, q);
       const Shade s = shade_core<STRICT_ON, FANCY_ON, B0_ON>(
           P, T, o, d, tm, t, idx, slot, kd0, kd1, first, q);
       p = s.p;

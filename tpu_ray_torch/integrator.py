@@ -44,7 +44,9 @@ fixed order.  So the image is bit-identical for any lane count, epoch
 length, drain ladder and sample chunking.  The JAX package's radiance
 log, position map and lagged counter reads served a TPU's slow scatters
 and a remote worker's round trip; here the plane is written directly and
-the counters are read once per epoch.  In worklist mode (adaptive
+the counters are read once per epoch.  On the card a render whose shape
+repeats runs each epoch as one replay of a CUDA graph kept across renders
+(:class:`QueuePlan`, :func:`replay_key`).  In worklist mode (adaptive
 sampling, :mod:`tpu_ray_torch.adaptive`) the work items come from a packed
 list of (pixel, absolute sample) entries, and the plane is reduced per
 pixel into radiance sums and square sums.  :func:`trace_queue_mesh` and
@@ -54,6 +56,8 @@ out over the devices of a mesh (:mod:`tpu_ray_torch.parallel.mesh`).
 from __future__ import annotations
 
 import weakref
+from collections import OrderedDict
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -73,6 +77,7 @@ from .ops.shade import (N_FSTATE, N_ISTATE, RR_COL, RR_PMIN, StepConfig,
 from .ops.sweep import (MxuPack, SweepBlocks, mxu_pack, sweep_blocks,
                         sweep_table, use_mask_cull, use_mxu, use_sort)
 from .parallel import mesh as mesh_mod
+from .utils import profiling
 from .utils.profiling import span
 
 # compaction ladder (integrator.py COMPACT_* constants, kept identical:
@@ -213,11 +218,15 @@ class SceneKernels:
                    masked=sort and use_mask_cull(),
                    mxu=mxu_pack(geo, 0, n_ss) if mxu and n_ss > 0 else None)
 
-    def intersect(self, scene: SceneData, rays, kd, lane_ids):
+    def intersect(self, scene: SceneData, rays, kd, lane_ids, words=None):
         """The closest hits with this render's tables: BVH traversal when
-        ``bvh`` is set, else :func:`intersect_ti`."""
+        ``bvh`` is set, else :func:`intersect_ti`.  ``words``: a queue
+        render's block on the card (:func:`intersect_bvh`), for the BVH
+        only."""
         if self.bvh is not None:
-            return intersect_bvh(scene, self.bvh, rays, kd, lane_ids)
+            return intersect_bvh(scene, self.bvh, rays, kd, lane_ids, words)
+        if words is not None and rays.is_cuda:
+            raise ValueError("render words go with the BVH traversal only")
         return intersect_ti(scene, rays, kd, lane_ids, self.geo, self.media,
                             self.blocks, self.masked, self.mxu)
 
@@ -397,7 +406,9 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
                kern: SceneKernels, k_isect, k_scat, cam_salt: int,
                work_base: int, total: int, width: int, height: int,
                worklist: torch.Tensor | None = None,
-               work_id0: int | None = None) -> QueueState:
+               work_id0: int | None = None, out: QueueState | None = None,
+               words: torch.Tensor | None = None,
+               xy: torch.Tensor | None = None) -> QueueState:
     """One queue iteration: trace + fused step + flush dead + inject fresh.
 
     ``cfg`` is a step configuration with ``n_samples = 0`` (the step
@@ -409,26 +420,52 @@ def queue_body(st: QueueState, scene: SceneData, cfg: StepConfig,
     uniform work map: item w renders pixel ``worklist[w] >> WL_SAMP_BITS``
     at absolute sample ``worklist[w] & WL_SAMP_MASK``; path ids stay keyed
     by ``w + work_base``, or by ``w + work_id0`` when that is given (a
-    mesh shard's first global work id, ``trace_queue_wl_mesh``)."""
+    mesh shard's first global work id, ``trace_queue_wl_mesh``).
+
+    ``out``: a second state of the same size, whose lanes, work items,
+    frontier and record take the iteration's result in place of fresh
+    tensors (the plane and the census are shared); ``words``: the render's
+    block (``ops/queue.py::render_words``) on the card, from which the
+    kernels read the key words, the camera salt, the first work id and
+    the first global sample (:class:`QueuePlan`'s replays); ``xy``: the
+    step's (2, m) zero pixel bases, made here when omitted."""
     m = st.work.shape[0]
     dev = st.work.device
     id0 = work_base if work_id0 is None else work_id0
-    sid = queue_ops.path_ids(st.work, id0, st.istate[0])
-    bt, bi = kern.intersect(scene, st.fstate[:7], k_isect, sid)
-    zeros2 = torch.zeros((2, m), dtype=torch.float32, device=dev)
-    f, i = pool_step(cfg, zeros2, sid, st.fstate, st.istate, bt, bi, k_scat,
-                     lane_b0=st.lane)
+    # the block and the buffers go to the wrappers only when given, so a
+    # wrapper's plain twin swapped in for it keeps working
+    kw = {} if words is None else {"words": words}
+    step_kw, inject_kw = dict(kw), dict(kw)
+    if out is not None:
+        step_kw["out"] = (out.fstate, out.istate)
+        inject_kw["out"] = (out.work, out.frontier, out.lane)
+    sid = queue_ops.path_ids(st.work, id0, st.istate[0], **kw)
+    bt, bi = kern.intersect(scene, st.fstate[:7], k_isect, sid, **kw)
+    if xy is None:
+        xy = torch.zeros((2, m), dtype=torch.float32, device=dev)
+    f, i = pool_step(cfg, xy, sid, st.fstate, st.istate, bt, bi, k_scat,
+                     lane_b0=st.lane, **step_kw)
     f, i, work, frontier, lane = queue_ops.queue_inject(
         cfg, cam_salt, st.istate[2], f, i, st.work, st.frontier, st.plane,
-        st.lane, worklist, total, work_base, width, height, census=st.census)
+        st.lane, worklist, total, work_base, width, height, census=st.census,
+        **inject_kw)
     return QueueState(f, i, work, frontier, st.plane, lane, st.census)
 
 
-def queue_compact(st: QueueState, m: int) -> QueueState:
+def queue_compact(st: QueueState, m: int,
+                  out: QueueState | None = None) -> QueueState:
     """Drain-ladder compaction: gather the ``m`` most-active lanes (a stable
-    argsort keeps the work order)."""
+    argsort keeps the work order), into ``out``'s lanes when given (an
+    ``m``-lane state sharing ``st``'s frontier, plane and census)."""
     order = torch.argsort((st.istate[2] == 0).to(torch.int32),
                           stable=True)[:m]
+    if out is not None:
+        torch.index_select(st.fstate, 1, order, out=out.fstate)
+        torch.index_select(st.istate, 1, order, out=out.istate)
+        torch.index_select(st.work, 0, order, out=out.work)
+        if st.lane is not None:
+            torch.index_select(st.lane, 1, order, out=out.lane)
+        return out
     return QueueState(st.fstate[:, order].contiguous(),
                       st.istate[:, order].contiguous(), st.work[order],
                       st.frontier, st.plane,
@@ -442,12 +479,223 @@ class QueueCounts:
     over iterations of the lanes active at the closest hit, as
     ``tools/count_rays.py`` counts: the same for any lane count, epoch
     length and drain ladder); lane slots, the pool size summed over every
-    dispatched iteration.  Class attributes, so a caller that wraps
-    ``trace_queue`` leaves them counting."""
+    dispatched iteration; iterations dispatched, and of them those run by
+    an epoch's replay (:class:`QueuePlan`).  Class attributes, so a caller
+    that wraps ``trace_queue`` leaves them counting."""
 
     calls = 0
     vertices = 0
     lane_slots = 0
+    iterations = 0
+    replayed = 0
+
+
+# --- the work queue's epochs as CUDA graphs ----------------------------------
+#
+# Issued from Python, an iteration costs the host ~8 launches through ctypes
+# and their allocations (0.34-0.50 ms), about what the card needs for one at
+# 1M lanes and far more than it needs on the drain's smaller pools, so the
+# card waits for the host.  A plan keeps, for one shape of render, the
+# queue's state in fixed buffers (two a pool size, which the iterations of
+# an epoch write in turn) and one CUDA graph a pool size of an epoch's
+# iterations; the host then issues one replay an epoch.  What changes from
+# render to render without changing the shape (the key words, the camera
+# salt, the first work id and sample) lives in a word block on the card
+# that the kernels read.  The reads, the exit test, the compactions and the
+# schedule stay as they are, so the image and the census are those of the
+# eager loop, bit for bit.  A shape's first render runs eagerly, with no
+# plan; its second makes the plan, so a shape rendered once (a single CLI
+# render, a scene object made for one request) captures nothing and holds
+# no buffers.
+
+# plans the cache keeps, the least recently used dropped first (a plan holds
+# its film plane and two states a pool size: ~0.5 GB at 400x400 100 spp and
+# 1M lanes)
+QUEUE_PLANS = 4
+_queue_plans: OrderedDict = OrderedDict()
+# keys rendered once with no plan, the oldest forgotten first
+_queue_seen: OrderedDict = OrderedDict()
+
+
+def replay_key(scene: SceneData, kern: SceneKernels, camera, width: int,
+               height: int, max_depth: int, rr_depth: int, total: int,
+               R: int, drain_levels, epoch_iters: int, worklist=None,
+               mesh_share: bool = False):
+    """The plan cache's key of a :func:`trace_queue` call (whose plans
+    are made on the card only), or None where the call runs its
+    iterations eagerly: with a worklist
+    (adaptive rounds, whose lists and counts change every round), on a
+    mesh's share, and where the closest hit's tables are made anew for
+    each render (every intersect but the route's, whose tables
+    ``_index_tables`` keeps per scene object), so a key would never repeat.
+    The key holds what the captured launches read that a render cannot
+    change in its word block: the device, the scene object and its tables
+    (kept alive by the plan, so their ids are not reused), the inputs of
+    ``StepConfig.create`` (the camera's words and sampler, the size, the
+    depths), the work count, the pool sizes and the epoch length.  Seeds,
+    camera salts and sample offsets are not in it."""
+    if worklist is not None or mesh_share or kern.bvh is None:
+        return None
+    kept = _route_tables.get(id(scene))
+    if kept is None or kept[0]() is not scene or kept[1] is not kern.bvh:
+        return None
+    return (str(scene.device), id(scene), id(kern.bvh), camera.sampler,
+            np.asarray(camera.vec(), np.float32).tobytes(), int(width),
+            int(height), int(max_depth), int(rr_depth), int(total), int(R),
+            tuple(int(m) for m in drain_levels), int(epoch_iters))
+
+
+class QueuePlan:
+    """One shape of work-queue render on the card, kept across renders: the
+    queue's state in fixed buffers and each pool size's epoch as a CUDA
+    graph.
+
+    ``rungs[m]`` is (a, b, graph, launches) for pool size ``m`` (``R``,
+    then the drain levels): two ``m``-lane states sharing one frontier
+    cell pair, the census and the film plane.  An epoch runs its
+    iterations from a to b, b to a and so on (with an odd count the last
+    result is copied back), so it starts and ends in a, where the epoch's
+    read finds it.  A size's first epoch runs eagerly (it loads every
+    kernel in the form the graph launches), and is then captured without
+    running; later epochs replay the capture.  The graphs read the plan's
+    word block (:meth:`start` writes it), so one capture serves renders of
+    any seed.  The kernels' launch counters count what runs: a capture
+    leaves them as they were, and each replay adds the launches it holds
+    (``launches``, by counter).  The plan holds the scene, its tables and
+    the step configuration, whose tensors the graphs read."""
+
+    def __init__(self, scene: SceneData, kern: SceneKernels, cfg: StepConfig,
+                 width: int, height: int, total: int, R: int, drain_levels,
+                 epoch_iters: int):
+        dev = scene.device
+        self.scene, self.kern, self.cfg = scene, kern, cfg
+        self.width, self.height, self.total = width, height, total
+        self.R, self.epoch_iters = R, epoch_iters
+        self.words = torch.zeros((4,), dtype=torch.int64, device=dev)
+        # the frontier, the census cell, the frontier's second buffer
+        self.counters = torch.zeros((3,), dtype=torch.int64, device=dev)
+        self.plane = torch.zeros((3, total + 1), dtype=torch.float32,
+                                 device=dev)
+        self.xy = torch.zeros((2 * R,), dtype=torch.float32, device=dev)
+        self.side = torch.cuda.Stream(dev)
+        self.rungs = {}
+        for m in (R, *drain_levels):
+            a, b = (QueueState(
+                fstate=torch.empty((N_FSTATE, m), dtype=torch.float32,
+                                   device=dev),
+                istate=torch.empty((N_ISTATE, m), dtype=torch.int32,
+                                   device=dev),
+                work=torch.empty((m,), dtype=torch.int64, device=dev),
+                frontier=self.counters[k], plane=self.plane,
+                lane=(torch.empty((2, m), dtype=torch.int32, device=dev)
+                      if cfg.b0 else None),
+                census=self.counters[1]) for k in (0, 2))
+            self.rungs[m] = [a, b, None, None]
+        self.args = None
+
+    def start(self, k_isect, k_scat, cam_salt: int, work_base: int,
+              id0: int) -> QueueState:
+        """A render's fresh lanes (``_queue_init``'s) in the full pool's
+        buffers, a zero plane and counters, and its word block written to
+        the card (the eager epochs pass the same words by value too)."""
+        self.args = (k_isect, k_scat, cam_salt, work_base, id0)
+        st = self.rungs[self.R][0]
+        st.fstate.zero_()
+        st.fstate[3:6] = 1.0
+        st.fstate[7:10] = 1.0
+        st.istate.zero_()
+        st.work.fill_(self.total)
+        if st.lane is not None:
+            st.lane.zero_()
+        self.counters.zero_()
+        self.plane.zero_()
+        words = queue_ops.render_words(k_isect, k_scat, cam_salt, id0,
+                                       work_base // (self.width * self.height))
+        self.words.copy_(torch.from_numpy(words))
+        return st
+
+    def compact(self, st: QueueState, m: int) -> QueueState:
+        """:func:`queue_compact` into pool size ``m``'s buffers."""
+        return queue_compact(st, m, out=self.rungs[m][0])
+
+    def epoch(self, m: int) -> bool:
+        """One epoch on pool size ``m``'s state: its graph's replay under
+        one span ``queue.iteration`` (True), or at the size's first epoch
+        the iterations issued one by one, each under its span, then the
+        capture (False)."""
+        rung = self.rungs[m]
+        if rung[2] is not None:
+            with span("queue.iteration"):
+                rung[2].replay()
+            profiling.add_launches(rung[3])
+            return True
+        self._iterate(rung[0], rung[1], spans=True)
+        rung[2], rung[3] = self._capture(rung[0], rung[1])
+        return False
+
+    def _capture(self, a: QueueState, b: QueueState):
+        """A graph of one epoch from ``a``, captured on the plan's side
+        stream and not run, and the launches it holds by counter, which
+        are taken back off the counters.  ``torch.cuda.graph`` would also
+        synchronize, collect and empty the allocator's cache at every
+        capture, which this capture does not need: it allocates from the
+        graph's own pool and runs nothing."""
+        before = profiling.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.side):
+            graph.capture_begin()
+            try:
+                self._iterate(a, b, spans=False)
+            finally:
+                graph.capture_end()
+        held = {k: v - before[k]
+                for k, v in profiling.launch_counts().items()}
+        profiling.add_launches({k: -v for k, v in held.items()})
+        return graph, held
+
+    def _iterate(self, a: QueueState, b: QueueState, spans: bool) -> None:
+        k_isect, k_scat, cam_salt, work_base, id0 = self.args
+        m = a.work.shape[0]
+        xy = self.xy[:2 * m].view(2, m)
+        src, dst = a, b
+        for _ in range(self.epoch_iters):
+            with span("queue.iteration") if spans else nullcontext():
+                src, dst = queue_body(
+                    src, self.scene, self.cfg, self.kern, k_isect, k_scat,
+                    cam_salt, work_base, self.total, self.width, self.height,
+                    work_id0=id0, out=dst, words=self.words, xy=xy), src
+        if self.epoch_iters % 2:
+            for x, y in ((a.fstate, b.fstate), (a.istate, b.istate),
+                         (a.work, b.work), (a.frontier, b.frontier),
+                         (a.lane, b.lane)):
+                if x is not None:
+                    x.copy_(y)
+
+
+def _queue_plan(key):
+    """The cached plan of ``key`` (now the most recently used), or None."""
+    plan = None if key is None else _queue_plans.get(key)
+    if plan is not None:
+        _queue_plans.move_to_end(key)
+    return plan
+
+
+def _new_plan(key, make):
+    """At ``key``'s second render with no plan cached, the plan ``make()``
+    gives, cached (the cache keeps ``QUEUE_PLANS``, the least recently used
+    dropped first); None at its first, or with no key: that render runs
+    eagerly."""
+    if key is None:
+        return None
+    if _queue_seen.pop(key, None) is None:
+        _queue_seen[key] = True
+        while len(_queue_seen) > 4 * QUEUE_PLANS:
+            _queue_seen.popitem(last=False)
+        return None
+    plan = _queue_plans[key] = make()
+    while len(_queue_plans) > QUEUE_PLANS:
+        _queue_plans.popitem(last=False)
+    return plan
 
 
 def trace_queue(scene: SceneData, camera, width: int, height: int,
@@ -456,7 +704,7 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
                 progress_cb=None, rr_depth: int = 0, worklist=None,
                 n_work=None, wl_block_pix=None,
                 kern: SceneKernels | None = None, work_id0: int | None = None,
-                phase=None):
+                phase=None, mesh_share: bool = False):
     """Render ``width * height * chunk_spp`` camera samples with a work-queue
     pool of ``R`` lanes; returns the (H*W, 3) radiance sum over the chunk's
     samples.
@@ -475,7 +723,18 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
     ``render.finish`` after the last.
 
     Each call adds to :class:`QueueCounts` its path vertices (its census
-    cell, read with the counters once an epoch) and its lane slots.
+    cell, read with the counters once an epoch), its lane slots and its
+    iterations, and of those the ones a replay ran.
+
+    On the card, where :func:`replay_key` gives a key (a render without a
+    worklist, outside a mesh, whose closest hit takes the route's tables)
+    and a :class:`QueuePlan` of that key is cached, the iterations run
+    from it: one graph replay an epoch, and no step configuration made.
+    A key's first render issues every iteration on its own, and its second
+    makes the plan; a call with no key, or off the card, issues every
+    iteration on its own.  Both give the same image and census, bit for
+    bit.  ``mesh_share``: the call renders one device's share of a mesh
+    render (:func:`trace_queue_mesh`, :func:`trace_queue_wl_mesh`).
 
     With ``worklist`` ((Wl,) int64 packed (pixel, absolute sample) entries
     on the scene's device, adaptive sampling) the work map comes from the
@@ -509,21 +768,37 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
     if kern is None:
         with span("render.kernels"):
             kern = SceneKernels.create(scene)
-    # n_samples = 0: the step kernel never regenerates a camera ray; the
-    # camera salt keys the sobol-b0 step's first-bounce draws
-    with span("render.step_config"):
-        cfg = StepConfig.create(scene, camera, width, height, max_depth,
-                                rr_depth=rr_depth, n_samples=0,
-                                cam_salt=cam_salt, queue=True)
     with span("render.plan"):
         key = np.asarray(key, np.uint32)
         k_isect, k_scat = rng.fold_in(key, 0), rng.fold_in(key, 1)
         work_base = (int(chunk_s0) & rng.M32) * P
         epoch_iters = max(1, int(epoch_iters))
-        max_epochs = 21 + (total // max(R, 1) + chunk_spp * cfg.max_depth
-                           + 2 * cfg.max_depth) // epoch_iters * 4
+        max_epochs = 21 + (total // max(R, 1) + chunk_spp * int(max_depth)
+                           + 2 * int(max_depth)) // epoch_iters * 4
+        drain_levels = tuple(drain_levels)
+        shape = replay_key(scene, kern, camera, width, height, max_depth,
+                           rr_depth, total, R, drain_levels, epoch_iters,
+                           worklist, mesh_share)
+        plan = _queue_plan(shape)
+    if plan is None:
+        # n_samples = 0: the step kernel never regenerates a camera ray; the
+        # camera salt keys the sobol-b0 step's first-bounce draws
+        with span("render.step_config"):
+            cfg = StepConfig.create(scene, camera, width, height, max_depth,
+                                    rr_depth=rr_depth, n_samples=0,
+                                    cam_salt=cam_salt, queue=True)
+        if dev.type == "cuda":      # graphs are the card's; no plan elsewhere
+            plan = _new_plan(shape, lambda: QueuePlan(
+                scene, kern, cfg, width, height, total, R, drain_levels,
+                epoch_iters))
+    else:
+        cfg = plan.cfg
     with span("queue.init"):
-        st = _queue_init(R, total, dev, pad, cfg.b0)
+        if plan is None:
+            st = _queue_init(R, total, dev, pad, cfg.b0)
+        else:
+            st = plan.start(k_isect, k_scat, cam_salt, work_base,
+                            work_base if work_id0 is None else work_id0)
     vertices = 0
 
     def run(st: QueueState, threshold: int) -> QueueState:
@@ -537,6 +812,11 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
                 if frontier >= total and n_active <= threshold:
                     return st
             QueueCounts.lane_slots += epoch_iters * st.work.shape[0]
+            QueueCounts.iterations += epoch_iters
+            if plan is not None:
+                if plan.epoch(st.work.shape[0]):
+                    QueueCounts.replayed += epoch_iters
+                continue
             for _ in range(epoch_iters):
                 with span("queue.iteration"):
                     st = queue_body(st, scene, cfg, kern, k_isect, k_scat,
@@ -549,7 +829,7 @@ def trace_queue(scene: SceneData, camera, width: int, height: int,
     st = run(st, drain_levels[0] if drain_levels else 0)
     for li, m in enumerate(drain_levels):
         with span("queue.compact"):
-            st = queue_compact(st, m)
+            st = queue_compact(st, m) if plan is None else plan.compact(st, m)
         st = run(st, drain_levels[li + 1] if li + 1 < len(drain_levels) else 0)
     if phase is not None:
         phase.begin("render.finish")
@@ -607,7 +887,7 @@ def trace_queue_mesh(scenes, camera, width: int, height: int, chunk_spp: int,
             parts.append(trace_queue(
                 scenes[dev], camera, width, height, spp_d,
                 chunk_s0 + d * spp_d, key, max_depth, R, progress_cb=cb,
-                kern=kerns[dev], **kw))
+                kern=kerns[dev], mesh_share=True, **kw))
     return mesh_mod.reduce_films(parts, mesh)
 
 
@@ -649,7 +929,7 @@ def trace_queue_wl_mesh(scenes, camera, width: int, height: int,
                 n_work=n_d,
                 wl_block_pix=wl_block_pix[d * nb_d:(d + 1) * nb_d].to(dev),
                 drain_levels=tuple(m for m in drain_levels if m < R_d),
-                kern=kerns[dev],
+                kern=kerns[dev], mesh_share=True,
                 work_id0=(int(chunk_s0) * P + d * wl_d) & rng.M32, **kw)
             parts.append(torch.stack(sums))
     out = mesh_mod.reduce_films(parts, mesh)

@@ -602,19 +602,23 @@ intersect_bvh_plain.calls = 0
 
 
 def intersect_bvh(scene: SceneData, tables: BVHTables, rays: torch.Tensor,
-                  kd, lane_ids):
+                  kd, lane_ids, words: torch.Tensor | None = None):
     """Closest hit of every ray by BVH traversal under ``tables.rule``: the
     CUDA kernel for CUDA tensors; for CPU tensors the plain twin of the
     rule (:func:`intersect_bvh_plain` for ``VISIT``, ``intersect_ti`` for
     ``INDEX``).  ``rays``: (7, R) float32 rows (origin, direction, time);
     ``kd``: the intersect key's two words; ``lane_ids``: (R,) int32 ids
-    keying the media draws.  Returns (best_t, best_i)."""
+    keying the media draws; ``words``: a work-queue render's block
+    (``ops/queue.py::render_words``) on the card, whose intersect key words
+    the kernel reads instead of ``kd`` (the twins take ``kd``).  Returns
+    (best_t, best_i)."""
     if not rays.is_cuda:
         if tables.rule == INDEX:
             return intersect_ti(scene, rays, kd, lane_ids, tables.geo,
                                 tables.media)
         return intersect_bvh_plain(scene, tables, rays, kd, lane_ids)
-    return intersect_bvh_launch(scene, tables, rays, kd, lane_ids)
+    return intersect_bvh_launch(scene, tables, rays, kd, lane_ids,
+                                words=words)
 
 
 intersect_bvh.launches = 0
@@ -622,17 +626,23 @@ intersect_bvh.launches = 0
 
 def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
                          rays: torch.Tensor, kd, lane_ids,
-                         stats: torch.Tensor | None = None):
+                         stats: torch.Tensor | None = None,
+                         words: torch.Tensor | None = None):
     """The traversal kernel on CUDA tensors; counts into
     ``intersect_bvh.launches``.  ``stats``, if given, a zeroed (12,) int64
     tensor on the rays' device, gets the kernel's own counts
-    (``STAT_KEYS``) from its counting form.  Returns (best_t, best_i)."""
+    (``STAT_KEYS``) from its counting form; ``words`` as
+    :func:`intersect_bvh`'s.  Returns (best_t, best_i)."""
     _check_rays(rays)
     R = rays.shape[1]
     dev = rays.device
     need = [rays, tables.nodes, tables.bvh.order, tables.geo, lane_ids]
     if tables.tab is not None:
         need.append(tables.tab)
+    if words is not None:
+        need.append(words)
+        if words.dtype != torch.int64 or words.shape != (4,):
+            raise ValueError("the render words must be a (4,) int64 tensor")
     if stats is not None:
         need.append(stats)
         if stats.dtype != torch.int64 or stats.shape != (len(STAT_KEYS),):
@@ -656,7 +666,8 @@ def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p])
     best_t = torch.empty((R,), dtype=torch.float32, device=dev)
     best_i = torch.empty((R,), dtype=torch.int32, device=dev)
     n_ss, n_s, n_sb, n_solid = _ranges(scene)
@@ -670,6 +681,7 @@ def intersect_bvh_launch(scene: SceneData, tables: BVHTables,
              float(_up(MARGIN_LINEAR)), tables.stack,
              record_budget(scene.n_prims), int(tables.rule == INDEX),
              stats.data_ptr() if stats is not None else None,
+             words.data_ptr() if words is not None else None,
              best_t.data_ptr(), best_i.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

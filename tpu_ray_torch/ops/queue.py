@@ -55,6 +55,32 @@ def inject_ops(m: int, refilled: int, sobol: bool) -> int:
         "sobol" if sobol else "hash"]
 
 
+def render_words(k_isect, k_scat, cam_salt: int, id0: int,
+                 gs0: int) -> np.ndarray:
+    """The words of one work-queue render that its iterations read besides
+    their tensors, as the 32-byte block ``RenderWords`` of
+    csrc/shade_core.cuh (four int64): the intersect and scatter key words,
+    the camera salt, the path ids' first work id and the first global
+    sample ``work_base // (W * H)``.  A render replayed from CUDA graphs
+    (``integrator.QueuePlan``) copies it to the device before its first
+    replay, and its kernels read it there (their ``words`` argument)."""
+    w = np.zeros(8, np.uint32)
+    w[0:2] = [int(k) & rng.M32 for k in k_isect]
+    w[2:4] = [int(k) & rng.M32 for k in k_scat]
+    w[4] = int(cam_salt) & rng.M32
+    w[5] = int(id0) & rng.M32
+    w.view(np.int64)[3] = int(gs0)
+    return w.view(np.int64)
+
+
+def _words_ptr(words, dev):
+    """The device pointer of a render's word block (None: no block)."""
+    if words is None:
+        return None
+    _check("the render words", ((words, (4,), torch.int64),), dev)
+    return words.data_ptr()
+
+
 def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) as the int32 with the same low 32 bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
@@ -83,31 +109,35 @@ def _check(what, tensors, dev):
                              f"{x.device}")
 
 
-def path_ids(work: torch.Tensor, id0: int, bounce: torch.Tensor):
+def path_ids(work: torch.Tensor, id0: int, bounce: torch.Tensor,
+             words: torch.Tensor | None = None):
     """:func:`path_ids_plain`: the CUDA kernel for CUDA tensors (one
     launch), the plain twin for CPU tensors.  ``work``: (m,) int64 work
-    items; ``id0``: the first global work id; ``bounce``: (m,) int32."""
+    items; ``id0``: the first global work id; ``bounce``: (m,) int32;
+    ``words``: a render's block (:func:`render_words`) on the card, whose
+    ``id0`` the kernel reads instead (the twin takes ``id0``)."""
     if not work.is_cuda:
         return path_ids_plain(work, id0, bounce)
-    return path_ids_launch(work, id0, bounce)
+    return path_ids_launch(work, id0, bounce, words)
 
 
 path_ids.launches = 0
 
 
-def path_ids_launch(work: torch.Tensor, id0: int, bounce: torch.Tensor):
+def path_ids_launch(work: torch.Tensor, id0: int, bounce: torch.Tensor,
+                    words: torch.Tensor | None = None):
     """The path-ids kernel on CUDA tensors, one launch; counts into
     ``path_ids.launches``."""
     m = work.shape[0]
     _check("the path-ids kernel", ((work, (m,), torch.int64),
                                    (bounce, (m,), torch.int32)), work.device)
     fn = load_fn("queue", "tr_path_ids", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
     sid = torch.empty((m,), dtype=torch.int32, device=work.device)
     stream = torch.cuda.current_stream(work.device).cuda_stream
-    err = fn(work.data_ptr(), bounce.data_ptr(), int(id0) & rng.M32, m,
-             sid.data_ptr(), stream)
+    err = fn(work.data_ptr(), bounce.data_ptr(), int(id0) & rng.M32,
+             _words_ptr(words, work.device), m, sid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"path-ids kernel launch failed (cudaError {err})")
     path_ids.launches += 1
@@ -186,19 +216,25 @@ queue_inject_plain.calls = 0
 
 def queue_inject(cfg: StepConfig, cam_salt: int, active0, f, i, work,
                  frontier, plane, lane, worklist, total: int, work_base: int,
-                 width: int, height: int, census=None):
+                 width: int, height: int, census=None, out=None, words=None):
     """:func:`queue_inject_plain`: the CUDA kernels for CUDA tensors (a
     count pass and the inject pass; ``f``, ``i``, ``plane`` and ``census``
     in place, the new work, frontier and lane record in fresh tensors; the
     trash column of ``plane`` is not written), the plain twin for CPU
-    tensors."""
+    tensors.  ``out``: (work, frontier, lane) buffers, other than the
+    inputs, that take the kernels' new work, frontier and lane record
+    instead (lane None where ``cfg.b0`` is off; the twin returns fresh
+    tensors); ``words``: a render's block
+    (:func:`render_words`) on the card, whose camera salt and first global
+    sample the kernel reads instead of ``cam_salt`` and ``work_base`` (the
+    twin takes the arguments)."""
     if not f.is_cuda:
         return queue_inject_plain(cfg, cam_salt, active0, f, i, work,
                                   frontier, plane, lane, worklist, total,
                                   work_base, width, height, census)
     return queue_inject_launch(cfg, cam_salt, active0, f, i, work, frontier,
                                plane, lane, worklist, total, work_base,
-                               width, height, census)
+                               width, height, census, out, words)
 
 
 queue_inject.launches = 0
@@ -206,7 +242,8 @@ queue_inject.launches = 0
 
 def queue_inject_launch(cfg: StepConfig, cam_salt: int, active0, f, i, work,
                         frontier, plane, lane, worklist, total: int,
-                        work_base: int, width: int, height: int, census=None):
+                        work_base: int, width: int, height: int, census=None,
+                        out=None, words=None):
     """The count and inject kernels on CUDA tensors, two launches; counts
     one into ``queue_inject.launches``."""
     dev = f.device
@@ -230,12 +267,24 @@ def queue_inject_launch(cfg: StepConfig, cam_salt: int, active0, f, i, work,
     fn = load_fn("queue", "tr_queue_inject", [ctypes.c_void_p] * 14 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p])
     counts = torch.empty((max(-(-m // QUEUE_THREADS), 1),), dtype=torch.int32,
                          device=dev)
-    work_out = torch.empty_like(work)
-    frontier_out = torch.empty_like(frontier)
-    lane_out = torch.empty_like(lane) if cfg.b0 else lane
+    if out is None:
+        work_out = torch.empty_like(work)
+        frontier_out = torch.empty_like(frontier)
+        lane_out = torch.empty_like(lane) if cfg.b0 else lane
+    else:
+        work_out, frontier_out, lane_out = out
+        got = [(work_out, (m,), torch.int64), (frontier_out, (), torch.int64)]
+        if cfg.b0:
+            got.append((lane_out, (2, m), torch.int32))
+        _check("the queue inject kernels' outputs", got, dev)
+        if frontier_out.data_ptr() == frontier.data_ptr():
+            raise ValueError("queue inject: the new frontier needs a buffer "
+                             "of its own (block 0 writes it while the "
+                             "others read the old one)")
     cam = np.ascontiguousarray(cfg.cam, np.float32)
     err = fn(active0.data_ptr(), f.data_ptr(), i.data_ptr(), work.data_ptr(),
              frontier.data_ptr(), plane.data_ptr(),
@@ -246,7 +295,8 @@ def queue_inject_launch(cfg: StepConfig, cam_salt: int, active0, f, i, work,
              None if census is None else census.data_ptr(), cam.ctypes.data,
              cfg.inv_w, cfg.inv_h, int(total), int(work_base), width, height,
              int(cam_salt) & rng.M32, int(cfg.sobol), int(cfg.b0), m,
-             plane.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+             plane.shape[1], _words_ptr(words, dev),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"queue inject kernels launch failed (cudaError "
                            f"{err})")

@@ -893,25 +893,50 @@ def texture_ptrs(cfg: StepConfig):
 
 
 def pool_step(cfg: StepConfig, xy, slot, fstate, istate, best_t, best_i,
-              kd, init: bool = False, lane_b0=None):
+              kd, init: bool = False, lane_b0=None, out=None, words=None):
     """One fused pool iteration: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Returns new (fstate, istate).
-    ``lane_b0`` as :func:`pool_step_plain`'s."""
+    ``lane_b0`` as :func:`pool_step_plain`'s.  ``out``: (fstate, istate)
+    buffers, other than the inputs, that take the kernel's result instead
+    of fresh tensors (the plain version returns fresh ones); ``words``: a
+    work-queue render's block (``ops/queue.py::render_words``) on the
+    card, whose scatter key words the kernel reads instead of ``kd`` and
+    whose camera salt it reads in the sobol-b0 first-bounce draws instead
+    of ``cfg.cam_salt`` (the queue's step regenerates no camera ray; the
+    plain version takes ``kd`` and ``cfg``)."""
     if not fstate.is_cuda:
         return pool_step_plain(cfg, xy, slot, fstate, istate, best_t, best_i,
                                kd, init, lane_b0)
     _check(cfg, xy, slot, fstate, istate, best_t, best_i, lane_b0)
     fn = load_fn("pool_step", "tr_pool_step",
-                 [ctypes.c_void_p] * 20 + [ctypes.c_longlong, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 21 + [ctypes.c_longlong, ctypes.c_void_p])
     R = fstate.shape[1]
-    f_out = torch.empty_like(fstate)
-    i_out = torch.empty_like(istate)
+    if out is None:
+        f_out = torch.empty_like(fstate)
+        i_out = torch.empty_like(istate)
+    else:
+        f_out, i_out = out
+        if f_out.shape != fstate.shape or i_out.shape != istate.shape \
+                or f_out.dtype != fstate.dtype or i_out.dtype != istate.dtype \
+                or not (f_out.is_contiguous() and i_out.is_contiguous()) \
+                or f_out.device != fstate.device \
+                or i_out.device != fstate.device:
+            raise ValueError("pool step: the output buffers must be "
+                             "contiguous and like the state")
+        if f_out.data_ptr() == fstate.data_ptr() \
+                or i_out.data_ptr() == istate.data_ptr():
+            raise ValueError("pool step: an output buffer is its input")
+    if words is not None and (words.shape != (4,) or words.dtype !=
+                              torch.int64 or words.device != fstate.device):
+        raise ValueError("pool step: the render words must be a (4,) int64 "
+                         "tensor on the state's device")
     params = _params(cfg, kd, init)
     err = fn(xy.data_ptr(), slot.data_ptr(), fstate.data_ptr(),
              istate.data_ptr(), best_t.data_ptr(), best_i.data_ptr(),
              *table_ptrs(cfg), *texture_ptrs(cfg),
              lane_b0.data_ptr() if cfg.b0 else None,
-             params.ctypes.data, f_out.data_ptr(),
+             params.ctypes.data,
+             None if words is None else words.data_ptr(), f_out.data_ptr(),
              i_out.data_ptr(), R,
              torch.cuda.current_stream(fstate.device).cuda_stream)
     if err != 0:

@@ -51,14 +51,16 @@ SPANS = {
                       "build_bvh for bvh=True",
     "render.plan": "plan_queue / plan_pool, the chunk plan, the key words, "
                    "the pool's pixel grid and slot ids, the queue's epoch "
-                   "cap",
+                   "cap and its plan's lookup (integrator.replay_key)",
     "render.config_tag": "_config_tag (the checkpoint tag's scene hash), "
                          "the checkpoint's path and film (loaded or zero)",
     "render.step_config": "StepConfig.create",
     "queue.init": "integrator._queue_init",
     "queue.read": "trace_queue's read of (frontier, active, census) once an "
                   "epoch, the progress callback and the exit test",
-    "queue.iteration": "one queue_body call (no span inside it)",
+    "queue.iteration": "one dispatch of queue work: a queue_body call, or "
+                       "an epoch's replay from integrator.QueuePlan's CUDA "
+                       "graph (no span inside it)",
     "queue.compact": "queue_compact at a drain level",
     "render.finish": "from a queue call's or the pool's loop end to the "
                      "next call's first iteration or the image on the host "
@@ -84,10 +86,13 @@ COUNTERS = {
     "aov": ("aov", "aov_features", "launches"),
     # the work queue (integrator.trace_queue): calls; path vertices, the sum
     # over iterations of the lanes active at the closest hit; lane slots,
-    # the sum of the pool size over every dispatched iteration
+    # the sum of the pool size over every dispatched iteration; iterations
+    # dispatched, and of them those an epoch's replay ran
     "queue_calls": ("integrator", "QueueCounts", "calls"),
     "vertices": ("integrator", "QueueCounts", "vertices"),
     "lane_slots": ("integrator", "QueueCounts", "lane_slots"),
+    "iterations": ("integrator", "QueueCounts", "iterations"),
+    "replayed": ("integrator", "QueueCounts", "replayed"),
 }
 LAUNCHES = tuple(k for k, v in COUNTERS.items() if v[2] == "launches")
 
@@ -134,13 +139,34 @@ class Phase:
         self.end()
 
 
+def _holder(name: str):
+    """The object that holds counter ``name``, and its attribute."""
+    mod, fn, attr = COUNTERS[name]
+    m = importlib.import_module(f"{__package__.rpartition('.')[0]}.{mod}")
+    return getattr(m, fn), attr
+
+
 def counts() -> dict:
     """A snapshot of every counter in :data:`COUNTERS`, by name."""
     out = {}
-    for name, (mod, fn, attr) in COUNTERS.items():
-        m = importlib.import_module(f"{__package__.rpartition('.')[0]}.{mod}")
-        out[name] = getattr(getattr(m, fn), attr)
+    for name in COUNTERS:
+        holder, attr = _holder(name)
+        out[name] = getattr(holder, attr)
     return out
+
+
+def launch_counts() -> dict:
+    """A snapshot of the launch counters (:data:`LAUNCHES`), by name."""
+    return {k: getattr(*_holder(k)) for k in LAUNCHES}
+
+
+def add_launches(delta: dict) -> None:
+    """Add ``delta[name]`` to each launch counter it names: the launches a
+    replayed CUDA graph ran, whose wrappers counted at its capture
+    (``integrator.QueuePlan``)."""
+    for name, n in delta.items():
+        holder, attr = _holder(name)
+        setattr(holder, attr, getattr(holder, attr) + n)
 
 
 @contextlib.contextmanager
